@@ -9,13 +9,17 @@ built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
 fails:
 
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
-2. build: every kernel of the serving path, from ``paddle_tpu_torch/csrc``,
-   with nvcc for sm_90a (the build time is printed);
+2. build: every kernel of the serving and training paths (K1 decode
+   attention, K2-K4 flash attention forward, dQ and dK/dV), from
+   ``paddle_tpu_torch/csrc``, with one nvcc call for sm_90a (the build time
+   is printed);
 3. each kernel against its plain PyTorch version on the card, at the
-   listed shapes and dtypes, with the tolerance stated per dtype;
+   listed shapes and dtypes, with the tolerance stated per dtype and
+   tensor;
 4. a reference check at a small size in fp32: the engine's tokens equal
    ``generate()`` with and without the KV cache (the cache-free path runs
-   no kernel);
+   K2, flash attention, once per layer and new token: its launches are
+   counted and checked);
 5. serving at the full ``LlamaConfig.llama_7b()`` width (32 layers, bf16,
    seeded random weights): 16 requests through ``ServingEngine`` with a
    late join; every request must finish with its prompt plus its new
@@ -30,17 +34,34 @@ fails:
    yardstick, and the least time the card could take (``bound_ms``, from
    the bytes and flops the inputs need); then decode steps timed on the
    host clock and a few traced with ``torch.profiler``: device time per
-   step by kernel, and the device's busy share of a step.
+   step by kernel, and the device's busy share of a step;
+7. the serving model is freed; a small fp32 training check: three steps of
+   ``build_hybrid_train_step`` on the card (K2-K4) equal the same steps on
+   the CPU (the plain versions) in loss at AdamW's default epsilon, and in
+   loss and parameters at epsilon 1e-3;
+8. training at ``llama_7b`` width (hidden 4096, 32 heads, intermediate
+   11008, vocab 32000) cut to 8 layers, batch 2 x seq 2048, bf16 amp with
+   fp32 masters, remat, AdamW(1e-4), fused_loss off: 2 warm-up and 10
+   timed steps on one seeded batch; every loss finite, the last below the
+   first, and per step exactly 2 x layers K2 launches (forward and the
+   remat recompute) and layers K3 and K4 launches; then one step traced
+   with ``torch.profiler``;
+9. K2, K3 and K4 timed at the training shape (B=2, S=2048, H=32, D=128,
+   bf16, causal) from CUDA-graph replays, beside their plain versions,
+   ``F.scaled_dot_product_attention(is_causal=True)`` forward and its
+   autograd backward (one time for K3 and K4 together) as the library
+   yardstick, and the least time the card could take (``bound_ms``).
 
-The last lines are a ``{"decode_profile": ...}`` line, a
-``{"kernels": [...]}`` line, a ``{"serving": ...}`` line, and
-``{"ok": true, "device": {...}}``. The run uses one card: it shows torch
+The last lines are ``{"decode_profile": ...}``, ``{"training": ...}``,
+``{"kernels": [...]}`` (all four kernels), ``{"serving": ...}``, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``. The run uses one card: it shows torch
 only the first of ``CUDA_VISIBLE_DEVICES`` (default 0). ``--out`` also writes every
 number as JSON.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -92,20 +113,20 @@ def gpu_name_and_power(card: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, arg_sets, reps=5):
+def cuda_ms(fn, arg_sets, reps=5, stream=None):
     """Device ms per call of fn, one call per entry of arg_sets: the calls
-    are captured into one CUDA graph (after a warm-up on the capture
-    stream), and the graph's replays are timed with CUDA events, so the
-    host's launch cost does not enter the number."""
+    are captured into one CUDA graph on `stream` (a new side stream by
+    default) after a warm-up there, and the graph's replays are timed with
+    CUDA events, so the host's launch cost does not enter the number."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for args in arg_sets[:2]:
             fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for args in arg_sets:
             fn(*args)
     graph.replay()
@@ -184,9 +205,10 @@ def phase_kernel_cases(torch, attn, attn_ref):
 
 
 def phase_small_reference(torch, LlamaConfig, LlamaForCausalLM,
-                          ServingEngine):
-    """fp32, tiny width: engine tokens == generate() with the kernel
-    (use_cache=True) == generate() without any kernel (use_cache=False)."""
+                          ServingEngine, fa):
+    """fp32, tiny width: engine tokens == generate() with the decode kernel
+    (use_cache=True) == generate() without a cache, whose full-sequence
+    forwards run K2 (flash attention) once per layer and new token."""
     cfg = LlamaConfig.tiny(vocab=64, hidden=256, layers=2, heads=4,
                            inter=512, seq=64)
     cfg.num_key_value_heads = 2
@@ -198,13 +220,19 @@ def phase_small_reference(torch, LlamaConfig, LlamaForCausalLM,
     for p, o in zip(prompts, outs):
         ids = torch.from_numpy(p.reshape(1, -1)).to(DEVICE)
         cached = m.generate(ids, max_new_tokens=8).cpu().numpy()[0]
+        before = fa.flash_attention_fwd.launches
         plain = m.generate(ids, max_new_tokens=8,
                            use_cache=False).cpu().numpy()[0]
+        n = fa.flash_attention_fwd.launches - before
+        check(n == 8 * cfg.num_hidden_layers,
+              f"generate(use_cache=False) launched K2 {n} times, want "
+              f"new tokens x layers = {8 * cfg.num_hidden_layers}")
         check(np.array_equal(o, cached) and np.array_equal(o, plain),
               f"small fp32 reference: engine {o.tolist()} vs generate "
               f"{cached.tolist()} vs no-cache {plain.tolist()}")
     log(f"small fp32 reference: {len(prompts)} requests, engine == "
-        f"generate(use_cache=True) == generate(use_cache=False)")
+        f"generate(use_cache=True) == generate(use_cache=False), the latter "
+        f"through K2 ({8 * cfg.num_hidden_layers} launches each)")
 
 
 def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
@@ -296,10 +324,11 @@ def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
 
 
 def phase_teacher_forced(torch, model, reqs, specs):
-    """The 7B-width greedy tokens against the cache-free forward (plain
-    causal attention, no kernel) over the same sequence: the share of
-    positions whose argmax agrees. bf16 rounding over 32 layers may flip
-    near-ties; a broken decode path agrees at chance level (~1/32000)."""
+    """The 7B-width greedy tokens against the cache-free forward (flash
+    attention, K2, instead of the decode kernel) over the same sequence:
+    the share of positions whose argmax agrees. bf16 rounding over 32
+    layers may flip near-ties; a broken decode path agrees at chance level
+    (~1/32000)."""
     i = min((j for j, s in enumerate(specs) if not s["sampled"]),
             key=lambda j: specs[j]["prompt"].size)
     out = reqs[i].result()
@@ -435,6 +464,326 @@ def phase_decode_profile(torch, eng, n_steps=20, n_traced=5):
     }
 
 
+# Training at llama_7b width, cut in depth: fp32 masters, grads and AdamW
+# moments of all 32 layers (6.74e9 params x 16 B = 108 GB) exceed the
+# card's 80 GB; 8 layers hold 1.88e9 params (30 GB of state).
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# Flash-attention cases: (name, B, Sq, Sk, H, Hkv, D, causal).
+FLASH_CASES = [
+    ("d64_mha_causal_s200", 2, 200, 200, 8, 8, 64, True),
+    ("d64_gqa4_s200", 2, 200, 200, 8, 2, 64, False),
+    ("d128_gqa4_causal_sq64_sk160", 1, 64, 160, 8, 2, 128, True),
+    ("d128_mha_sq130_sk300", 2, 130, 300, 4, 4, 128, False),
+    ("d128_mha_causal_s1000", 1, 1000, 1000, 8, 8, 128, True),
+]
+# (rtol, step) per dtype. Every row of D values (one batch, position and
+# head: a query row of O and dQ, a key row of dK and dV) is held to its own
+# scale: |got - want| <= atol + rtol x |want| with atol = step x the row's
+# max|want| (at least FLASH_FLOOR). O within one step: the kernel rounds P
+# to the dtype against the running row max, the plain version against the
+# final one, and each rounds O once. Grads within two steps: both round the
+# same P and dS from fp32 sums taken in another order, where a tie can
+# round one element a step apart. FLASH_FLOOR covers rows that are fp32
+# noise in both (dQ of causal row 0, where dS = P (dP - delta) cancels).
+# LSE is fp32 in both: atol 1e-4, rtol 1e-5.
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -7),
+             "float16": (2.0 ** -10, 2.0 ** -10)}
+FLASH_FLOOR = 1e-6
+
+
+def flash_close(got, want, dtype_name, mult=1.0):
+    """(ok, max abs error, worst share of the tolerance) under the row-wise
+    rule above; a share above 1 fails, and a NaN fails."""
+    rtol, step = FLASH_TOL[dtype_name]
+    got, want = got.float(), want.float()
+    atol = (mult * step * want.abs().amax(-1, keepdim=True)).clamp_min(
+        FLASH_FLOOR)
+    diff = (got - want).abs()
+    share = float((diff / (atol + rtol * want.abs())).max())
+    return share <= 1.0, float(diff.max()), share
+
+
+def flash_inputs(torch, B, Sq, Sk, H, Hkv, D, dtype, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [(0.5 * torch.randn(shape, generator=g, device=DEVICE)).to(dtype)
+            for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
+                          (B, Sq, H, D))]
+
+
+def flash_check(torch, fa, q, k, v, do, causal, label):
+    """K2, K3 and K4 against their plain versions on one input set: logs
+    every tensor's reading, then raises on a disagreement. Returns the
+    largest abs error and the worst share of the tolerance per tensor."""
+    name = str(q.dtype).replace("torch.", "")
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    delta = (do.float() * want_o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta, causal)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_attention_bwd_dq_ref(q, k, v, do, want_lse, delta,
+                                            causal)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, want_lse,
+                                                      delta, causal)
+    errs, shares, bad = {}, {}, []
+    for tname, got, want, mult in (("O", o, want_o, 1.0),
+                                   ("dq", dq, want_dq, 2.0),
+                                   ("dk", dk, want_dk, 2.0),
+                                   ("dv", dv, want_dv, 2.0)):
+        ok, errs[tname], shares[tname] = flash_close(got, want, name, mult)
+        if not ok or got.dtype != q.dtype:
+            bad.append(tname)
+    errs["lse"] = float((lse - want_lse).abs().max())
+    if not torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-4):
+        bad.append("lse")
+    log(f"flash kernels-vs-plain {label}: " + ", ".join(
+        f"{t} {e:.3g}" + (f" ({shares[t]:.3g} of tol)" if t in shares else "")
+        for t, e in errs.items()))
+    check(not bad, f"flash kernel disagrees with its plain version in case "
+                   f"{label}: {', '.join(bad)}")
+    return errs, shares
+
+
+def phase_flash_cases(torch, fa):
+    """K2-K4 vs their plain versions over D 64/128, groups 1/4, causal or
+    not, S not a multiple of the 64-row tile, Sq != Sk, in every dtype."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for name, B, Sq, Sk, H, Hkv, D, causal in FLASH_CASES:
+            q, k, v, do = flash_inputs(torch, B, Sq, Sk, H, Hkv, D, dt, 3)
+            label = f"{name}_{str(dt).replace('torch.', '')}"
+            errs, shares = flash_check(torch, fa, q, k, v, do, causal, label)
+            out[label] = {"max_abs_err": max(errs[t] for t in shares),
+                          "tol_share": max(shares.values())}
+    return out
+
+
+def phase_small_train(torch, LlamaConfig, LlamaForCausalLM, build, AdamW):
+    """fp32, tiny width, GQA: three train steps on the card (flash through
+    K2-K4) against three on the CPU (their plain versions), rtol 1e-4 /
+    atol 1e-5. At AdamW's default epsilon (1e-8) an early step moves an
+    element by about lr x sign(grad), so an element whose grad is near 0,
+    where the card's and the CPU's fp32 sums may differ in sign, can land
+    2 x lr apart: that run compares the losses, and logs how many elements
+    differ. With epsilon 1e-3 the update is a smooth function of the grads,
+    and that run compares every parameter as well."""
+    cfg = LlamaConfig.tiny(vocab=64, hidden=256, layers=2, heads=4,
+                           inter=512, seq=64)
+    cfg.num_key_value_heads = 2
+    ids = np.random.RandomState(1).randint(0, 64, (2, 65))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    for eps, whole in ((1e-8, False), (1e-3, True)):
+        losses, states = [], []
+        for dev in (DEVICE, "cpu"):
+            m = LlamaForCausalLM(cfg, device="cpu", seed=5).to(dev)
+            opt = AdamW(learning_rate=1e-3, epsilon=eps,
+                        parameters=m.parameters())
+            step = build(m, opt, remat=True, amp=False)
+            losses.append([float(step(batch)) for _ in range(3)])
+            states.append({n: p.detach().cpu()
+                           for n, p in m.named_parameters()})
+        check(np.allclose(losses[0], losses[1], rtol=1e-4),
+              f"small train, epsilon {eps}: card losses {losses[0]} vs CPU "
+              f"{losses[1]}")
+        apart = {n: int((~torch.isclose(p, states[1][n], rtol=1e-4,
+                                        atol=1e-5)).sum())
+                 for n, p in states[0].items()}
+        n_apart = sum(apart.values())
+        log(f"small fp32 train check, epsilon {eps}: 3 steps, card losses "
+            f"{losses[0]} vs CPU (plain versions) {losses[1]}; "
+            f"{n_apart} of {sum(p.numel() for p in states[0].values())} "
+            f"parameter elements outside rtol 1e-4 / atol 1e-5")
+        if whole:
+            check(n_apart == 0, "small train: parameters differ between card "
+                  "and CPU: " + str({n: c for n, c in apart.items() if c}))
+
+
+def train_flops(n_params, layers, batch, seq, hidden):
+    """bench.py:203-209: 6ND matmul flops plus causal attention, fwd 4 x B
+    x S^2 x H per layer, x3 for fwd + bwd, x0.5 causal."""
+    return 6.0 * n_params * batch * seq + 12.0 * layers * batch * seq \
+        * seq * hidden * 0.5
+
+
+def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
+                fa):
+    """The training main path at llama_7b width, cut to TRAIN_LAYERS."""
+    from torch.profiler import ProfilerActivity, profile
+    base = LlamaConfig.llama_7b()
+    cfg = LlamaConfig(vocab_size=base.vocab_size,
+                      hidden_size=base.hidden_size,
+                      intermediate_size=base.intermediate_size,
+                      num_hidden_layers=TRAIN_LAYERS,
+                      num_attention_heads=base.num_attention_heads,
+                      max_position_embeddings=TRAIN_SEQ)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.float32,
+                             seed=args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = build(model, opt, remat=True, amp=True, fused_loss=False)
+    rng = np.random.RandomState(args.seed)
+    ids = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
+    batch = {"input_ids": torch.from_numpy(ids[:, :-1]).to(DEVICE),
+             "labels": torch.from_numpy(ids[:, 1:]).to(DEVICE)}
+    torch.cuda.synchronize()
+    log(f"train model: {TRAIN_LAYERS} layers at llama_7b width, "
+        f"{n_params / 1e9:.3f}B fp32 params, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(float(step(batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    for kern in kernels:
+        kern.launches = 0     # the main path's run starts here
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = [kern.launches for kern in kernels]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = [TRAIN_STEPS * 2 * TRAIN_LAYERS, TRAIN_STEPS * TRAIN_LAYERS,
+            TRAIN_STEPS * TRAIN_LAYERS]
+    check(launches == want,
+          f"flash kernels launched {launches} times (K2, K3, K4) in "
+          f"{TRAIN_STEPS} train steps, want {want}")
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0],
+          f"training loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    p50 = float(np.percentile(step_ms, 50))
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+
+    def share(*keys):
+        return sum(r[1] for r in rows if any(k in r[0] for k in keys))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(n_params, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ,
+                        cfg.hidden_size)
+    training = {
+        "layers": TRAIN_LAYERS, "hidden": cfg.hidden_size,
+        "heads": cfg.num_attention_heads,
+        "intermediate": cfg.intermediate_size, "vocab": cfg.vocab_size,
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+        "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+        "step_ms_p50": p50, "step_ms_min": float(min(step_ms)),
+        "tokens_per_s": tokens / (p50 / 1e3),
+        "mfu": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
+        "flops_per_step": flops, "peak_mem_gib": peak,
+        "launches_per_step": {"flash_fwd": launches[0] // TRAIN_STEPS,
+                              "flash_bwd_dq": launches[1] // TRAIN_STEPS,
+                              "flash_bwd_dkv": launches[2] // TRAIN_STEPS},
+        "traced_device_ms": device_ms if rows else None,
+        "busy_share": device_ms / p50 if rows else None,
+        "traced_kernel_launches": sum(r[2] for r in rows),
+        "device_ms_by_part": {
+            "flash_fwd": share("flash_fwd"),
+            "flash_bwd_dq": share("flash_bwd_dq"),
+            "flash_bwd_dkv": share("flash_bwd_dkv"),
+            "gemm": share("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet"),
+        } if rows else None,
+        "top_kernels": [{"name": r[0][:90], "ms": r[1], "calls": r[2]}
+                        for r in rows[:15]],
+    }
+    log(f"trained {TRAIN_WARMUP}+{TRAIN_STEPS} steps: loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}, step p50 {p50:.1f} ms, flash launches "
+        f"{launches} (= steps x [2L, L, L])")
+    return model, opt, step, training
+
+
+def flash_bound(q, k, causal, kind):
+    """Least time (ms) for one flash kernel on these inputs: bytes (each
+    input read once, each output written once) over HBM, or flops over
+    the dtype's peak, whichever is larger. Pairs (query, key) are what the
+    causal mask keeps: S(S+1)/2 per (batch, head) when Sq == Sk."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    pairs = B * H * (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+                     else Sq * Sk)
+    e = q.element_size()
+    qb, kb, stat = q.numel() * e, k.numel() * e, B * H * Sq * 4
+    if kind == "fwd":       # read q, k, v; write O, LSE
+        nbytes, flops = 2 * qb + 2 * kb + stat, 4 * D * pairs
+    elif kind == "dq":      # read q, k, v, dO, LSE, delta; write dQ
+        nbytes, flops = 3 * qb + 2 * kb + 2 * stat, 6 * D * pairs
+    else:                   # read q, k, v, dO, LSE, delta; write dK, dV
+        nbytes, flops = 2 * qb + 4 * kb + 2 * stat, 8 * D * pairs
+    dt = str(q.dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash_timing(torch, fa, heads, head_dim):
+    """K2, K3 and K4 at the training shape (bf16, causal), each beside its
+    plain version, SDPA (forward; autograd backward for K3 + K4 together)
+    and its bound; the kernels are also held against the plain versions
+    here."""
+    import torch.nn.functional as tF
+    q, k, v, do = flash_inputs(torch, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+                               heads, heads, head_dim, torch.bfloat16, 7)
+    errs, shares = flash_check(torch, fa, q, k, v, do, True,
+                               "training_shape_bf16")
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    fwd_args = [(q, k, v, True)]
+    bwd_args = [(q, k, v, do, lse, delta, True)]
+    res = {
+        "fwd": {"ms": cuda_ms(fa.flash_attention_fwd, fwd_args),
+                "plain_ms": cuda_ms(fa.flash_attention_fwd_ref, fwd_args),
+                "max_abs_err": errs["O"], "tol_share": shares["O"]},
+        "dq": {"ms": cuda_ms(fa.flash_attention_bwd_dq, bwd_args),
+               "plain_ms": cuda_ms(fa.flash_attention_bwd_dq_ref, bwd_args),
+               "max_abs_err": errs["dq"], "tol_share": shares["dq"]},
+        "dkv": {"ms": cuda_ms(fa.flash_attention_bwd_dkv, bwd_args),
+                "plain_ms": cuda_ms(fa.flash_attention_bwd_dkv_ref,
+                                    bwd_args),
+                "max_abs_err": max(errs["dk"], errs["dv"]),
+                "tol_share": max(shares["dk"], shares["dv"])},
+    }
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    res["fwd"]["library_ms"] = cuda_ms(
+        lambda a, b, c: tF.scaled_dot_product_attention(a, b, c,
+                                                        is_causal=True),
+        [(qt, kt, vt)])
+    # Autograd runs a backward op on its forward op's stream, so the SDPA
+    # forward runs on the stream its backward is captured on.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        out = tF.scaled_dot_product_attention(*leaves, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, dot, retain_graph=True), [()], stream=side)
+    res["dq"]["library_ms"] = res["dkv"]["library_ms"] = lib_bwd
+    for kind in ("fwd", "dq", "dkv"):
+        bound, by = flash_bound(q, k, True, kind)
+        res[kind].update(bound_ms=bound, bound_by=by)
+    del out, leaves
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -450,10 +799,13 @@ def main(argv=None) -> int:
         return 2
     from paddle_tpu_torch.inference.serving import (RequestState,
                                                     ServingEngine)
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               build_hybrid_train_step)
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         ragged_decode_attention as attn, ragged_decode_attention_ref)
+    from paddle_tpu_torch.optimizer import AdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -469,8 +821,9 @@ def main(argv=None) -> int:
         f"(sm_90a) in {build_s:.1f}s")
 
     case_errs = phase_kernel_cases(torch, attn, ragged_decode_attention_ref)
+    flash_cases = phase_flash_cases(torch, fa)
     phase_small_reference(torch, LlamaConfig, LlamaForCausalLM,
-                          ServingEngine)
+                          ServingEngine, fa)
     model, eng, reqs, specs, serving = phase_serve(
         torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
         RequestState, attn)
@@ -483,7 +836,27 @@ def main(argv=None) -> int:
         + json.dumps(full))
     profile = {"lengths": live_lengths.tolist(), "prefill_ms": prefill_ms,
                **phase_decode_profile(torch, eng)}
+    heads = model.config.num_attention_heads
+    head_dim = model.config.hidden_size // heads
+    del model, eng, reqs          # free the serving model for training
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    phase_small_train(torch, LlamaConfig, LlamaForCausalLM,
+                      build_hybrid_train_step, AdamW)
+    tmodel, opt, step, training = phase_train(
+        torch, args, LlamaConfig, LlamaForCausalLM, build_hybrid_train_step,
+        AdamW, fa)
+    del tmodel, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = phase_flash_timing(torch, fa, heads, head_dim)
+    log(f"flash kernels at B={TRAIN_BATCH} S={TRAIN_SEQ} H={heads} "
+        f"D={head_dim} bf16 causal: " + json.dumps(flash))
+
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    pallas = "paddle_tpu/ops/pallas/flash_attention.py"
+    per_step = training["launches_per_step"]
     kernels = {"kernels": [{
         "name": "ragged_decode_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/decode_attention.cu",
@@ -492,18 +865,34 @@ def main(argv=None) -> int:
         "ms": live["ms"], "plain_ms": live["plain_ms"],
         "bound_ms": live["bound_ms"], "bound_by": live["bound_by"],
         "library_ms": live["library_ms"]}]}
+    for name, key, line in (("flash_attention_fwd", "fwd", 47),
+                            ("flash_attention_bwd_dq", "dq", 129),
+                            ("flash_attention_bwd_dkv", "dkv", 166)):
+        r = flash[key]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"{pallas}:{line}",
+            "launches": per_step[name.replace("attention_", "")]
+            * training["steps"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     serving["teacher_forced_agreement"] = agree
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump({"card": card, "kind": kind, "build_s": build_s,
                        "case_max_abs_err": case_errs,
+                       "flash_cases": flash_cases,
                        "live_lengths": live_lengths.tolist(),
                        "kernel_live": live, "kernel_full": full,
-                       "serving": serving, "decode_profile": profile,
+                       "flash_timing": flash, "serving": serving,
+                       "decode_profile": profile, "training": training,
                        **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
+    log(json.dumps({"training": training}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))
+    log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,8 +7,10 @@ on the card (``cuda``) unless the caller passes ``device="cpu"``; with no
 CUDA device they raise. Every Pallas kernel on a ported path is a kernel
 written by hand for Hopper under ``csrc/``, built with nvcc at first use.
 
-This slice serves LLaMA: ``models.llama.LlamaForCausalLM`` and
-``inference.serving.ServingEngine``.
+Ported so far: serving LLaMA (``models.llama.LlamaForCausalLM``,
+``inference.serving.ServingEngine``) and training it on one device
+(``models.build_hybrid_train_step`` with ``optimizer.AdamW`` and
+``nn.clip.ClipGradByGlobalNorm``).
 """
 from .core.device import get_device, resolve_device, set_device  # noqa: F401
 from .core.generator import seed  # noqa: F401

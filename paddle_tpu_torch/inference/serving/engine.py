@@ -43,6 +43,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ...core.errors import NotInThisSlice
 from ...distributed.chaos import faultpoint, register_fault
 from ...observability import trace
 from ...utils.deadline import EngineOverloaded, env_int, env_timeout
@@ -60,17 +61,6 @@ FP_PRESSURE = register_fault(
 # entered at _LADDER_ENTER[L] and left below _LADDER_EXIT[L]
 _LADDER_ENTER = (0.0, 0.50, 0.75, 0.90)
 _LADDER_EXIT = (0.0, 0.25, 0.50, 0.75)
-
-
-class NotInThisSlice(NotImplementedError):
-    """A serving feature the port does not have yet. Raised at engine
-    construction instead of ignoring the request."""
-
-    def __init__(self, feature: str, knob: str):
-        self.feature = feature
-        super().__init__(
-            f"{feature} ({knob}) is not ported to paddle_tpu_torch yet: it "
-            f"waits for the serving slice listed in ROADMAP.md Queue 1")
 
 
 class SamplingUnsupported(NotImplementedError):

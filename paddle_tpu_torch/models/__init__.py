@@ -1,4 +1,6 @@
 """Models: LLaMA."""
-from .llama import LlamaConfig, LlamaForCausalLM, load_paddle_tpu_state  # noqa: F401
+from .llama import (LlamaConfig, LlamaForCausalLM,  # noqa: F401
+                    build_hybrid_train_step, load_paddle_tpu_state)
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "load_paddle_tpu_state"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "build_hybrid_train_step",
+           "load_paddle_tpu_state"]

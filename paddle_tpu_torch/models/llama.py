@@ -1,16 +1,20 @@
-"""LLaMA causal LM for serving, in PyTorch.
+"""LLaMA causal LM for serving and training, in PyTorch.
 
-Counterpart of ``paddle_tpu/models/llama.py`` (:42-508): the config, the
+Counterpart of ``paddle_tpu/models/llama.py`` (:42-977): the config, the
 interleaved-pair RoPE, attention with and without a KV cache, the SwiGLU
 MLP, the decoder stack, the lm head, the KV-cache steps the serving engine
-drives, and greedy/temperature ``generate``. Layer and parameter names
-match the JAX model's, so ``load_paddle_tpu_state`` carries its weights
-across unchanged.
+drives, greedy/temperature ``generate``, ``compute_loss`` and the
+single-device leg of ``build_hybrid_train_step``. Layer and parameter
+names match the JAX model's, so ``load_paddle_tpu_state`` carries its
+weights across unchanged.
 
-Attention dispatch follows the JAX model's own condition (llama.py:172):
-a single-token step (``s == 1``) in float32/bfloat16/float16 goes through
-``ragged_decode_attention``, the hand-written decode kernel; every other
-cached step (prefill) takes the masked plain attention, as XLA does there.
+Attention dispatch follows the JAX model's own conditions: a single-token
+cached step (``s == 1``) in float32/bfloat16/float16 goes through
+``ragged_decode_attention``, the decode kernel (llama.py:172); every other
+cached step (prefill) takes the masked plain attention, as XLA does there;
+the cache-free forward (training, ``generate(use_cache=False)``) goes
+through ``F.scaled_dot_product_attention(is_causal=True)``, which is flash
+attention: K2 forward, K3/K4 backward (llama.py:205, attention.py:66-68).
 """
 from __future__ import annotations
 
@@ -22,13 +26,16 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.errors import NotInThisSlice
 from ..nn import functional as F
+from ..nn.clip import ClipGradByGlobalNorm
 from ..nn.layers import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
                          VocabParallelEmbedding)
 from ..ops.kernels.decode_attention import ragged_decode_attention
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM", "load_paddle_tpu_state"]
+           "LlamaModel", "LlamaForCausalLM", "load_paddle_tpu_state",
+           "paddle_tpu_state", "build_hybrid_train_step"]
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -117,7 +124,7 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         q, k = _rope(q, k, self.config.rope_theta, position_offset)
         if kv_cache is None:
-            attn = F.sdpa_ref(q, k, v, causal=True)
+            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
             return self.o_proj(attn.reshape(b, s, -1))
         k_cache, v_cache = kv_cache
         s_max = k_cache.shape[1]
@@ -210,8 +217,10 @@ class LlamaForCausalLM(nn.Module):
     ``device="cpu"`` runs on the CPU. Weights are drawn from an explicit
     generator seeded with ``seed`` on that device (XavierNormal
     projections and embedding, ones for the norms); load the JAX model's
-    weights with ``load_paddle_tpu_state``. Inference only: every entry
-    point runs under ``torch.inference_mode()``.
+    weights with ``load_paddle_tpu_state``. The serving entry points
+    (``forward``, the cached and slot steps, ``generate``) run under
+    ``torch.inference_mode()``; ``logits`` and ``compute_loss`` build an
+    autograd graph for training.
     """
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
@@ -242,7 +251,18 @@ class LlamaForCausalLM(nn.Module):
             h = self.llama(input_ids, caches=caches,
                            position_offset=position_offset)
             return self.lm_head(h), caches
+        return self.logits(input_ids)
+
+    def logits(self, input_ids) -> torch.Tensor:
+        """Logits ``[B, S, vocab]`` of the cache-free forward, building an
+        autograd graph (``forward`` runs under inference mode)."""
         return self.lm_head(self.llama(input_ids))
+
+    def compute_loss(self, input_ids, labels) -> torch.Tensor:
+        """Mean cross entropy of the logits against ``labels``
+        (llama.py:296-299); labels of -100 are ignored."""
+        return F.cross_entropy(self.logits(input_ids), labels,
+                               reduction="mean")
 
     @torch.inference_mode()
     def init_kv_caches(self, batch_size: int, max_len: int,
@@ -364,3 +384,140 @@ def load_paddle_tpu_state(model: nn.Module,
         with torch.no_grad():
             p.copy_(torch.tensor(arr, device=p.device, dtype=p.dtype))
     return model
+
+
+def paddle_tpu_state(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The other direction of ``load_paddle_tpu_state``: the model's
+    parameters as ``{name: np.ndarray}`` in float32, keyed as the JAX
+    model's ``named_parameters()``."""
+    return {n: p.detach().float().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def _mesh_axes(mesh) -> Dict[str, int]:
+    if mesh is None:
+        return {}
+    shape = getattr(mesh, "shape", mesh)
+    return {str(k): int(v) for k, v in dict(shape).items()}
+
+
+def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
+                            n_microbatches: int = 1, remat: bool = True,
+                            amp: bool = False, schedule: str = "1f1b",
+                            n_virtual: int = 1,
+                            accumulate_steps: Optional[int] = None,
+                            fused_loss: bool = False):
+    """The single-device leg of ``build_hybrid_train_step``
+    (llama.py:534-977): ``step(batch_dict) -> loss`` over
+    ``{"input_ids": [B, S], "labels": [B, S]}`` (numpy or tensors).
+
+    Per step: embedding, the decoder blocks (each under
+    ``torch.utils.checkpoint`` when ``remat``, as ``jax.checkpoint`` wraps
+    the scanned block), the final norm, the lm head and the mean cross
+    entropy (``_head_ce``, :587-608; logits in fp32 under amp); then
+    backward. With ``amp`` every floating parameter is cast to bfloat16
+    inside the step by a differentiable cast (``_amp_cast``, :666-671) and
+    the embedding output is bfloat16, so grads land on the fp32 masters;
+    ``torch.autocast`` is not used (its cast lists differ).
+    ``accumulate_steps > 1`` splits the batch into micro-steps and takes the
+    mean loss and mean grads (:857-880). A ``ClipGradByGlobalNorm`` grad
+    clip is honoured, any other is not (:888-897). Then the optimizer's
+    rule updates every parameter, weight decay included on norms and
+    embeddings, with the step counted from 1 and the lr read by
+    ``get_lr()`` every step (:898-926).
+
+    The step trains the model's own parameters in place, so they are the
+    fp32 masters and ``step.write_back()`` has nothing to copy (the JAX
+    step holds donated copies and needs it); ``step.state`` holds
+    ``params`` (name -> parameter), ``opt`` (name -> moments) and
+    ``step``. A mesh with an axis above 1 (hybrid parallelism, pipeline
+    schedules) and ``fused_loss=True`` (the fused lm-head + cross-entropy
+    kernels) wait for later slices and raise ``NotInThisSlice``.
+    """
+    if schedule not in ("gpipe", "1f1b", "1f1b_fused", "1f1b_compact",
+                        "vpp"):
+        raise ValueError(f"unknown pipeline schedule {schedule!r} "
+                         "(gpipe | 1f1b | 1f1b_compact | vpp)")
+    big = {k: v for k, v in _mesh_axes(mesh).items() if v > 1}
+    if big:
+        raise NotInThisSlice("hybrid-parallel train step (mesh axes > 1, "
+                             "pipeline schedules)", f"mesh={big}")
+    if fused_loss:
+        raise NotInThisSlice("fused lm-head + cross-entropy kernels (K5-K7)",
+                             "fused_loss=True")
+    if accumulate_steps is None:
+        accumulate_steps = int(getattr(optimizer, "_accumulate_steps", 1)
+                               or 1)
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    params = dict(model.named_parameters())
+    layers = list(model.llama.layers)
+    layer_names = [[n for n, _ in layer.named_parameters()]
+                   for layer in layers]
+    state = {"params": params,
+             "opt": {n: optimizer._init_state(p) for n, p in params.items()},
+             "step": 0}
+
+    def cast(p):
+        return p.to(torch.bfloat16) if amp and p.is_floating_point() else p
+
+    def block(i, x, *vals):
+        return functional_call(layers[i], dict(zip(layer_names[i], vals)),
+                               (x,))
+
+    def loss_fn(ids, labels):
+        vals = {n: cast(p) for n, p in params.items()}
+        x = F.embedding(ids, vals["llama.embed_tokens.weight"])
+        if amp:
+            x = x.to(torch.bfloat16)
+        for i in range(len(layers)):
+            lv = [vals[f"llama.layers.{i}.{n}"] for n in layer_names[i]]
+            if remat:
+                x = checkpoint(block, i, x, *lv, use_reentrant=False)
+            else:
+                x = block(i, x, *lv)
+        h = F.rms_norm(x, vals["llama.norm.weight"], model.llama.norm.epsilon)
+        logits = F.linear(h, vals["lm_head.weight"])
+        if amp:       # softmax / CE in fp32 for numeric stability
+            logits = logits.float()
+        return F.cross_entropy(logits, labels, reduction="mean")
+
+    def as_ids(x):
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        return t.to(device=model.device, dtype=torch.int64)
+
+    def step(batch):
+        ids, labels = as_ids(batch["input_ids"]), as_ids(batch["labels"])
+        state["step"] += 1
+        lr = optimizer.get_lr()
+        for p in params.values():
+            p.grad = None
+        k = accumulate_steps
+        if k > 1:
+            total = torch.zeros((), device=model.device)
+            for mi, ml in zip(ids.chunk(k), labels.chunk(k)):
+                loss = loss_fn(mi, ml)
+                loss.backward()
+                total = total + loss.detach()
+            loss = total / k
+            for p in params.values():
+                p.grad.div_(k)
+        else:
+            loss = loss_fn(ids, labels)
+            loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        clip = getattr(optimizer, "_grad_clip", None)
+        if isinstance(clip, ClipGradByGlobalNorm):
+            scale = clip.scale([g.float() for g in grads.values()])
+            grads = {n: g * scale.to(g.dtype) for n, g in grads.items()}
+        for n, p in params.items():
+            state["opt"][n] = optimizer.apply_update(
+                p, grads[n], state["opt"][n], lr, state["step"])
+            p.grad = None
+        return loss.detach()
+
+    step.state = state
+    step.write_back = lambda: model
+    return step

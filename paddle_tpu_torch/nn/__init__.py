@@ -1,1 +1,2 @@
-"""Functionals and layers of the LLaMA serving path."""
+"""Functionals, layers and gradient clipping of the LLaMA serving and
+training paths."""

@@ -37,8 +37,9 @@ def xavier_normal_(w: torch.Tensor,
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    """A trainable parameter. Serving never builds a graph: its entry
+    points run under ``torch.inference_mode()``."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 class RMSNorm(nn.Module):

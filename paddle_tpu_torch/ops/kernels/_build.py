@@ -6,7 +6,8 @@ into ``build/paddle_tpu_torch/libpt_kernels.so`` at the repo root:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/paddle_tpu_torch/libpt_kernels.so \\
-         paddle_tpu_torch/csrc/*.cu
+         paddle_tpu_torch/csrc/decode_attention.cu \\
+         paddle_tpu_torch/csrc/flash_attention.cu
 
 A stamp file beside the library records a hash of the sources, so an
 edited source is rebuilt and an unchanged one is loaded as it is. Nothing
@@ -30,7 +31,7 @@ __all__ = ["library", "build", "LIB_PATH", "SOURCES", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 LIB_PATH = _PKG.parent / "build" / "paddle_tpu_torch" / "libpt_kernels.so"
-SOURCES = ("decode_attention.cu",)
+SOURCES = ("decode_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -88,6 +89,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float,
                    ci, vp]
     fn.restype = ci
+    # B, Sq, Sk, H, Hkv, D, scale, causal, dtype, stream
+    shape = [ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, ci, vp]
+    lib.pt_flash_attention_fwd.argtypes = [vp] * 5 + shape
+    lib.pt_flash_attention_bwd_dq.argtypes = [vp] * 7 + shape
+    lib.pt_flash_attention_bwd_dkv.argtypes = [vp] * 8 + shape
+    for name in ("pt_flash_attention_fwd", "pt_flash_attention_bwd_dq",
+                 "pt_flash_attention_bwd_dkv"):
+        getattr(lib, name).restype = ci
 
 
 def library() -> ctypes.CDLL:

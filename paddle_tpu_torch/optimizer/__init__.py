@@ -1,0 +1,5 @@
+"""Optimizers: the ``Optimizer`` base, ``Adam`` and ``AdamW``."""
+from .optimizer import Optimizer  # noqa: F401
+from .optimizers import Adam, AdamW  # noqa: F401
+
+__all__ = ["Optimizer", "Adam", "AdamW"]

@@ -10,7 +10,10 @@ Tolerances, outputs compared in fp32: float32 atol 1e-5 / rtol 1e-4 (the
 kernel and the plain version sum in different orders); bfloat16 and
 float16 one rounding step of the dtype, rtol 2**-7 and 2**-10 with atol
 1e-5 for outputs near zero (both round their fp32 result to the storage
-dtype once, from different partial sums).
+dtype once, from different partial sums). Flash attention holds each row
+of D values to its own scale: atol is one step (O) or two (grads) of the
+dtype times the row's max|want|, so a row of small values is not judged
+against the largest row of the tensor.
 """
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ import torch
 
 from paddle_tpu_torch.inference.serving import ServingEngine
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     ragged_decode_attention, ragged_decode_attention_ref)
 
@@ -131,3 +135,117 @@ def test_engine_on_card_matches_cpu_engine_fp32(cuda_device):
                                                       max_new_tokens=6)
     for a, b in zip(on_card, on_cpu):
         np.testing.assert_array_equal(a, b)
+
+
+FLASH_STEP = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7,) * 2,
+              torch.float16: (2.0 ** -10,) * 2}
+FLASH_CASES = [
+    # (B, Sq, Sk, H, Hkv, D, causal)
+    (2, 200, 200, 4, 4, 64, True),        # S not a multiple of the tile
+    (2, 200, 200, 8, 2, 64, False),       # group 4
+    (1, 64, 160, 8, 2, 128, True),        # causal Sq < Sk (top-left)
+    (1, 160, 64, 4, 1, 128, True),        # causal Sq > Sk, group 4
+    (2, 130, 300, 4, 4, 128, False),      # Sq != Sk
+    (1, 96, 96, 4, 2, 96, True),          # D = 96 (padded to 128 inside)
+    (1, 70, 70, 2, 2, 256, True),         # D = 256
+    (2, 2048, 2048, 32, 32, 128, True),   # the llama_7b training shape
+]
+
+
+def _close(got, want, rtol, step, mult=1.0):
+    """Each row of D values (one batch, position and head) within rtol x
+    |want| plus mult x step x the row's own max|want| (at least 1e-6, for
+    rows that are fp32 noise in both, as dQ of causal row 0)."""
+    got, want = got.float(), want.float()
+    atol = (mult * step * want.abs().amax(-1, keepdim=True)).clamp_min(1e-6)
+    ok = (got - want).abs() <= atol + rtol * want.abs()
+    assert ok.all(), (f"{int((~ok).sum())} of {ok.numel()} elements out of "
+                      f"tolerance; max abs error "
+                      f"{float((got - want).abs().max())}")
+
+
+def flash_inputs(B, Sq, Sk, H, Hkv, D, dtype, device, seed=5):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(0.5 * torch.randn(shape, generator=g, device=device)).to(dtype)
+            for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
+                          (B, Sq, H, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,Sq,Sk,H,hkv,D,causal", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(cuda_device, dtype, B, Sq, Sk, H,
+                                            hkv, D, causal):
+    q, k, v, do = flash_inputs(B, Sq, Sk, H, hkv, D, dtype, cuda_device)
+    rtol, step = FLASH_STEP[dtype]
+    n = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+         fa.flash_attention_bwd_dkv.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    assert o.dtype == dtype and lse.shape == (B, H, Sq)
+    _close(o, want_o, rtol, step)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * want_o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta, causal)
+    torch.cuda.synchronize()
+    want_dq = fa.flash_attention_bwd_dq_ref(q, k, v, do, want_lse, delta,
+                                            causal)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, want_lse,
+                                                      delta, causal)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _close(got, want, rtol, step, mult=2.0)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq
+            .launches, fa.flash_attention_bwd_dkv.launches) == tuple(
+                x + 1 for x in n)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_cpu_plain_path(cuda_device):
+    """The same fp32 inputs through flash_attention's autograd on the card
+    (K2, K3, K4) and on the CPU (the plain versions)."""
+    q, k, v, do = flash_inputs(2, 100, 100, 8, 2, 64, torch.float32, "cpu")
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, True)
+        out.backward(do.to(dev))
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
+    q, k, v, do = flash_inputs(1, 16, 16, 4, 2, 64, torch.float32,
+                               cuda_device)
+    lse = torch.zeros(1, 4, 16, device=cuda_device)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+
+    def wide(d):
+        return [torch.zeros(1, 16, 2, d, device=cuda_device)] * 3
+    with pytest.raises(ValueError):                   # D > 256
+        fa.flash_attention_fwd(*wide(264))
+    with pytest.raises(ValueError):                   # D % 8 != 0
+        fa.flash_attention_fwd(*wide(12))
+    with pytest.raises(ValueError):                   # mixed devices
+        fa.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError):                   # non-contiguous
+        fa.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)
+    with pytest.raises(TypeError):                    # dtypes differ
+        fa.flash_attention_fwd(q, k.half(), v)
+    with pytest.raises(TypeError):                    # float64
+        fa.flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):                    # lse not fp32
+        fa.flash_attention_bwd_dq(q, k, v, do, lse.half(), lse)
+    with pytest.raises(ValueError):                   # dO on the CPU
+        fa.flash_attention_bwd_dkv(q, k, v, do.cpu(), lse, lse)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == before

@@ -39,6 +39,8 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch, paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.models.llama\n"
         "import paddle_tpu_torch.ops.kernels.decode_attention\n"
+        "import paddle_tpu_torch.ops.kernels.flash_attention\n"
+        "import paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
         "             None and (m == 'paddle_tpu' or m.startswith(\n"
         "             'paddle_tpu.') or m.split('.')[0] == 'jax'))\n"
