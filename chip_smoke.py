@@ -10,9 +10,10 @@ fails:
 
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
 2. build: every kernel of the serving and training paths (K1 decode
-   attention, K2-K4 flash attention forward, dQ and dK/dV), from
-   ``paddle_tpu_torch/csrc``, with one nvcc call for sm_90a (the build time
-   is printed);
+   attention, K2-K4 flash attention forward, dQ and dK/dV, K5-K7 fused
+   linear + cross-entropy forward, dh and dW), from
+   ``paddle_tpu_torch/csrc``, one nvcc per source for sm_90a, all started
+   together (the build time is printed);
 3. each kernel against its plain PyTorch version on the card, at the
    listed shapes and dtypes, with the tolerance stated per dtype and
    tensor;
@@ -35,25 +36,34 @@ fails:
    the bytes and flops the inputs need); then decode steps timed on the
    host clock and a few traced with ``torch.profiler``: device time per
    step by kernel, and the device's busy share of a step;
-7. the serving model is freed; a small fp32 training check: three steps of
-   ``build_hybrid_train_step`` on the card (K2-K4) equal the same steps on
-   the CPU (the plain versions) in loss at AdamW's default epsilon, and in
-   loss and parameters at epsilon 1e-3;
+7. the serving model is freed; a small fp32 training check, with the
+   fused loss off and on: three steps of ``build_hybrid_train_step`` on
+   the card (K2-K4, and K5-K7) equal the same steps on the CPU (the plain
+   versions) in loss at AdamW's default epsilon, and in loss and
+   parameters at epsilon 1e-3;
 8. training at ``llama_7b`` width (hidden 4096, 32 heads, intermediate
    11008, vocab 32000) cut to 8 layers, batch 2 x seq 2048, bf16 amp with
-   fp32 masters, remat, AdamW(1e-4), fused_loss off: 2 warm-up and 10
-   timed steps on one seeded batch; every loss finite, the last below the
-   first, and per step exactly 2 x layers K2 launches (forward and the
-   remat recompute) and layers K3 and K4 launches; then one step traced
-   with ``torch.profiler``;
+   fp32 masters, remat, AdamW(1e-4), once with fused_loss off and once on:
+   2 warm-up and 10 timed steps on one seeded batch each; every loss
+   finite, the last below the first, and per step exactly 2 x layers K2
+   launches (forward and the remat recompute) and layers K3 and K4
+   launches, and with the fused loss one K5, K6 and K7 launch; then one
+   step of each traced with ``torch.profiler``;
 9. K2, K3 and K4 timed at the training shape (B=2, S=2048, H=32, D=128,
    bf16, causal) from CUDA-graph replays, beside their plain versions,
    ``F.scaled_dot_product_attention(is_causal=True)`` forward and its
    autograd backward (one time for K3 and K4 together) as the library
-   yardstick, and the least time the card could take (``bound_ms``).
+   yardstick, and the least time the card could take (``bound_ms``);
+10. K5, K6 and K7 held against their plain versions and timed the same way
+   at the training head's shape (N = B x S = 4096, H = 4096, V = 32000,
+   bf16), beside the unfused head as the yardstick: no single PyTorch call
+   computes linear + cross-entropy, so it is ``F.cross_entropy(
+   torch.matmul(h, w).float(), labels, reduction="none")`` forward and its
+   autograd backward (one time for K6 and K7 together).
 
 The last lines are ``{"decode_profile": ...}``, ``{"training": ...}``,
-``{"kernels": [...]}`` (all four kernels), ``{"serving": ...}``, the card's
+``{"training_fused": ...}``, ``{"kernels": [...]}`` (all seven kernels),
+``{"serving": ...}``, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. The run uses one card: it shows torch
 only the first of ``CUDA_VISIBLE_DEVICES`` (default 0). ``--out`` also writes every
 number as JSON.
@@ -561,10 +571,12 @@ def phase_flash_cases(torch, fa):
 
 
 def phase_small_train(torch, LlamaConfig, LlamaForCausalLM, build, AdamW):
-    """fp32, tiny width, GQA: three train steps on the card (flash through
-    K2-K4) against three on the CPU (their plain versions), rtol 1e-4 /
-    atol 1e-5. At AdamW's default epsilon (1e-8) an early step moves an
-    element by about lr x sign(grad), so an element whose grad is near 0,
+    """fp32, tiny width, GQA, labels with ignored rows, the fused loss off
+    and on: three train steps on the card (flash through K2-K4, the fused
+    loss through K5-K7) against three on the CPU (their plain versions),
+    rtol 1e-4 / atol 1e-5. At AdamW's default epsilon (1e-8) an early step
+    moves an element by about lr x sign(grad), so an element whose grad is
+    near 0,
     where the card's and the CPU's fp32 sums may differ in sign, can land
     2 x lr apart: that run compares the losses, and logs how many elements
     differ. With epsilon 1e-3 the update is a smooth function of the grads,
@@ -573,31 +585,36 @@ def phase_small_train(torch, LlamaConfig, LlamaForCausalLM, build, AdamW):
                            inter=512, seq=64)
     cfg.num_key_value_heads = 2
     ids = np.random.RandomState(1).randint(0, 64, (2, 65))
-    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
-    for eps, whole in ((1e-8, False), (1e-3, True)):
-        losses, states = [], []
-        for dev in (DEVICE, "cpu"):
-            m = LlamaForCausalLM(cfg, device="cpu", seed=5).to(dev)
-            opt = AdamW(learning_rate=1e-3, epsilon=eps,
-                        parameters=m.parameters())
-            step = build(m, opt, remat=True, amp=False)
-            losses.append([float(step(batch)) for _ in range(3)])
-            states.append({n: p.detach().cpu()
-                           for n, p in m.named_parameters()})
-        check(np.allclose(losses[0], losses[1], rtol=1e-4),
-              f"small train, epsilon {eps}: card losses {losses[0]} vs CPU "
-              f"{losses[1]}")
-        apart = {n: int((~torch.isclose(p, states[1][n], rtol=1e-4,
-                                        atol=1e-5)).sum())
-                 for n, p in states[0].items()}
-        n_apart = sum(apart.values())
-        log(f"small fp32 train check, epsilon {eps}: 3 steps, card losses "
-            f"{losses[0]} vs CPU (plain versions) {losses[1]}; "
-            f"{n_apart} of {sum(p.numel() for p in states[0].values())} "
-            f"parameter elements outside rtol 1e-4 / atol 1e-5")
-        if whole:
-            check(n_apart == 0, "small train: parameters differ between card "
-                  "and CPU: " + str({n: c for n, c in apart.items() if c}))
+    labels = ids[:, 1:].copy()
+    labels[:, ::7] = -100                  # ignored rows, for the fused loss
+    batch = {"input_ids": ids[:, :-1], "labels": labels}
+    for fused in (False, True):
+        for eps, whole in ((1e-8, False), (1e-3, True)):
+            losses, states = [], []
+            for dev in (DEVICE, "cpu"):
+                m = LlamaForCausalLM(cfg, device="cpu", seed=5).to(dev)
+                opt = AdamW(learning_rate=1e-3, epsilon=eps,
+                            parameters=m.parameters())
+                step = build(m, opt, remat=True, amp=False, fused_loss=fused)
+                losses.append([float(step(batch)) for _ in range(3)])
+                states.append({n: p.detach().cpu()
+                               for n, p in m.named_parameters()})
+            what = f"fused_loss={fused}, epsilon {eps}"
+            check(np.allclose(losses[0], losses[1], rtol=1e-4),
+                  f"small train, {what}: card losses {losses[0]} vs CPU "
+                  f"{losses[1]}")
+            apart = {n: int((~torch.isclose(p, states[1][n], rtol=1e-4,
+                                            atol=1e-5)).sum())
+                     for n, p in states[0].items()}
+            n_apart = sum(apart.values())
+            log(f"small fp32 train check, {what}: 3 steps, card losses "
+                f"{losses[0]} vs CPU (plain versions) {losses[1]}; "
+                f"{n_apart} of {sum(p.numel() for p in states[0].values())} "
+                f"parameter elements outside rtol 1e-4 / atol 1e-5")
+            if whole:
+                check(n_apart == 0, f"small train, {what}: parameters differ "
+                      "between card and CPU: "
+                      + str({n: c for n, c in apart.items() if c}))
 
 
 def train_flops(n_params, layers, batch, seq, hidden):
@@ -608,8 +625,9 @@ def train_flops(n_params, layers, batch, seq, hidden):
 
 
 def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
-                fa):
-    """The training main path at llama_7b width, cut to TRAIN_LAYERS."""
+                fa, fce, fused):
+    """The training main path at llama_7b width, cut to TRAIN_LAYERS, with
+    the fused loss (K5-K7) on or off."""
     from torch.profiler import ProfilerActivity, profile
     base = LlamaConfig.llama_7b()
     cfg = LlamaConfig(vocab_size=base.vocab_size,
@@ -623,7 +641,7 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
                              seed=args.seed)
     n_params = sum(p.numel() for p in model.parameters())
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
-    step = build(model, opt, remat=True, amp=True, fused_loss=False)
+    step = build(model, opt, remat=True, amp=True, fused_loss=fused)
     rng = np.random.RandomState(args.seed)
     ids = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))
     batch = {"input_ids": torch.from_numpy(ids[:, :-1]).to(DEVICE),
@@ -638,7 +656,8 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-               fa.flash_attention_bwd_dkv)
+               fa.flash_attention_bwd_dkv, fce.fused_ce_fwd,
+               fce.fused_ce_bwd_dh, fce.fused_ce_bwd_dw)
     for kern in kernels:
         kern.launches = 0     # the main path's run starts here
     step_ms = []
@@ -651,10 +670,10 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
     launches = [kern.launches for kern in kernels]
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = [TRAIN_STEPS * 2 * TRAIN_LAYERS, TRAIN_STEPS * TRAIN_LAYERS,
-            TRAIN_STEPS * TRAIN_LAYERS]
+            TRAIN_STEPS * TRAIN_LAYERS] + [TRAIN_STEPS * int(fused)] * 3
     check(launches == want,
-          f"flash kernels launched {launches} times (K2, K3, K4) in "
-          f"{TRAIN_STEPS} train steps, want {want}")
+          f"kernels launched {launches} times (K2, K3, K4, K5, K6, K7) in "
+          f"{TRAIN_STEPS} train steps with fused_loss={fused}, want {want}")
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0],
           f"training loss did not fall: {losses[0]} -> {losses[-1]}")
@@ -680,7 +699,8 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
     flops = train_flops(n_params, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ,
                         cfg.hidden_size)
     training = {
-        "layers": TRAIN_LAYERS, "hidden": cfg.hidden_size,
+        "fused_loss": fused, "layers": TRAIN_LAYERS,
+        "hidden": cfg.hidden_size,
         "heads": cfg.num_attention_heads,
         "intermediate": cfg.intermediate_size, "vocab": cfg.vocab_size,
         "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -690,9 +710,10 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
         "tokens_per_s": tokens / (p50 / 1e3),
         "mfu": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
         "flops_per_step": flops, "peak_mem_gib": peak,
-        "launches_per_step": {"flash_fwd": launches[0] // TRAIN_STEPS,
-                              "flash_bwd_dq": launches[1] // TRAIN_STEPS,
-                              "flash_bwd_dkv": launches[2] // TRAIN_STEPS},
+        "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_ce_fwd",
+             "fused_ce_bwd_dh", "fused_ce_bwd_dw"),
+            (n // TRAIN_STEPS for n in launches))),
         "traced_device_ms": device_ms if rows else None,
         "busy_share": device_ms / p50 if rows else None,
         "traced_kernel_launches": sum(r[2] for r in rows),
@@ -700,14 +721,18 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
             "flash_fwd": share("flash_fwd"),
             "flash_bwd_dq": share("flash_bwd_dq"),
             "flash_bwd_dkv": share("flash_bwd_dkv"),
+            "fused_ce_fwd": share("fce_fwd", "fce_merge"),
+            "fused_ce_bwd_dh": share("fce_bwd_dh"),
+            "fused_ce_bwd_dw": share("fce_bwd_dw"),
             "gemm": share("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet"),
         } if rows else None,
         "top_kernels": [{"name": r[0][:90], "ms": r[1], "calls": r[2]}
                         for r in rows[:15]],
     }
-    log(f"trained {TRAIN_WARMUP}+{TRAIN_STEPS} steps: loss {losses[0]:.4f} "
-        f"-> {losses[-1]:.4f}, step p50 {p50:.1f} ms, flash launches "
-        f"{launches} (= steps x [2L, L, L])")
+    log(f"trained {TRAIN_WARMUP}+{TRAIN_STEPS} steps, fused_loss={fused}: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, step p50 {p50:.1f} ms, "
+        f"launches {launches} (= steps x [2L, L, L, f, f, f], f = "
+        f"{int(fused)})")
     return model, opt, step, training
 
 
@@ -784,6 +809,147 @@ def phase_flash_timing(torch, fa, heads, head_dim):
     return res
 
 
+# Fused CE cases: (name, N, H, V, vocab_offset, last). Ragged N, H and V
+# (element loads), V not a multiple of 8, the 16-byte path with a vocab
+# offset (a third of the labels outside the shard), labels all in the last
+# vocab tile (last=True).
+FCE_CASES = [
+    ("n13_h50_v777", 13, 50, 777, 0, False),
+    ("n200_h136_v1030", 200, 136, 1030, 0, False),
+    ("n300_h256_v4096_off1000", 300, 256, 4096, 1000, False),
+    ("n130_h512_v2000_lasttile", 130, 512, 2000, 0, True),
+]
+# m, lse and loss per row: atol 1e-4 / rtol 1e-5 (fp32 sums of the same
+# products in another order). dh row by row and dW column by column under
+# FLASH_TOL's rule with two steps: both round the same dl to the dtype, from
+# fp32 logits summed in another order, and round an fp32 sum once; K6 and
+# K7 add their products with atomics, in an order that changes between runs.
+
+
+def fce_inputs(torch, N, H, V, offset, last, dtype, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    h = torch.randn(N, H, generator=g, device=DEVICE).to(dtype)
+    w = (0.05 * torch.randn(H, V, generator=g, device=DEVICE)).to(dtype)
+    top = V + offset + (V // 2 if offset else 0)
+    labels = torch.randint(0, top, (N,), generator=g, device=DEVICE)
+    if last:                     # the last vocab tile of 128 columns
+        labels = V - 1 - labels % (V - (V - 1) // 128 * 128)
+    gr = torch.randn(N, generator=g, device=DEVICE) / N
+    gr[::5] = 0.0                        # rows that add nothing
+    return h, w, labels, gr
+
+
+def fce_check(torch, fce, h, w, labels, gr, offset, label):
+    """K5, K6 and K7 against their plain versions on one input set: logs
+    every tensor's reading, then raises on a disagreement. Returns the
+    largest abs error per tensor, the worst share of the tolerance of dh
+    and dW, and the plain lse (the backward's input)."""
+    name = str(h.dtype).replace("torch.", "")
+    m, l, z = fce.fused_ce_fwd(h, w, labels, offset)
+    torch.cuda.synchronize()
+    wm, wl, wz = fce.fused_ce_fwd_ref(h, w, labels, offset)
+    lse = (wm + torch.log(wl)).contiguous()
+    dh = fce.fused_ce_bwd_dh(h, w, labels, lse, gr, offset)
+    dw = fce.fused_ce_bwd_dw(h, w, labels, lse, gr, offset)
+    torch.cuda.synchronize()
+    want_dh = fce.fused_ce_bwd_dh_ref(h, w, labels, lse, gr, offset)
+    want_dw = fce.fused_ce_bwd_dw_ref(h, w, labels, lse, gr, offset)
+    errs, shares, bad = {}, {}, []
+    for tname, got, want in (("m", m, wm),
+                             ("lse", m + torch.log(l), lse),
+                             ("loss", m + torch.log(l) - z, lse - wz)):
+        errs[tname] = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=1e-4, rtol=1e-5):
+            bad.append(tname)
+    # rows of dh, columns of dW (transposed to rows for flash_close)
+    for tname, got, want in (("dh", dh, want_dh),
+                             ("dW", dw.t(), want_dw.t())):
+        ok, errs[tname], shares[tname] = flash_close(got, want, name, 2.0)
+        if not ok or got.dtype != h.dtype:
+            bad.append(tname)
+    log(f"fused CE kernels-vs-plain {label}: " + ", ".join(
+        f"{t} {e:.3g}" + (f" ({shares[t]:.3g} of tol)" if t in shares else "")
+        for t, e in errs.items()))
+    check(not bad, f"fused CE kernel disagrees with its plain version in "
+                   f"case {label}: {', '.join(bad)}")
+    return errs, shares, lse
+
+
+def phase_fce_cases(torch, fce):
+    """K5-K7 vs their plain versions over ragged and aligned shapes, a
+    vocab offset and labels in the last tile, in every dtype."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for name, N, H, V, offset, last in FCE_CASES:
+            h, w, labels, gr = fce_inputs(torch, N, H, V, offset, last, dt,
+                                          4)
+            label = f"{name}_{str(dt).replace('torch.', '')}"
+            errs, shares, _ = fce_check(torch, fce, h, w, labels, gr, offset,
+                                        label)
+            out[label] = {"max_abs_err": max(errs.values()),
+                          "tol_share": max(shares.values())}
+    return out
+
+
+def fce_bound(N, H, V, esize, kind):
+    """Least time (ms) for one fused CE kernel at these shapes: bytes (each
+    input read once, each output written once) over HBM, or flops over the
+    bf16/fp16 peak, whichever is larger."""
+    hb, wb = N * H * esize, H * V * esize
+    if kind == "fwd":       # read h, W, labels; write m, l, z
+        nbytes, flops = hb + wb + 4 * N + 12 * N, 2.0 * N * H * V
+    elif kind == "dh":      # read h, W, labels, lse, g; write dh
+        nbytes, flops = 2 * hb + wb + 12 * N, 4.0 * N * H * V
+    else:                   # read h, W, labels, lse, g; write dW
+        nbytes, flops = hb + 2 * wb + 12 * N, 4.0 * N * H * V
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_fce_timing(torch, fce, N, H, V):
+    """K5, K6 and K7 at the training head's shape (bf16): held against
+    their plain versions, then each timed beside its plain version, the
+    unfused head (forward; autograd backward for K6 + K7 together) and its
+    bound."""
+    import torch.nn.functional as tF
+    h, w, labels, gr = fce_inputs(torch, N, H, V, 0, False, torch.bfloat16,
+                                  8)
+    errs, shares, lse = fce_check(torch, fce, h, w, labels, gr, 0,
+                                  "training_head_bf16")
+    fwd_args = [(h, w, labels)]
+    bwd_args = [(h, w, labels, lse, gr)]
+    res = {
+        "fwd": {"ms": cuda_ms(fce.fused_ce_fwd, fwd_args),
+                "plain_ms": cuda_ms(fce.fused_ce_fwd_ref, fwd_args),
+                "max_abs_err": max(errs["m"], errs["lse"], errs["loss"])},
+        "dh": {"ms": cuda_ms(fce.fused_ce_bwd_dh, bwd_args),
+               "plain_ms": cuda_ms(fce.fused_ce_bwd_dh_ref, bwd_args),
+               "max_abs_err": errs["dh"], "tol_share": shares["dh"]},
+        "dw": {"ms": cuda_ms(fce.fused_ce_bwd_dw, bwd_args),
+               "plain_ms": cuda_ms(fce.fused_ce_bwd_dw_ref, bwd_args),
+               "max_abs_err": errs["dW"], "tol_share": shares["dW"]},
+    }
+
+    def unfused(a, b, lab):
+        return tF.cross_entropy(torch.matmul(a, b).float(), lab,
+                                reduction="none")
+    res["fwd"]["library_ms"] = cuda_ms(unfused, fwd_args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().requires_grad_() for x in (h, w)]
+        out = unfused(*leaves, labels)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, gr, retain_graph=True), [()], stream=side)
+    res["dh"]["library_ms"] = res["dw"]["library_ms"] = lib_bwd
+    for kind in ("fwd", "dh", "dw"):
+        bound, by = fce_bound(N, H, V, h.element_size(), kind)
+        res[kind].update(bound_ms=bound, bound_by=by)
+    del out, leaves
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -803,6 +969,7 @@ def main(argv=None) -> int:
                                                build_hybrid_train_step)
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as fce
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         ragged_decode_attention as attn, ragged_decode_attention_ref)
     from paddle_tpu_torch.optimizer import AdamW
@@ -818,10 +985,11 @@ def main(argv=None) -> int:
     build_s = _build.build(force=True)
     _build.library()
     log(f"built {', '.join(_build.SOURCES)} -> {_build.LIB_PATH} with nvcc "
-        f"(sm_90a) in {build_s:.1f}s")
+        f"(sm_90a, one process per source) in {build_s:.1f}s")
 
     case_errs = phase_kernel_cases(torch, attn, ragged_decode_attention_ref)
     flash_cases = phase_flash_cases(torch, fa)
+    fce_cases = phase_fce_cases(torch, fce)
     phase_small_reference(torch, LlamaConfig, LlamaForCausalLM,
                           ServingEngine, fa)
     model, eng, reqs, specs, serving = phase_serve(
@@ -844,15 +1012,23 @@ def main(argv=None) -> int:
 
     phase_small_train(torch, LlamaConfig, LlamaForCausalLM,
                       build_hybrid_train_step, AdamW)
-    tmodel, opt, step, training = phase_train(
-        torch, args, LlamaConfig, LlamaForCausalLM, build_hybrid_train_step,
-        AdamW, fa)
-    del tmodel, opt, step
-    gc.collect()
-    torch.cuda.empty_cache()
+    trained = {}
+    for fused in (False, True):
+        tmodel, opt, step, trained[fused] = phase_train(
+            torch, args, LlamaConfig, LlamaForCausalLM,
+            build_hybrid_train_step, AdamW, fa, fce, fused)
+        vocab = tmodel.config.vocab_size
+        del tmodel, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    training, training_fused = trained[False], trained[True]
     flash = phase_flash_timing(torch, fa, heads, head_dim)
     log(f"flash kernels at B={TRAIN_BATCH} S={TRAIN_SEQ} H={heads} "
         f"D={head_dim} bf16 causal: " + json.dumps(flash))
+    head_n = TRAIN_BATCH * TRAIN_SEQ
+    fused_ce = phase_fce_timing(torch, fce, head_n, heads * head_dim, vocab)
+    log(f"fused CE kernels at N={head_n} H={heads * head_dim} V={vocab} "
+        f"bf16: " + json.dumps(fused_ce))
 
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -877,12 +1053,31 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    fused_steps = training_fused["launches_per_step"]
+    for name, key, line in (("fused_ce_fwd", "fwd", 67),
+                            ("fused_ce_bwd_dh", "dh", 131),
+                            ("fused_ce_bwd_dw", "dw", 156)):
+        r = fused_ce[key]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_ce.cu",
+            "replaces": f"paddle_tpu/ops/pallas/fused_ce.py:{line}",
+            "launches": fused_steps[name] * training_fused["steps"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": "unfused head: F.cross_entropy(matmul(h, w).float())"
+                       + (" forward" if key == "fwd" else
+                          " autograd backward, K6 + K7 together")})
     serving["teacher_forced_agreement"] = agree
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
             json.dump({"card": card, "kind": kind, "build_s": build_s,
                        "case_max_abs_err": case_errs,
                        "flash_cases": flash_cases,
+                       "fused_ce_cases": fce_cases,
+                       "fused_ce_timing": fused_ce,
+                       "training_fused": training_fused,
                        "live_lengths": live_lengths.tolist(),
                        "kernel_live": live, "kernel_full": full,
                        "flash_timing": flash, "serving": serving,
@@ -890,6 +1085,7 @@ def main(argv=None) -> int:
                        **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"training_fused": training_fused}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))
     log(card)

@@ -32,6 +32,7 @@ from ..nn.clip import ClipGradByGlobalNorm
 from ..nn.layers import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
                          VocabParallelEmbedding)
 from ..ops.kernels.decode_attention import ragged_decode_attention
+from ..ops.kernels.fused_ce import fused_linear_cross_entropy
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "load_paddle_tpu_state",
@@ -419,6 +420,10 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     inside the step by a differentiable cast (``_amp_cast``, :666-671) and
     the embedding output is bfloat16, so grads land on the fp32 masters;
     ``torch.autocast`` is not used (its cast lists differ).
+    ``fused_loss=True`` replaces the lm head and the loss by
+    ``fused_linear_cross_entropy`` (:584-603: kernels K5-K7; the logits
+    stay unrounded fp32 sums, where the unfused leg rounds them to bf16
+    under amp), over the rows whose label is not -100.
     ``accumulate_steps > 1`` splits the batch into micro-steps and takes the
     mean loss and mean grads (:857-880). A ``ClipGradByGlobalNorm`` grad
     clip is honoured, any other is not (:888-897). Then the optimizer's
@@ -431,8 +436,8 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     step holds donated copies and needs it); ``step.state`` holds
     ``params`` (name -> parameter), ``opt`` (name -> moments) and
     ``step``. A mesh with an axis above 1 (hybrid parallelism, pipeline
-    schedules) and ``fused_loss=True`` (the fused lm-head + cross-entropy
-    kernels) wait for later slices and raise ``NotInThisSlice``.
+    schedules, the vocab-parallel fused loss) waits for a later slice and
+    raises ``NotInThisSlice``.
     """
     if schedule not in ("gpipe", "1f1b", "1f1b_fused", "1f1b_compact",
                         "vpp"):
@@ -442,9 +447,6 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     if big:
         raise NotInThisSlice("hybrid-parallel train step (mesh axes > 1, "
                              "pipeline schedules)", f"mesh={big}")
-    if fused_loss:
-        raise NotInThisSlice("fused lm-head + cross-entropy kernels (K5-K7)",
-                             "fused_loss=True")
     if accumulate_steps is None:
         accumulate_steps = int(getattr(optimizer, "_accumulate_steps", 1)
                                or 1)
@@ -478,6 +480,16 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
             else:
                 x = block(i, x, *lv)
         h = F.rms_norm(x, vals["llama.norm.weight"], model.llama.norm.epsilon)
+        if fused_loss:
+            # ignore_index (-100) rows add nothing; the mean divides by the
+            # valid count only (F.cross_entropy's semantics)
+            flat = labels.reshape(-1)
+            valid = flat != -100
+            losses = fused_linear_cross_entropy(
+                h.reshape(-1, h.shape[-1]), vals["lm_head.weight"],
+                torch.where(valid, flat, 0))
+            vf = valid.to(losses.dtype)
+            return (losses * vf).sum() / vf.sum().clamp_min(1.0)
         logits = F.linear(h, vals["lm_head.weight"])
         if amp:       # softmax / CE in fp32 for numeric stability
             logits = logits.float()

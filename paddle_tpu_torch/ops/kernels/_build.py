@@ -2,12 +2,13 @@
 
 The sources under ``paddle_tpu_torch/csrc/`` have a plain ``extern "C"``
 interface; they are compiled on first use, on the machine with the card,
-into ``build/paddle_tpu_torch/libpt_kernels.so`` at the repo root:
+into ``build/paddle_tpu_torch/libpt_kernels.so`` at the repo root: one
+nvcc per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/paddle_tpu_torch/libpt_kernels.so \\
-         paddle_tpu_torch/csrc/decode_attention.cu \\
-         paddle_tpu_torch/csrc/flash_attention.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c paddle_tpu_torch/csrc/<name>.cu -o <name>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/paddle_tpu_torch/libpt_kernels.so *.o
 
 A stamp file beside the library records a hash of the sources, so an
 edited source is rebuilt and an unchanged one is loaded as it is. Nothing
@@ -31,9 +32,9 @@ __all__ = ["library", "build", "LIB_PATH", "SOURCES", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 LIB_PATH = _PKG.parent / "build" / "paddle_tpu_torch" / "libpt_kernels.so"
-SOURCES = ("decode_attention.cu", "flash_attention.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("decode_attention.cu", "flash_attention.cu", "fused_ce.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,16 +69,39 @@ def build(force: bool = False) -> float:
             and stamp.read_text().strip() == digest:
         return 0.0
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = f"{os.getpid()}.tmp"
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
+    nvcc = _nvcc()
+    objs = [LIB_PATH.with_name(f"{Path(s).stem}.{tag}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    took = time.perf_counter() - t0
-    if proc.returncode != 0:
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+            for s, o in zip(SOURCES, objs)]
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in cmds]
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+    except BaseException:
+        for _, p in jobs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    took = time.perf_counter() - t0
     os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
     return took
@@ -94,8 +118,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pt_flash_attention_fwd.argtypes = [vp] * 5 + shape
     lib.pt_flash_attention_bwd_dq.argtypes = [vp] * 7 + shape
     lib.pt_flash_attention_bwd_dkv.argtypes = [vp] * 8 + shape
+    # h, w, labels, offset, ...
+    lib.pt_fused_ce_fwd.argtypes = [vp, vp, vp, ci] + [vp] * 4 + [ci] * 5 \
+        + [vp]                        # part, m, l, z; N, H, V, splits, dtype
+    lib.pt_fused_ce_bwd_dh.argtypes = [vp, vp, vp, ci] + [vp] * 3 \
+        + [ci] * 4 + [vp]             # lse, g, out; N, H, V, dtype
+    lib.pt_fused_ce_bwd_dw.argtypes = lib.pt_fused_ce_bwd_dh.argtypes
     for name in ("pt_flash_attention_fwd", "pt_flash_attention_bwd_dq",
-                 "pt_flash_attention_bwd_dkv"):
+                 "pt_flash_attention_bwd_dkv", "pt_fused_ce_fwd",
+                 "pt_fused_ce_bwd_dh", "pt_fused_ce_bwd_dw"):
         getattr(lib, name).restype = ci
 
 

@@ -22,6 +22,7 @@ import torch
 from paddle_tpu_torch.inference.serving import ServingEngine
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import fused_ce as fce
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     ragged_decode_attention, ragged_decode_attention_ref)
 
@@ -249,3 +250,126 @@ def test_flash_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
     assert (fa.flash_attention_fwd.launches,
             fa.flash_attention_bwd_dq.launches,
             fa.flash_attention_bwd_dkv.launches) == before
+
+
+# Fused linear + cross-entropy (K5-K7). (N, H, V, vocab_offset, last):
+# ragged N, H and V (element loads), V not a multiple of 8 with H aligned,
+# the 16-byte path with a vocab offset (a third of the labels fall outside
+# the shard), and labels all in the last vocab tile (last=True).
+FCE_CASES = [
+    (13, 50, 777, 0, False),
+    (24, 64, 1000, 0, False),
+    (200, 136, 1030, 0, False),
+    (300, 256, 4096, 1000, False),
+    (130, 512, 2000, 0, True),
+]
+# (rtol, step) per dtype for dh rows and dW columns, as FLASH_STEP's grads:
+# the kernel and the plain version round the same dl, from fp32 logits
+# summed in other orders (K6/K7 also add their products with atomics, in
+# an order that changes from run to run), then round the fp32 sum once.
+FCE_STEP = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7,) * 2,
+            torch.float16: (2.0 ** -10,) * 2}
+
+
+def fce_inputs(N, H, V, offset, last, dtype, device, seed=6):
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn(N, H, generator=g, device=device).to(dtype)
+    w = (0.05 * torch.randn(H, V, generator=g, device=device)).to(dtype)
+    top = V + offset + (V // 2 if offset else 0)
+    labels = torch.randint(0, top, (N,), generator=g, device=device)
+    if last:                        # the last vocab tile of 128 columns
+        labels = V - 1 - labels % (V - (V - 1) // 128 * 128)
+    gr = torch.randn(N, generator=g, device=device)
+    gr[::5] = 0.0                           # rows that add nothing
+    return h, w, labels, gr
+
+
+def _close_lines(got, want, rtol, step, dim):
+    """Each line along `dim` (a row of dh, a column of dW) within rtol x
+    |want| plus two steps of the dtype times the line's max|want|."""
+    got, want = got.float(), want.float()
+    atol = (2 * step * want.abs().amax(dim, keepdim=True)).clamp_min(1e-6)
+    ok = (got - want).abs() <= atol + rtol * want.abs()
+    assert ok.all(), (f"{int((~ok).sum())} of {ok.numel()} elements out of "
+                      f"tolerance; max abs error "
+                      f"{float((got - want).abs().max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("N,H,V,offset,last", FCE_CASES)
+def test_fused_ce_kernels_match_plain_versions(cuda_device, dtype, N, H, V,
+                                               offset, last):
+    """m, lse and the loss per row within atol 1e-4 / rtol 1e-5 (both are
+    fp32 sums of the same products, in other orders); dh row by row and
+    dW column by column under FCE_STEP."""
+    h, w, labels, gr = fce_inputs(N, H, V, offset, last, dtype,
+                                  cuda_device)
+    before = (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
+              fce.fused_ce_bwd_dw.launches)
+    m, l, z = fce.fused_ce_fwd(h, w, labels, offset)
+    torch.cuda.synchronize()
+    wm, wl, wz = fce.fused_ce_fwd_ref(h, w, labels, offset)
+    for got, want in ((m, wm), (m + torch.log(l), wm + torch.log(wl)),
+                      (m + torch.log(l) - z, wm + torch.log(wl) - wz)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    local = labels - offset
+    assert not z[(local < 0) | (local >= V)].any()
+    lse = (wm + torch.log(wl)).contiguous()
+    dh = fce.fused_ce_bwd_dh(h, w, labels, lse, gr, offset)
+    dw = fce.fused_ce_bwd_dw(h, w, labels, lse, gr, offset)
+    torch.cuda.synchronize()
+    rtol, step = FCE_STEP[dtype]
+    assert dh.dtype == dw.dtype == dtype
+    _close_lines(dh, fce.fused_ce_bwd_dh_ref(h, w, labels, lse, gr, offset),
+                 rtol, step, -1)
+    _close_lines(dw, fce.fused_ce_bwd_dw_ref(h, w, labels, lse, gr, offset),
+                 rtol, step, 0)
+    assert not dh[::5].any()
+    assert (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
+            fce.fused_ce_bwd_dw.launches) == tuple(x + 1 for x in before)
+
+
+@pytest.mark.cuda
+def test_fused_ce_autograd_on_card_matches_cpu_plain_path(cuda_device):
+    """The same fp32 inputs through fused_linear_cross_entropy's autograd on
+    the card (K5, K6, K7) and on the CPU (the plain versions)."""
+    h, w, labels, gr = fce_inputs(70, 96, 1500, 0, False, torch.float32,
+                                  "cpu")
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        th, tw = (x.to(dev).requires_grad_() for x in (h, w))
+        loss = fce.fused_linear_cross_entropy(th, tw, labels.to(dev))
+        loss.backward(gr.to(dev))
+        outs.append([loss.detach().cpu(), th.grad.cpu(), tw.grad.cpu()])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_ce_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
+    h, w, labels, gr = fce_inputs(8, 16, 40, 0, False, torch.float32,
+                                  cuda_device)
+    before = (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
+              fce.fused_ce_bwd_dw.launches)
+    with pytest.raises(ValueError):                   # h not [N, H]
+        fce.fused_ce_fwd(h[None], w, labels)
+    with pytest.raises(ValueError):                   # H mismatch
+        fce.fused_ce_fwd(h, w[:15], labels)
+    with pytest.raises(TypeError):                    # float labels
+        fce.fused_ce_fwd(h, w, labels.float())
+    with pytest.raises(ValueError):                   # non-contiguous w
+        fce.fused_ce_fwd(h, w.t().contiguous().t(), labels)
+    with pytest.raises(TypeError):                    # dtypes differ
+        fce.fused_ce_fwd(h, w.half(), labels)
+    with pytest.raises(TypeError):                    # float64
+        fce.fused_ce_fwd(h.double(), w.double(), labels)
+    with pytest.raises(ValueError):                   # labels on the CPU
+        fce.fused_ce_fwd(h, w, labels.cpu())
+    with pytest.raises(TypeError):                    # lse not fp32
+        fce.fused_ce_bwd_dh(h, w, labels, gr.half(), gr)
+    with pytest.raises(ValueError):                   # g on the CPU
+        fce.fused_ce_bwd_dw(h, w, labels, gr, gr.cpu())
+    assert (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
+            fce.fused_ce_bwd_dw.launches) == before

@@ -219,11 +219,59 @@ def test_amp_losses_match_jax_within_bf16():
     assert all(v.dtype == np.float32 for v in pp.values())
 
 
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_five_fused_loss_train_steps_match_jax(kv_heads):
+    """``fused_loss=True`` (the fused lm head + cross-entropy, K5-K7; their
+    plain versions on the CPU) against the JAX step's fused leg, whose
+    Pallas kernels run in interpret mode: losses and final parameters
+    within rtol 1e-4 / atol 1e-5, with about 10% of the labels ignored."""
+    jl, pl, jp, pp = _train_both(kv_heads, remat=True, amp=False,
+                                 fused_loss=True)
+    np.testing.assert_allclose(pl, jl, rtol=RTOL)
+    assert pl[-1] < pl[0]
+    for n, w in jp.items():
+        np.testing.assert_allclose(pp[n], w, rtol=RTOL, atol=ATOL,
+                                   err_msg=n)
+
+
+def test_amp_fused_loss_losses_match_jax_within_bf16():
+    """bf16 compute with the fused loss: both keep the logits as unrounded
+    fp32 sums of bf16 products; the rest rounds as in
+    test_amp_losses_match_jax_within_bf16, so the same rtol 2e-2."""
+    jl, pl, _, pp = _train_both(2, remat=True, amp=True, fused_loss=True)
+    np.testing.assert_allclose(pl, jl, rtol=2e-2)
+    assert pl[-1] < pl[0]
+    assert all(v.dtype == np.float32 for v in pp.values())
+
+
+def test_fused_loss_equals_the_unfused_loss_in_fp32():
+    """The port's two heads on the same weights and batch (ignored labels
+    included): one step's loss within rtol 1e-5, and every parameter
+    after it within rtol 1e-4 / atol 1e-5."""
+    ids, labels = _batch(seed=20, ignore=0.1)
+    losses, states = [], []
+    for fused in (True, False):
+        _, pm = _pair(2)
+        opt = AdamW(learning_rate=1e-2, parameters=pm.parameters())
+        step = build_hybrid_train_step(pm, opt, amp=False, fused_loss=fused)
+        losses.append(float(step({"input_ids": ids, "labels": labels})))
+        states.append(paddle_tpu_state(pm))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    for n, w in states[1].items():
+        np.testing.assert_allclose(states[0][n], w, rtol=RTOL, atol=ATOL,
+                                   err_msg=n)
+
+
 def test_fused_loss_and_a_mesh_raise_not_in_this_slice():
+    """A mesh with an axis above 1 raises, with or without the fused loss
+    (its vocab-parallel form waits with the hybrid-parallel slice);
+    ``fused_loss=True`` alone builds."""
     _, pm = _pair(2)
     opt = AdamW(parameters=pm.parameters())
+    build_hybrid_train_step(pm, opt, fused_loss=True)
     with pytest.raises(NotInThisSlice):
-        build_hybrid_train_step(pm, opt, fused_loss=True)
+        build_hybrid_train_step(pm, opt, fused_loss=True,
+                                mesh={"dp": 1, "mp": 2})
     with pytest.raises(NotInThisSlice):
         build_hybrid_train_step(pm, opt, mesh={"dp": 2, "mp": 1})
     with pytest.raises(ValueError):
