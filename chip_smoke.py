@@ -486,6 +486,10 @@ FLASH_CASES = [
     ("d128_gqa4_causal_sq64_sk160", 1, 64, 160, 8, 2, 128, True),
     ("d128_mha_sq130_sk300", 2, 130, 300, 4, 4, 128, False),
     ("d128_mha_causal_s1000", 1, 1000, 1000, 8, 8, 128, True),
+    ("d128_mha_causal_s129", 2, 129, 129, 4, 4, 128, True),
+    ("d128_gqa8_causal_sq300_sk129", 1, 300, 129, 8, 1, 128, True),
+    ("d96_gqa8_causal_s129", 1, 129, 129, 8, 1, 96, True),
+    ("d64_gqa8_sq129_sk257", 1, 129, 257, 8, 1, 64, False),
 ]
 # (rtol, step) per dtype. Every row of D values (one batch, position and
 # head: a query row of O and dQ, a key row of dK and dV) is held to its own
@@ -557,8 +561,9 @@ def flash_check(torch, fa, q, k, v, do, causal, label):
 
 
 def phase_flash_cases(torch, fa):
-    """K2-K4 vs their plain versions over D 64/128, groups 1/4, causal or
-    not, S not a multiple of the 64-row tile, Sq != Sk, in every dtype."""
+    """K2-K4 vs their plain versions over D 64/96/128, groups 1/4/8,
+    causal or not (Sq < Sk and Sq > Sk), S not a multiple of any tile (one
+    row past a 128-row tile), in every dtype."""
     out = {}
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for name, B, Sq, Sk, H, Hkv, D, causal in FLASH_CASES:

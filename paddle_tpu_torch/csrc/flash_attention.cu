@@ -1,47 +1,79 @@
 // Flash attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the three TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   K2 _fwd_kernel     (via _fa_forward, :88)      -> flash_fwd_[mma_]kernel
-//   K3 _bwd_dq_kernel  (via _flash_bwd_core, :263) -> flash_bwd_dq_[mma_]kernel
-//   K4 _bwd_dkv_kernel (via _flash_bwd_core, :263) -> flash_bwd_dkv_[mma_]kernel
+//   K2 _fwd_kernel     (:47, via _fa_forward :88)      -> flash_fwd_wgmma_kernel
+//   K3 _bwd_dq_kernel  (:129, via _flash_bwd_core :263) -> flash_bwd_dq_mma_kernel
+//   K4 _bwd_dkv_kernel (:166, via _flash_bwd_core :263) -> flash_bwd_dkv_wgmma_kernel
+// (the bfloat16 / float16 kernels at D <= 128, the training path; float32,
+// and D up to 256 in any dtype, take the CUDA-core flash_*_kernel below).
 // q is [B, Sq, H, D], k and v are [B, Sk, Hkv, D], all contiguous and read
-// in place by row strides (no transpose, no padding of S or D in memory).
+// in place by their strides (no transpose, no padding of S or D in memory).
 // GQA maps q head h to kv head h / (H / Hkv).
 //
-// Bound: operations. At the training shape (S = 2048, D = 128) every kernel
-// does 2 * D flops per score and reads each input row once per tile of the
-// other side, hundreds of flops per byte, so the card's arithmetic rate is
-// the limit. Two implementations of each kernel:
-//   - bfloat16 / float16 at D <= 128 (the training path): products on the
-//     tensor cores with mma.sync.m16n8k16 and fp32 accumulators, 4 warps
-//     per CTA, each warp owning 16 rows; scores, P and dS never leave the
-//     registers (the *_mma_kernel functions below);
-//   - float32, and D up to 256 in any dtype: fp32 FMAs on the CUDA cores,
-//     tiles of BR rows x BC columns through shared memory, 256 threads as
-//     16 row lanes x 16 column lanes, each thread owning a BR/16 x BC/16
-//     block of scores and a BR/16 x D/16 block of the output accumulator
-//     in registers; the 16 lanes of a row are one half-warp, so row max
-//     and row sum are four shuffles.
-// wgmma, TMA loads, double buffering and warp specialisation are later
-// work. Common to both:
+// Bound: operations. At the training shape (B = 2, S = 2048, H = 32,
+// D = 128, bf16, causal) K2 does 4 D flops per kept (query, key) pair, K3
+// 6 D and K4 8 D: 0.0695 / 0.104 / 0.139 ms at 989 TFLOP/s, against
+// 0.025-0.05 ms of bytes; hundreds of flops per byte.
+//
+// K2 and K4 (Hopper design). 384 threads: warpgroups 0 and 1 consume,
+// warpgroup 2 produces (setmaxnreg gives the consumers 232 registers and
+// leaves the producer 40). One producer thread issues every load with TMA
+// from 4-D tensor maps over (D, heads, S, B) with 128-byte swizzle (boxes
+// of 64 columns, so D = 128 is two boxes; rows and columns past S and D
+// land as zeros). Tiles stream through a two-stage ring in shared memory:
+// a full mbarrier per stage completes on the TMA bytes, an empty one on
+// the 256 consumer threads. Products are wgmma with fp32 accumulators:
+//   - K2: CTA = 128 q rows x (head, batch), each consumer warpgroup owns
+//     64 rows. Q is loaded once; K and V tiles of 128 keys stream. S = Q K^T
+//     is SS m64n128k16 (both K-major); the online softmax runs on the
+//     accumulator registers with exp2f (scale folded with log2(e)); the
+//     causal mask is applied only on tiles the top-left diagonal crosses,
+//     the Sk mask only on the last tile; O += P V is RS (P packed to 16
+//     bits, V MN-major through wgmma's transpose bit). q-blocks launch
+//     longest causal rows first. 160 KB of shared memory at D = 128.
+//   - K4: CTA = 64 keys x (kv head, batch); both consumer warpgroups own
+//     its keys and split each q tile's work in two equal halves. K and V
+//     are loaded once; Q and dO tiles of 64 rows stream with their LSE and
+//     delta (1-D maps). Warpgroup 0: S^T = K Q^T (SS m64n64k16), P^T =
+//     exp2(S^T scale log2(e) - LSE log2(e)) (kept in fp32 in shared
+//     memory), dV += P^T dO (RS, dO MN-major). Warpgroup 1: dP^T = V dO^T,
+//     dS^T = P^T (dP^T - delta), dK += dS^T Q. A warpgroup that owned its
+//     own 64 keys would hold dK, dV, S^T and dP^T at once (224 wgmma
+//     registers a thread), more than ptxas keeps in a wgmma pipeline in a
+//     384-thread CTA: it spilled and serialised every wgmma (measured:
+//     264 bytes of spills, 0.53 ms). The CTA loops over the GQA group's
+//     q heads itself and sums dK, dV in fp32 (rounded once); the causal
+//     lower bound is the JAX rule (flash_attention.py:172), the mask only
+//     on crossing tiles and the last q tile. 134 KB of shared memory at
+//     D = 128.
+// K3 is still the first tensor-core design (mma.sync.m16n8k16, 4 warps per
+// CTA, tiles copied with __ldg between two __syncthreads, B fragments of
+// its second product from scalar shared loads): it lacks the TMA ring,
+// wgmma and warp specialisation that K2 and K4 now have.
+//
+// Common to all kernels:
 //   - the [Sq, Sk] score matrix never leaves the CTA: the forward keeps an
 //     online softmax (m, l, acc in fp32), the backward recomputes
 //     P = exp(S - LSE) from the saved LSE;
 //   - causal loops skip wholly masked blocks with the JAX bounds: hi for
-//     K2/K3 (flash_attention.py:53-57, :137-141), lo for K4 (:172); K2/K3
-//     launch the longest causal q-blocks first;
+//     K2/K3 (flash_attention.py:53-57, :137-141), lo for K4 (:172);
 //   - K4 serves one kv head and loops over the group's q heads itself, so
 //     GQA needs no repeated K/V and the group sum stays in fp32.
 //
 // Semantics kept from the Pallas kernels: masked scores are -1e30 (not
 // -inf), l is clamped to 1e-30, the causal mask is top-left (qid >= kid),
 // P is rounded to v's dtype before P.V and dS to q's dtype before its
-// products, outputs are stored in the input dtype, LSE in fp32. delta =
-// rowsum(dO * O) is computed outside the kernels, in fp32, by the wrapper.
+// products (on the tensor cores: the packing of the fp32 accumulator into
+// the next product's A fragment), outputs are stored in the input dtype,
+// LSE in fp32 in natural-log units. delta = rowsum(dO * O) is computed
+// outside the kernels, in fp32, by the wrapper.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -552,15 +584,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core versions for bfloat16 and float16 at D <= 128: the same three
-// functions with their products on mma.sync.m16n8k16 (fp32 accumulate).
-// 128 threads = 4 warps per CTA; each warp owns 16 rows of the CTA's block
-// (q rows for K2/K3, key rows for K4). Scores, P and dS stay in the
+// K3's tensor-core version for bfloat16 and float16 at D <= 128: products
+// on mma.sync.m16n8k16 (fp32 accumulate). 128 threads = 4 warps per CTA;
+// each warp owns 16 q rows of the CTA's block. Scores and dS stay in the
 // accumulator registers: a C fragment of two neighbouring n-tiles is the A
-// fragment of the next product once packed to 16 bits, which is where P
-// and dS are rounded to the input dtype. Row max / sum are two shuffles
-// inside the quad of lanes that share a row. Tiles have a pitch of DT + 8
-// elements, so every 32-bit fragment load hits 32 distinct banks.
+// fragment of the next product once packed to 16 bits, which is where dS
+// is rounded to the input dtype. Row max / sum are two shuffles inside the
+// quad of lanes that share a row (the Hopper kernels below use the same
+// fragment layout per warp). Tiles have a pitch of DT + 8 elements, so
+// every 32-bit fragment load hits 32 distinct banks.
 // ---------------------------------------------------------------------------
 constexpr int kMmaThreads = 128;
 
@@ -651,136 +683,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// K2 on tensor cores: CTA = 64 q rows x (head, batch); key tiles of 64.
-template <typename T, int DT>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o,
-                         float* __restrict__ lse, int Sq, int Sk, int H,
-                         int Hkv, int D, float scale, int causal) {
-  constexpr int BR = 64, BC = 64, P = DT + 8;
-  constexpr int KS = DT / 16, NT = BC / 8, DN = DT / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + BR * P;
-  T* Vs = Ks + BC * P;
-
-  const int nq = (Sq + BR - 1) / BR;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BR;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qrs = (size_t)H * D, krs = (size_t)Hkv * D;
-  const T* kb = k + (size_t)b * Sk * krs + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * Sk * krs + (size_t)kvh * D;
-  load_tile16<T, BR, DT>(Qs, q + (size_t)b * Sq * qrs + (size_t)h * D, q0,
-                         Sq, qrs, D);
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ld_a<T, P>(qa[kk], Qs, warp * 16, kk * 16,
-                                             g, t);
-
-  const int r0 = q0 + warp * 16 + g;  // this lane's rows: r0 and r0 + 8
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  }
-
-  const int nk = (Sk + BC - 1) / BC;
-  const int hi = causal ? min(nk, (q0 + BR + BC - 1) / BC) : nk;
-  for (int ik = 0; ik < hi; ++ik) {
-    const int k0 = ik * BC;
-    __syncthreads();
-    load_tile16<T, BC, DT>(Ks, kb, k0, Sk, krs, D);
-    load_tile16<T, BC, DT>(Vs, vb, k0, Sk, krs, D);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const T* kp = Ks + (nt * 8 + g) * P + kk * 16 + 2 * t;
-        Mma<T>::run(s[nt], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = r0 + (e >> 1) * 8;
-        const int kj = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = kj < Sk && (!causal || qi >= kj);
-        s[nt][e] = ok ? s[nt][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float mn = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - mn);
-      m[i] = mn;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
-        ps[e >> 1] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(ps[i]);
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      const uint32_t pa[4] = {
-          Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-          Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-          Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const T* vp = Vs + (kk * 16 + 2 * t) * P + g;
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        Mma<T>::run(acc[dn], pa, ld_col2<T, P>(vp + dn * 8),
-                    ld_col2<T, P>(vp + 8 * P + dn * 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = r0 + i * 8;
-    if (qi >= Sq) continue;
-    const float ll = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)b * Sq + qi) * qrs + (size_t)h * D;
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      const int d = dn * 8 + 2 * t;
-      if (d < D) {
-        orow[d] = Cvt<T>::to(acc[dn][2 * i] / ll);
-        orow[d + 1] = Cvt<T>::to(acc[dn][2 * i + 1] / ll);
-      }
-    }
-    if (t == 0) lse[((size_t)b * H + h) * Sq + qi] = m[i] + logf(ll);
-  }
 }
 
 // K3 on tensor cores: CTA = 64 q rows x (head, batch); key tiles of 64.
@@ -900,145 +802,625 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// K4 on tensor cores: CTA = 64 key rows x (kv head, batch), looping over
-// the group's q heads and q tiles of 32 rows. The warp computes S^T and
-// dP^T (its 16 keys x the tile's 32 queries), so P^T and dS^T are A
-// fragments of dV += P^T dO and dK += dS^T Q.
-template <typename T, int DT>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             T* __restrict__ dk, T* __restrict__ dv, int Sq,
-                             int Sk, int H, int Hkv, int D, float scale,
-                             int causal) {
-  constexpr int BR = 64, BC = 32, P = DT + 8;
-  constexpr int KS = DT / 16, NT = BC / 8, DN = DT / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BR * P;
-  T* Qs = Vs + BR * P;
-  T* dOs = Qs + BC * P;
-  float* lse_s = reinterpret_cast<float*>(dOs + BC * P);
-  float* delta_s = lse_s + BC;
+// ---------------------------------------------------------------------------
+// Hopper kernels for bfloat16 and float16 at D <= 128: K2 and K4 (design in
+// the head comment). Shared-memory tiles are what TMA writes with 128-byte
+// swizzle: rows of 64 16-bit elements (128 bytes), 8-row groups of 1024
+// bytes, the 16-byte chunks of a row XOR-ed with the row's index mod 8; a
+// tile of DT columns is DT / 64 such "halves" one after the other. Every
+// tile starts on a 1024-byte boundary, so the swizzle of the address is the
+// swizzle of the tile.
+// ---------------------------------------------------------------------------
+constexpr int kWsThreads = 384;   // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumers = 256;
+constexpr int kFwdStages = 2;     // K2's ring of K/V tiles
+constexpr int kDkvKeys = 64;      // K4's keys per CTA
+constexpr int kDkvQRows = 64;     // K4's q tile
+constexpr int kDkvStages = 2;     // K4's ring of Q/dO tiles
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-  const int k0 = blockIdx.x * BR;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int group = H / Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qrs = (size_t)H * D, krs = (size_t)Hkv * D;
-  const size_t koff = (size_t)b * Sk * krs + (size_t)kvh * D;
-  load_tile16<T, BR, DT>(Ks, k + koff, k0, Sk, krs, D);
-  load_tile16<T, BR, DT>(Vs, v + koff, k0, Sk, krs, D);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int j0 = k0 + warp * 16 + g;  // this lane's keys: j0 and j0 + 8
-  float dka[DN][4], dva[DN][4];
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed. A wait still
+// open after 2^34 clocks (about 9 s) traps: a fault in the pipeline's
+// protocol ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// The i-th tile of a ring of S stages: its stage, and the parity of the
+// stage's barrier phases for this use (the producer waits on "empty" with
+// the other parity, so a stage's first use does not wait).
+template <int S>
+struct Ring {
+  int s, phase;
+  __device__ __forceinline__ explicit Ring(int i)
+      : s(i % S), phase((i / S) & 1) {}
+};
+
+// TMA: one box of a 4-D map (coordinates innermost first) into shared
+// memory, completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a swizzled tile at `addr`: 8-row
+// groups 1024 bytes apart (stride byte offset), 128-byte swizzle. K-major
+// (the reduction index runs along the row): `lbo` is unused (16). MN-major
+// (a row is one reduction index, 64 output columns): the next 64 columns
+// start `lbo` bytes on, in the next half.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Commit the warpgroup's products issued since the last commit and wait
+// for all of them.
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving a register that an asynchronous wgmma
+// reads or writes across the wait.
+template <int N>
+__device__ __forceinline__ void wg_hold(float* d) {
 #pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_hold(uint32_t (*a)[4]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.f;
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
   }
+}
 
-  const int nq = (Sq + BC - 1) / BC;
-  const int lo = causal ? k0 / BC : 0;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const size_t qoff = (size_t)b * Sq * qrs + (size_t)h * D;
-    const float* lse_bh = lse + ((size_t)b * H + h) * Sq;
-    const float* delta_bh = delta + ((size_t)b * H + h) * Sq;
-    for (int iq = lo; iq < nq; ++iq) {
-      const int q0 = iq * BC;
-      __syncthreads();
-      load_tile16<T, BC, DT>(Qs, q + qoff, q0, Sq, qrs, D);
-      load_tile16<T, BC, DT>(dOs, dout + qoff, q0, Sq, qrs, D);
-      for (int i = threadIdx.x; i < BC; i += kMmaThreads) {
-        lse_s[i] = q0 + i < Sq ? lse_bh[q0 + i] : 0.f;
-        delta_s[i] = q0 + i < Sq ? delta_bh[q0 + i] : 0.f;
-      }
-      __syncthreads();
+#define PT_WG_D32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
 
-      float s[NT][4], dp[NT][4];
+#define PT_WG_OUT32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define PT_WG_D64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39," \
+  "%40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55," \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+#define PT_WG_OUT64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+
+// d[64 x N] += A[64 x 16] B[16 x N] for one warpgroup, fp32 accumulate.
+// ss: A and B from shared memory, both K-major. rs: A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B from shared memory
+// MN-major (transpose bit set). A product starts from zeroed accumulators,
+// not from wgmma's scale-d = 0: with an unset accumulator as the asm's
+// input, ptxas spills and serialises the wgmma pipeline.
+#define PT_WG_OPS(T, TY)                                                      \
+  template <>                                                                 \
+  struct Wg<T> {                                                              \
+    __device__ __forceinline__ static void ss64(float* d, uint64_t a,         \
+                                                uint64_t b) {                 \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
+          "{" PT_WG_D32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                    \
+          : PT_WG_OUT32(d)                                                    \
+          : "l"(a), "l"(b), "r"(1));                                          \
+    }                                                                         \
+    __device__ __forceinline__ static void ss128(float* d, uint64_t a,        \
+                                                 uint64_t b) {                \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "        \
+          "{" PT_WG_D64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                    \
+          : PT_WG_OUT64(d)                                                    \
+          : "l"(a), "l"(b), "r"(1));                                          \
+    }                                                                         \
+    __device__ __forceinline__ static void rs64(float* d, const uint32_t* a,  \
+                                                uint64_t b) {                 \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
+          "{" PT_WG_D32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"      \
+          : PT_WG_OUT32(d)                                                    \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));      \
+    }                                                                         \
+    __device__ __forceinline__ static void rs128(float* d,                    \
+                                                 const uint32_t* a,           \
+                                                 uint64_t b) {                \
+      asm volatile(                                                           \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "        \
+          "{" PT_WG_D64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"      \
+          : PT_WG_OUT64(d)                                                    \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));      \
+    }                                                                         \
+  };
+
+template <typename T>
+struct Wg;
+PT_WG_OPS(__nv_bfloat16, "bf16")
+PT_WG_OPS(__half, "f16")
+
+template <typename T, int N>
+__device__ __forceinline__ void wg_ss(float* d, uint64_t a, uint64_t b) {
+  if constexpr (N == 64) {
+    Wg<T>::ss64(d, a, b);
+  } else {
+    Wg<T>::ss128(d, a, b);
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void wg_rs(float* d, const uint32_t* a,
+                                      uint64_t b) {
+  if constexpr (N == 64) {
+    Wg<T>::rs64(d, a, b);
+  } else {
+    Wg<T>::rs128(d, a, b);
+  }
+}
+
+// The A fragments of P (or dS) for the next product, from a 64 x (8 NT)
+// accumulator: k-step kk takes n-tiles 2kk and 2kk + 1. Packing to 16 bits
+// is where the Pallas kernels' cast to the input dtype happens.
+template <typename T, int NT>
+__device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* s) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    a[kk][0] = Mma<T>::pack(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = Mma<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = Mma<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = Mma<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// K2 on Hopper. CTA = 128 q rows x (head, batch); key tiles of 128.
+// Shared memory: Q (BR x DT), then S stages of K and V (BC x DT each),
+// then the barriers: Q's, full[S], empty[S].
+template <typename T, int DT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           T* __restrict__ o, float* __restrict__ lse, int Sq,
+                           int Sk, int H, int Hkv, int D, float scale,
+                           int causal) {
+  constexpr int BR = 128, BC = 128, NH = DT / 64;
+  constexpr uint32_t QB = BR * DT * 2, KB = BC * DT * 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
+  constexpr int S = kFwdStages;
+  const uint32_t bars = sq + QB + 2 * S * KB;
+  const uint32_t qbar = bars, full0 = bars + 8, empty0 = full0 + 8 * S;
+
+  const int nq = (Sq + BR - 1) / BR;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BR;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int nk = (Sk + BC - 1) / BC;
+  const int hi = causal ? min(nk, (q0 + BR + BC - 1) / BC) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(qbar, QB);
+      for (int c = 0; c < NH; ++c) {
+        tma_load_4d(sq + c * (BR * 128), &tq, qbar, c * 64, h, q0, b);
       }
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4], va[4];
-        ld_a<T, P>(ka, Ks, warp * 16, kk * 16, g, t);
-        ld_a<T, P>(va, Vs, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int off = (nt * 8 + g) * P + kk * 16 + 2 * t;
-          Mma<T>::run(s[nt], ka, ld32(Qs + off), ld32(Qs + off + 8));
-          Mma<T>::run(dp[nt], va, ld32(dOs + off), ld32(dOs + off + 8));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = j0 + (e >> 1) * 8;
-          const int c = nt * 8 + 2 * t + (e & 1);
-          const int qi = q0 + c;
-          const bool ok = qi < Sq && (!causal || qi >= kj);
-          const float x = ok ? s[nt][e] * scale : kNegInf;
-          const float p = expf(x - lse_s[c]);
-          s[nt][e] = p;                                  // P^T
-          dp[nt][e] = p * (dp[nt][e] - delta_s[c]);      // dS^T
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < BC / 16; ++kk) {
-        const uint32_t pa[4] = {
-            Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-            Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-            Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t da[4] = {
-            Mma<T>::pack(dp[2 * kk][0], dp[2 * kk][1]),
-            Mma<T>::pack(dp[2 * kk][2], dp[2 * kk][3]),
-            Mma<T>::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-            Mma<T>::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-        const int off = (kk * 16 + 2 * t) * P + g;
-#pragma unroll
-        for (int dn = 0; dn < DN; ++dn) {
-          Mma<T>::run(dva[dn], pa, ld_col2<T, P>(dOs + off + dn * 8),
-                      ld_col2<T, P>(dOs + off + 8 * P + dn * 8));
-          Mma<T>::run(dka[dn], da, ld_col2<T, P>(Qs + off + dn * 8),
-                      ld_col2<T, P>(Qs + off + 8 * P + dn * 8));
+      for (int i = 0; i < hi; ++i) {
+        const Ring<S> r(i);
+        const uint32_t full = full0 + 8 * r.s;
+        const uint32_t ks = sq + QB + 2 * r.s * KB, vs = ks + KB;
+        mbar_wait(empty0 + 8 * r.s, r.phase ^ 1);
+        mbar_expect_tx(full, 2 * KB);
+        for (int c = 0; c < NH; ++c) {
+          tma_load_4d(ks + c * (BC * 128), &tk, full, c * 64, kvh, i * BC, b);
+          tma_load_4d(vs + c * (BC * 128), &tv, full, c * 64, kvh, i * BC, b);
         }
       }
     }
-  }
+  } else {  // consumers: warpgroup wg owns q rows [qw, qw + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw = q0 + wg * 64;
+    const int r0 = qw + warp * 16 + g;  // this lane's rows: r0 and r0 + 8
+    const float sl2 = scale * kLog2e;   // scores in log2 units
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[DT / 2];
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) acc[i] = 0.f;
 
+    mbar_wait(qbar, 0);
+    for (int i = 0; i < hi; ++i) {
+      const Ring<S> ring(i);
+      const int k0 = i * BC;
+      const uint32_t ks = sq + QB + 2 * ring.s * KB, vs = ks + KB;
+      mbar_wait(full0 + 8 * ring.s, ring.phase);
+
+      float sc[BC / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kj = j0 + i * 8;
-    if (kj >= Sk) continue;
-    const size_t off = ((size_t)b * Sk + kj) * krs + (size_t)kvh * D;
+      for (int j = 0; j < BC / 2; ++j) sc[j] = 0.f;
+      wg_fence();
 #pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      const int d = dn * 8 + 2 * t;
-      if (d < D) {
-        dk[off + d] = Cvt<T>::to(scale * dka[dn][2 * i]);
-        dk[off + d + 1] = Cvt<T>::to(scale * dka[dn][2 * i + 1]);
-        dv[off + d] = Cvt<T>::to(dva[dn][2 * i]);
-        dv[off + d + 1] = Cvt<T>::to(dva[dn][2 * i + 1]);
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * (BR * 128) + (kk & 3) * 32;
+        wg_ss<T, BC>(sc, sw128_desc(sq + off + wg * 64 * 128, 16),
+                     sw128_desc(ks + off, 16));
+      }
+      wg_commit_wait();
+      wg_hold<BC / 2>(sc);
+
+      // Masks only where the tile crosses the top-left diagonal or Sk.
+      const bool edge = k0 + BC > Sk || (causal && k0 + BC - 1 > qw);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < BC / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * sl2;
+          if (edge) {
+            const int qi = r0 + (e >> 1) * 8;
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            if (kj >= Sk || (causal && qi < kj)) x = kNegInf;
+          }
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = exp2f(m[r] - mn);
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int j = 0; j < BC / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = exp2f(sc[4 * j + e] - m[e >> 1]);
+          ps[e >> 1] += sc[4 * j + e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(ps[r]);
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        acc[4 * j + 0] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      uint32_t pa[BC / 16][4];
+      pack_a<T, BC / 8>(pa, sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        wg_rs<T, DT>(acc, pa[kk], sw128_desc(vs + kk * 16 * 128, BC * 128));
+      }
+      wg_commit_wait();
+      wg_hold<DT / 2>(acc);
+      wg_hold<BC / 16>(pa);
+      mbar_arrive(empty0 + 8 * ring.s);
+    }
+
+    const size_t qrs = (size_t)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + r * 8;
+      if (qi >= Sq) continue;
+      const float ll = fmaxf(l[r], 1e-30f);
+      T* orow = o + ((size_t)b * Sq + qi) * qrs + (size_t)h * D;
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < D) {
+          *reinterpret_cast<uint32_t*>(orow + d) = Mma<T>::pack(
+              acc[4 * j + 2 * r] / ll, acc[4 * j + 2 * r + 1] / ll);
+        }
+      }
+      if (t == 0) lse[((size_t)b * H + h) * Sq + qi] = m[r] * kLn2 + logf(ll);
+    }
+  }
+}
+
+// K4 on Hopper. CTA = 64 keys x (kv head, batch); q tiles of 64 rows. Both
+// consumer warpgroups own the CTA's 64 keys and split the work of a tile
+// in two halves of equal size: warpgroup 0 computes S^T = K Q^T, P^T and
+// dV += P^T dO; warpgroup 1 computes dP^T = V dO^T, dS^T = P^T (dP^T -
+// delta) with warpgroup 0's fp32 P^T read back from shared memory, and
+// dK += dS^T Q. Each thread then holds one 64 x 128 fp32 accumulator, not
+// two: the four accumulators of a thread that owns both (224 registers
+// with P^T and dS^T) exceed what ptxas lets a wgmma pipeline hold in a
+// 384-thread CTA, and it spills and serialises them.
+// Shared memory: K and V (BK x DT each), then S stages of Q, dO (BQ x DT
+// each), LSE and delta (BQ + 4 floats each, from the 16-byte boundary at or
+// before the tile's first row: a TMA box starts on one), padded to 1 KB;
+// a P^T (fp32, element-major over the warpgroup's 128 threads) for each
+// stage; then the barriers: K/V's, full[S], empty[S], P^T's full[S].
+template <typename T, int DT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ CUtensorMap tlse,
+                               const __grid_constant__ CUtensorMap tdelta,
+                               T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                               int Sk, int H, int Hkv, int D, float scale,
+                               int causal) {
+  constexpr int BK = kDkvKeys, BQ = kDkvQRows, NH = DT / 64, NS = BQ + 4;
+  constexpr uint32_t KB = BK * DT * 2, QB = BQ * DT * 2;
+  constexpr uint32_t STAGE = 2 * QB + 1024;  // Q, dO, LSE, delta
+  constexpr uint32_t PB = BK * BQ * 4;       // P^T of one tile, fp32
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sk = (smem_u32(smem) + 1023) & ~1023u, sv = sk + KB;
+  constexpr int S = kDkvStages;
+  const uint32_t stage0 = sk + 2 * KB, p0 = stage0 + S * STAGE;
+  const uint32_t bars = p0 + S * PB;
+  const uint32_t kvbar = bars, full0 = bars + 8, empty0 = full0 + 8 * S;
+  const uint32_t pfull0 = empty0 + 8 * S;
+
+  const int k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / Hkv;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int lo = causal ? min(k0 / BQ, nq) : 0;
+  const int per_head = nq - lo, n = group * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+      mbar_init(pfull0 + 8 * s, kConsumers / 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(kvbar, 2 * KB);
+      for (int c = 0; c < NH; ++c) {
+        tma_load_4d(sk + c * (BK * 128), &tk, kvbar, c * 64, kvh, k0, b);
+        tma_load_4d(sv + c * (BK * 128), &tv, kvbar, c * 64, kvh, k0, b);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int gi = it / per_head, q0 = (lo + it - gi * per_head) * BQ;
+        const int h = kvh * group + gi;
+        const Ring<S> r(it);
+        const uint32_t full = full0 + 8 * r.s, st = stage0 + r.s * STAGE;
+        mbar_wait(empty0 + 8 * r.s, r.phase ^ 1);
+        mbar_expect_tx(full, 2 * QB + 2 * NS * 4);
+        for (int c = 0; c < NH; ++c) {
+          tma_load_4d(st + c * (BQ * 128), &tq, full, c * 64, h, q0, b);
+          tma_load_4d(st + QB + c * (BQ * 128), &tdo, full, c * 64, h, q0, b);
+        }
+        const int row = ((b * H + h) * Sq + q0) & ~3;
+        tma_load_1d(st + 2 * QB, &tlse, full, row);
+        tma_load_1d(st + 2 * QB + 512, &tdelta, full, row);
+      }
+    }
+  } else {  // consumers: both own keys [k0, k0 + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int j0 = k0 + warp * 16 + g;  // this lane's keys: j0 and j0 + 8
+    const float sl2 = scale * kLog2e;
+    const uint32_t smem0 = smem_u32(smem);
+    // The A operand of the warpgroup's first product: K (warpgroup 0) or
+    // V (1); the B operands of its two products: Q and dO, or dO and Q.
+    const uint32_t sa = wg == 0 ? sk : sv;
+    const uint32_t b1 = wg == 0 ? 0 : QB, b2 = wg == 0 ? QB : 0;
+    float acc[DT / 2];  // dV (warpgroup 0) or dK (1)
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    for (int it = 0; it < n; ++it) {
+      const int gi = it / per_head, q0 = (lo + it - gi * per_head) * BQ;
+      const int h = kvh * group + gi;
+      const Ring<S> ring(it);
+      const int s = ring.s;
+      const uint32_t st = stage0 + s * STAGE;
+      float* pt = reinterpret_cast<float*>(smem + (p0 + s * PB - smem0)) + tid;
+      mbar_wait(full0 + 8 * s, ring.phase);
+
+      // S^T (warpgroup 0) or dP^T (1): rows are the keys, columns the
+      // tile's queries.
+      float sc[BQ / 2];
+#pragma unroll
+      for (int j = 0; j < BQ / 2; ++j) sc[j] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wg_ss<T, BQ>(sc, sw128_desc(sa + (kk >> 2) * (BK * 128) + off, 16),
+                     sw128_desc(st + b1 + (kk >> 2) * (BQ * 128) + off, 16));
+      }
+      wg_commit_wait();
+      wg_hold<BQ / 2>(sc);
+
+      const float* ls =
+          reinterpret_cast<const float*>(smem + (st + 2 * QB - smem0)) +
+          (((b * H + h) * Sq + q0) & 3);
+      if (wg == 0) {
+        // P^T = exp2(S^T scale log2(e) - LSE log2(e)), masked where the
+        // tile crosses the top-left diagonal or Sq; kept for warpgroup 1.
+        const bool edge = q0 + BQ > Sq || (causal && q0 < k0 + BK - 1);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = j * 8 + 2 * t + (e & 1);
+            float p = exp2f(fmaf(sc[4 * j + e], sl2, -ls[c] * kLog2e));
+            if (edge) {
+              const int qi = q0 + c, kj = j0 + (e >> 1) * 8;
+              if (qi >= Sq || (causal && qi < kj)) p = 0.f;
+            }
+            sc[4 * j + e] = p;
+            pt[(4 * j + e) * 128] = p;
+          }
+        }
+        mbar_arrive(pfull0 + 8 * s);
+      } else {
+        // dS^T = P^T (dP^T - delta).
+        const float* dl = ls + 128;
+        mbar_wait(pfull0 + 8 * s, ring.phase);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = j * 8 + 2 * t + (e & 1);
+            sc[4 * j + e] = pt[(4 * j + e) * 128] * (sc[4 * j + e] - dl[c]);
+          }
+        }
+      }
+      // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1), P^T and dS^T
+      // rounded to the input dtype as A fragments.
+      uint32_t pa[BQ / 16][4];
+      pack_a<T, BQ / 8>(pa, sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        wg_rs<T, DT>(acc, pa[kk],
+                     sw128_desc(st + b2 + kk * 16 * 128, BQ * 128));
+      }
+      wg_commit_wait();
+      wg_hold<DT / 2>(acc);
+      wg_hold<BQ / 16>(pa);
+      mbar_arrive(empty0 + 8 * s);
+    }
+
+    T* out = wg == 0 ? dv : dk;
+    const float mul = wg == 0 ? 1.f : scale;
+    const size_t krs = (size_t)Hkv * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = j0 + r * 8;
+      if (kj >= Sk) continue;
+      T* row = out + ((size_t)b * Sk + kj) * krs + (size_t)kvh * D;
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < D) {
+          *reinterpret_cast<uint32_t*>(row + d) = Mma<T>::pack(
+              mul * acc[4 * j + 2 * r], mul * acc[4 * j + 2 * r + 1]);
+        }
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Launchers. DT (the padded head width in shared memory) is 64, 128 or 256;
-// tiles are 64 x 64 up to DT = 128 and 32 x 32 at DT = 256, which keeps the
-// per-thread accumulators at 64 floats or fewer and shared memory under
-// the 227 KB a CTA may use (fp32 K4 at DT = 128: 166 KB).
+// Launchers. DT (the padded head width in shared memory) is 64, 128 or 256.
+// The CUDA-core kernels take tiles of 64 x 64 up to DT = 128 and 32 x 32 at
+// DT = 256, which keeps the per-thread accumulators at 64 floats or fewer
+// and shared memory under the 227 KB a CTA may use (fp32 K4 at DT = 128:
+// 166 KB); the Hopper kernels' tiles are fixed in their kernels.
 // ---------------------------------------------------------------------------
 struct Shape {
   int B, Sq, Sk, H, Hkv, D, causal;
@@ -1117,22 +1499,6 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 template <typename T, int DT>
-cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
-                    void* lse, const Shape& s, cudaStream_t st) {
-  constexpr size_t smem = (size_t)3 * 64 * (DT + 8) * sizeof(T);
-  auto kernel = flash_fwd_mma_kernel<T, DT>;
-  static bool done = false;
-  cudaError_t e = allow_smem(kernel, smem, done);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((s.Sq + 63) / 64, s.H, s.B);
-  kernel<<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      s.Sq, s.Sk, s.H, s.Hkv, s.D, s.scale, s.causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int DT>
 cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq, const Shape& s, cudaStream_t st) {
@@ -1150,34 +1516,136 @@ cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled (libcuda), found through the runtime's entry-point
+// query, so the library links against nothing but the CUDA runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [B, S, heads, D] 16-bit tensor as a 4-D map over (D, heads, S, B) with
+// its real extents and strides; boxes of 64 columns x `rows` rows of one
+// head, 128-byte swizzle, zeros past the extents. False where TMA cannot
+// take the tensor (base not 16-byte aligned, a stride not a multiple of 16
+// bytes) or cuTensorMapEncodeTiled refuses the map.
+template <typename T>
+bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads, int D,
+              int rows) {
+  const EncodeTiled encode = encoder();
+  const cuuint64_t row = (cuuint64_t)D * sizeof(T);
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(p) % 16 || row % 16) {
+    return false;
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(m, type, 4, const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A flat fp32 [n] array (LSE or delta, [B, H, Sq]) as a 1-D map, boxes of
+// `rows` values.
+bool stats_map(CUtensorMap* m, const void* p, size_t n, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(p) % 16) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unused at rank 1
+  const cuuint32_t box[1] = {(cuuint32_t)rows}, unit[1] = {1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, int DT>
-cudaError_t bwd_dkv_mma(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, const Shape& s, cudaStream_t st) {
-  constexpr size_t smem = (size_t)(2 * 64 + 2 * 32) * (DT + 8) * sizeof(T) +
-                          2 * 32 * sizeof(float);
-  auto kernel = flash_bwd_dkv_mma_kernel<T, DT>;
+cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                      void* lse, const Shape& s, cudaStream_t st) {
+  constexpr size_t smem = 1024 + (size_t)(1 + 2 * kFwdStages) * 128 * DT * 2 +
+                          8 * (1 + 2 * kFwdStages);
+  CUtensorMap tq, tk, tv;
+  if (!rows_map<T>(&tq, q, s.B, s.Sq, s.H, s.D, 128) ||
+      !rows_map<T>(&tk, k, s.B, s.Sk, s.Hkv, s.D, 128) ||
+      !rows_map<T>(&tv, v, s.B, s.Sk, s.Hkv, s.D, 128)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_fwd_wgmma_kernel<T, DT>;
   static bool done = false;
   cudaError_t e = allow_smem(kernel, smem, done);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.Sk + 63) / 64, s.Hkv, s.B);
-  kernel<<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), s.Sq, s.Sk, s.H, s.Hkv, s.D,
-      s.scale, s.causal);
+  const dim3 grid((s.Sq + 127) / 128, s.H, s.B);
+  kernel<<<grid, kWsThreads, smem, st>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse), s.Sq, s.Sk,
+      s.H, s.Hkv, s.D, s.scale, s.causal);
   return cudaGetLastError();
 }
 
-// bfloat16 / float16 at D <= 128 take the tensor-core kernels; float32,
-// and D up to 256 in any dtype, the CUDA-core ones.
+template <typename T, int DT>
+cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv,
+                          const Shape& s, cudaStream_t st) {
+  constexpr size_t smem =
+      1024 + (size_t)2 * kDkvKeys * DT * 2 +
+      kDkvStages * ((size_t)2 * kDkvQRows * DT * 2 + 1024 +
+                    (size_t)kDkvKeys * kDkvQRows * 4) +
+      8 * (1 + 3 * kDkvStages);
+  const size_t stats = (size_t)s.B * s.H * s.Sq;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  if (!rows_map<T>(&tq, q, s.B, s.Sq, s.H, s.D, kDkvQRows) ||
+      !rows_map<T>(&tdo, dout, s.B, s.Sq, s.H, s.D, kDkvQRows) ||
+      !rows_map<T>(&tk, k, s.B, s.Sk, s.Hkv, s.D, kDkvKeys) ||
+      !rows_map<T>(&tv, v, s.B, s.Sk, s.Hkv, s.D, kDkvKeys) ||
+      !stats_map(&tlse, lse, stats, kDkvQRows + 4) ||
+      !stats_map(&tdelta, delta, stats, kDkvQRows + 4)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_bwd_dkv_wgmma_kernel<T, DT>;
+  static bool done = false;
+  cudaError_t e = allow_smem(kernel, smem, done);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s.Sk + kDkvKeys - 1) / kDkvKeys, s.Hkv, s.B);
+  kernel<<<grid, kWsThreads, smem, st>>>(
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<T*>(dk), static_cast<T*>(dv),
+      s.Sq, s.Sk, s.H, s.Hkv, s.D, s.scale, s.causal);
+  return cudaGetLastError();
+}
+
+// bfloat16 / float16 at D <= 128 take the tensor-core kernels (Hopper K2
+// and K4, mma.sync K3); float32, and D up to 256 in any dtype, the
+// CUDA-core ones.
 template <typename T>
 cudaError_t fwd_dt(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Shape& s, cudaStream_t st) {
   if constexpr (sizeof(T) == 2) {
-    if (s.D <= 64) return fwd_mma<T, 64>(q, k, v, o, lse, s, st);
-    if (s.D <= 128) return fwd_mma<T, 128>(q, k, v, o, lse, s, st);
+    if (s.D <= 64) return fwd_wgmma<T, 64>(q, k, v, o, lse, s, st);
+    if (s.D <= 128) return fwd_wgmma<T, 128>(q, k, v, o, lse, s, st);
   } else {
     if (s.D <= 64) return fwd<T, 64, 64, 64>(q, k, v, o, lse, s, st);
     if (s.D <= 128) return fwd<T, 128, 64, 64>(q, k, v, o, lse, s, st);
@@ -1213,10 +1681,11 @@ cudaError_t bwd_dkv_dt(const void* q, const void* k, const void* v,
                        void* dk, void* dv, const Shape& s, cudaStream_t st) {
   if constexpr (sizeof(T) == 2) {
     if (s.D <= 64) {
-      return bwd_dkv_mma<T, 64>(q, k, v, dout, lse, delta, dk, dv, s, st);
+      return bwd_dkv_wgmma<T, 64>(q, k, v, dout, lse, delta, dk, dv, s, st);
     }
     if (s.D <= 128) {
-      return bwd_dkv_mma<T, 128>(q, k, v, dout, lse, delta, dk, dv, s, st);
+      return bwd_dkv_wgmma<T, 128>(q, k, v, dout, lse, delta, dk, dv, s,
+                                   st);
     }
   } else {
     if (s.D <= 64) {
@@ -1242,7 +1711,9 @@ bool bad_shape(const Shape& s) {
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. Pointers are device
 // pointers to contiguous q / o / dout / dq [B, Sq, H, D], k / v / dk / dv
 // [B, Sk, Hkv, D], lse / delta [B, H, Sq] fp32; every tensor starts on a
-// 16-byte boundary. Each returns the cudaError_t of its launch (0 = ok).
+// 16-byte boundary (the Hopper kernels read theirs with TMA and return
+// cudaErrorInvalidValue, launching nothing, where one does not). Each
+// returns the cudaError_t of its launch (0 = ok).
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int Sq, int Sk, int H, int Hkv,

@@ -149,6 +149,10 @@ FLASH_CASES = [
     (2, 130, 300, 4, 4, 128, False),      # Sq != Sk
     (1, 96, 96, 4, 2, 96, True),          # D = 96 (padded to 128 inside)
     (1, 70, 70, 2, 2, 256, True),         # D = 256
+    (2, 129, 129, 4, 4, 128, True),       # one row past a 128-row tile
+    (1, 300, 129, 8, 1, 128, True),       # causal Sq > Sk, group 8
+    (1, 129, 129, 8, 1, 96, True),        # group 8, D = 96, S = 129
+    (1, 129, 257, 8, 1, 64, False),       # group 8, D = 64, Sk = 2 tiles + 1
     (2, 2048, 2048, 32, 32, 128, True),   # the llama_7b training shape
 ]
 

@@ -34,6 +34,8 @@ CASES = [
     (2, 256, 4, 64, 2, True, 256),     # GQA 4 -> 2
     (1, 128, 2, 64, 2, False, 256),    # Sk != Sq, not causal
     (1, 64, 2, 64, 2, True, 128),      # causal Sq != Sk: top-left mask
+    (1, 160, 4, 128, 1, True, 64),     # causal Sq > Sk, group 4, D 128
+    (1, 129, 8, 96, 1, True, 129),     # group 8, D 96, S one past 128
 ]
 
 
