@@ -184,33 +184,61 @@ def library_attention(q, k_cache, v_cache, lengths):
     return out.transpose(1, 2)
 
 
+# Decode-kernel cases: (name, B, S_max, H, Hkv, D, dtypes, lengths). The
+# split-KV cases run in every dtype: ranks of 256 keys at S_max 2048 with
+# lengths at a rank boundary, one below and one above it and one key in
+# the last rank; S_max not a multiple of splits x chunk; S_max under 256
+# (one rank); ranks of 512 keys at S_max 4096.
+LENS_7B = [0, 1, 17, 255, 256, 777, 2047, 2048]
+ALL_DTYPES = ("float32", "bfloat16", "float16")
+DECODE_CASES = [
+    ("7b_mha", 8, 2048, 32, 32, 128, ("bfloat16", "float16"), LENS_7B),
+    ("gqa", 8, 2048, 32, 8, 128, ("bfloat16",), LENS_7B),
+    ("small", 3, 384, 8, 4, 64, ("float32",), [1, 200, 384]),
+    ("split_edges", 4, 2048, 8, 8, 128, ALL_DTYPES, [256, 255, 257, 1793]),
+    ("split_s2047", 3, 2047, 8, 2, 128, ALL_DTYPES, [2047, 1792, 1]),
+    ("split_one_rank", 3, 200, 8, 8, 64, ALL_DTYPES, [200, 199, 0]),
+    ("split_s4096", 3, 4096, 8, 4, 128, ALL_DTYPES, [4096, 512, 3585]),
+]
+
+
+def decode_check(torch, attn, attn_ref, q, k, v, lengths, label):
+    """K1 against its plain version on one input set: logs the largest
+    abs error and the worst share of the tolerance (|got - want| over
+    atol + rtol |want|), then raises on a disagreement."""
+    got = attn(q, k, v, lengths)
+    torch.cuda.synchronize()
+    want = attn_ref(q, k, v, lengths)
+    got, want = got.float(), want.float()
+    atol, rtol = TOL[str(q.dtype).replace("torch.", "")]
+    diff = (got - want).abs()
+    err = float(diff.max())
+    share = float((diff / (atol + rtol * want.abs())).max())
+    B, _, H, D = q.shape
+    log(f"kernel-vs-plain {label}: B={B} S_max={k.shape[1]} H={H} "
+        f"Hkv={k.shape[2]} D={D} {q.dtype} max_abs_err={err:.3g} "
+        f"({share:.3g} of tol; atol {atol}, rtol {rtol})")
+    check(torch.allclose(got, want, atol=atol, rtol=rtol),
+          f"decode kernel disagrees with its plain version in case {label}: "
+          f"max_abs_err={err}")
+    return err
+
+
 def phase_kernel_cases(torch, attn, attn_ref):
     """Kernel vs plain version on random inputs (0.5 * randn)."""
-    lens7b = [0, 1, 17, 255, 256, 777, 2047, 2048]
-    cases = [("7b_mha_bf16", 8, 2048, 32, 32, 128, torch.bfloat16, lens7b),
-             ("gqa_bf16", 8, 2048, 32, 8, 128, torch.bfloat16, lens7b),
-             ("7b_mha_fp16", 8, 2048, 32, 32, 128, torch.float16, lens7b),
-             ("small_fp32", 3, 384, 8, 4, 64, torch.float32, [1, 200, 384])]
     g = torch.Generator(device=DEVICE).manual_seed(0)
     out = {}
-    for name, B, S, H, Hkv, D, dt, lens in cases:
-        q = (0.5 * torch.randn(B, 1, H, D, generator=g, device=DEVICE)).to(dt)
-        k = (0.5 * torch.randn(B, S, Hkv, D, generator=g,
-                               device=DEVICE)).to(dt)
-        v = (0.5 * torch.randn(B, S, Hkv, D, generator=g,
-                               device=DEVICE)).to(dt)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-        got = attn(q, k, v, lengths)
-        torch.cuda.synchronize()
-        want = attn_ref(q, k, v, lengths)
-        err = float((got.float() - want.float()).abs().max())
-        atol, rtol = TOL[str(dt).replace("torch.", "")]
-        ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
-        log(f"kernel-vs-plain {name}: B={B} S_max={S} H={H} Hkv={Hkv} D={D} "
-            f"{dt} max_abs_err={err:.3g} (atol {atol}, rtol {rtol})")
-        check(ok, f"decode kernel disagrees with its plain version in case "
-                  f"{name}: max_abs_err={err}")
-        out[name] = err
+    for name, B, S, H, Hkv, D, dtypes, lens in DECODE_CASES:
+        for dt_name in dtypes:
+            dt = getattr(torch, dt_name)
+            q, k, v = ((0.5 * torch.randn(shape, generator=g,
+                                          device=DEVICE)).to(dt)
+                       for shape in ((B, 1, H, D), (B, S, Hkv, D),
+                                     (B, S, Hkv, D)))
+            lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+            label = f"{name}_{dt_name}"
+            out[label] = decode_check(torch, attn, attn_ref, q, k, v,
+                                      lengths, label)
     return out
 
 
@@ -490,6 +518,8 @@ FLASH_CASES = [
     ("d128_gqa8_causal_sq300_sk129", 1, 300, 129, 8, 1, 128, True),
     ("d96_gqa8_causal_s129", 1, 129, 129, 8, 1, 96, True),
     ("d64_gqa8_sq129_sk257", 1, 129, 257, 8, 1, 64, False),
+    ("d128_mha_causal_sq1_sk129", 1, 1, 129, 4, 4, 128, True),
+    ("d64_gqa4_causal_s257", 1, 257, 257, 8, 2, 64, True),
 ]
 # (rtol, step) per dtype. Every row of D values (one batch, position and
 # head: a query row of O and dQ, a key row of dK and dV) is held to its own
@@ -562,8 +592,8 @@ def flash_check(torch, fa, q, k, v, do, causal, label):
 
 def phase_flash_cases(torch, fa):
     """K2-K4 vs their plain versions over D 64/96/128, groups 1/4/8,
-    causal or not (Sq < Sk and Sq > Sk), S not a multiple of any tile (one
-    row past a 128-row tile), in every dtype."""
+    causal or not (Sq < Sk and Sq > Sk, a single query row), S not a
+    multiple of any tile (one row past a 128-row tile), in every dtype."""
     out = {}
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for name, B, Sq, Sk, H, Hkv, D, causal in FLASH_CASES:
@@ -1045,7 +1075,9 @@ def main(argv=None) -> int:
         "launches": serving["kernel_launches"], "max_abs_err": err,
         "ms": live["ms"], "plain_ms": live["plain_ms"],
         "bound_ms": live["bound_ms"], "bound_by": live["bound_by"],
-        "library_ms": live["library_ms"]}]}
+        "library_ms": live["library_ms"], "full_ms": full["ms"],
+        "full_bound_ms": full["bound_ms"],
+        "full_library_ms": full["library_ms"]}]}
     for name, key, line in (("flash_attention_fwd", "fwd", 47),
                             ("flash_attention_bwd_dq", "dq", 129),
                             ("flash_attention_bwd_dkv", "dkv", 166)):

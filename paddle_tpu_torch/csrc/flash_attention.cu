@@ -2,7 +2,7 @@
 //
 // Replaces the three TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   K2 _fwd_kernel     (:47, via _fa_forward :88)      -> flash_fwd_wgmma_kernel
-//   K3 _bwd_dq_kernel  (:129, via _flash_bwd_core :263) -> flash_bwd_dq_mma_kernel
+//   K3 _bwd_dq_kernel  (:129, via _flash_bwd_core :263) -> flash_bwd_dq_wgmma_kernel
 //   K4 _bwd_dkv_kernel (:166, via _flash_bwd_core :263) -> flash_bwd_dkv_wgmma_kernel
 // (the bfloat16 / float16 kernels at D <= 128, the training path; float32,
 // and D up to 256 in any dtype, take the CUDA-core flash_*_kernel below).
@@ -15,7 +15,7 @@
 // 6 D and K4 8 D: 0.0695 / 0.104 / 0.139 ms at 989 TFLOP/s, against
 // 0.025-0.05 ms of bytes; hundreds of flops per byte.
 //
-// K2 and K4 (Hopper design). 384 threads: warpgroups 0 and 1 consume,
+// The Hopper kernels (K2, K3, K4). 384 threads: warpgroups 0 and 1 consume,
 // warpgroup 2 produces (setmaxnreg gives the consumers 232 registers and
 // leaves the producer 40). One producer thread issues every load with TMA
 // from 4-D tensor maps over (D, heads, S, B) with 128-byte swizzle (boxes
@@ -46,10 +46,18 @@
 //     lower bound is the JAX rule (flash_attention.py:172), the mask only
 //     on crossing tiles and the last q tile. 134 KB of shared memory at
 //     D = 128.
-// K3 is still the first tensor-core design (mma.sync.m16n8k16, 4 warps per
-// CTA, tiles copied with __ldg between two __syncthreads, B fragments of
-// its second product from scalar shared loads): it lacks the TMA ring,
-// wgmma and warp specialisation that K2 and K4 now have.
+//   - K3: CTA = 128 q rows x (head, batch), each consumer warpgroup owns
+//     64 rows, as K2. Q and dO are loaded once; K and V tiles of 64 keys
+//     stream, and each consumer reads its rows' LSE and delta once with
+//     plain loads. Per tile, S = Q K^T and dP = dO V^T are SS m64n64k16
+//     (both K-major, a commit group each), dS = P (dP - delta) with P =
+//     exp2(S scale log2(e) - LSE log2(e)), masked as in K2, then dQ += dS K
+//     is RS (dS packed to 16 bits, K MN-major through the transpose bit):
+//     three batches of HGMMA a tile, one WARPGROUP.DEPBAR each. A thread
+//     holds S, dP (32 registers each), dQ (64) and the dS fragments (16):
+//     144, under the ~168 ptxas keeps spill-free in a 384-thread wgmma
+//     pipeline (128-key tiles would need 192). 130 KB of shared memory at
+//     D = 128.
 //
 // Common to all kernels:
 //   - the [Sq, Sk] score matrix never leaves the CTA: the forward keeps an
@@ -74,6 +82,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -584,97 +594,40 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K3's tensor-core version for bfloat16 and float16 at D <= 128: products
-// on mma.sync.m16n8k16 (fp32 accumulate). 128 threads = 4 warps per CTA;
-// each warp owns 16 q rows of the CTA's block. Scores and dS stay in the
-// accumulator registers: a C fragment of two neighbouring n-tiles is the A
-// fragment of the next product once packed to 16 bits, which is where dS
-// is rounded to the input dtype. Row max / sum are two shuffles inside the
-// quad of lanes that share a row (the Hopper kernels below use the same
-// fragment layout per warp). Tiles have a pitch of DT + 8 elements, so
-// every 32-bit fragment load hits 32 distinct banks.
+// Hopper kernels for bfloat16 and float16 at D <= 128: K2, K3 and K4 (design
+// in the head comment). Shared-memory tiles are what TMA writes with 128-byte
+// swizzle: rows of 64 16-bit elements (128 bytes), 8-row groups of 1024
+// bytes, the 16-byte chunks of a row XOR-ed with the row's index mod 8; a
+// tile of DT columns is DT / 64 such "halves" one after the other. Every
+// tile starts on a 1024-byte boundary, so the swizzle of the address is the
+// swizzle of the tile. Accumulators are in the m16n8 fragment layout per
+// warp: lane (g = lane / 4, t = lane % 4) holds rows g and g + 8 of its
+// warp's 16, columns 2t and 2t + 1 of every 8.
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;
+constexpr int kWsThreads = 384;   // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumers = 256;
+constexpr int kFwdStages = 2;     // K2's ring of K/V tiles
+constexpr int kDqKeys = 64;       // K3's key tile
+constexpr int kDqStages = 2;      // K3's ring of K/V tiles
+constexpr int kDkvKeys = 64;      // K4's keys per CTA
+constexpr int kDkvQRows = 64;     // K4's q tile
+constexpr int kDkvStages = 2;     // K4's ring of Q/dO tiles
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
+// Two fp32 values rounded to the 16-bit type, packed into one register.
 template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
   }
-};
-
-template <>
-struct Mma<__half> {
-  __device__ __forceinline__ static void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Two 16-bit elements of one column, rows r and r + 1, as one register
-// (the B fragment of a product whose k index runs down the tile's rows).
-template <typename T, int P>
-__device__ __forceinline__ uint32_t ld_col2(const T* p) {
-  const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
-  return (uint32_t)u[0] | ((uint32_t)u[P] << 16);
-}
-
-// The A fragment of rows [r, r + 16) x columns [c, c + 16) of a tile.
-template <typename T, int P>
-__device__ __forceinline__ void ld_a(uint32_t* a, const T* tile, int r,
-                                     int c, int g, int t) {
-  const T* p = tile + (r + g) * P + c + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * P);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * P + 8);
-}
-
-// Rows [r0, r0 + R) of one head into a tile [R][DT + 8] with 16-byte
-// stores; rows >= S and columns >= D are zero.
-template <typename T, int R, int DT>
-__device__ __forceinline__ void load_tile16(T* __restrict__ dst,
-                                            const T* __restrict__ src, int r0,
-                                            int S, size_t row_stride, int D) {
-  constexpr int P = DT + 8;
-  constexpr int NV = DT / 8;
-  for (int idx = threadIdx.x; idx < R * NV; idx += kMmaThreads) {
-    const int r = idx / NV;
-    const int c = (idx - r * NV) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S && c < D) {
-      val = __ldg(reinterpret_cast<const uint4*>(
-          src + (size_t)(r0 + r) * row_stride + c));
-    }
-    *reinterpret_cast<uint4*>(dst + r * P + c) = val;
-  }
-}
-
+// Max / sum over the quad of lanes that share a row of a fragment.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -683,214 +636,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// K3 on tensor cores: CTA = 64 q rows x (head, batch); key tiles of 64.
-template <typename T, int DT>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            T* __restrict__ dq, int Sq, int Sk, int H, int Hkv,
-                            int D, float scale, int causal) {
-  constexpr int BR = 64, BC = 64, P = DT + 8;
-  constexpr int KS = DT / 16, NT = BC / 8, DN = DT / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + BR * P;
-  T* Ks = dOs + BR * P;
-  T* Vs = Ks + BC * P;
-
-  const int nq = (Sq + BR - 1) / BR;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BR;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qrs = (size_t)H * D, krs = (size_t)Hkv * D;
-  const size_t qoff = (size_t)b * Sq * qrs + (size_t)h * D;
-  const T* kb = k + (size_t)b * Sk * krs + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * Sk * krs + (size_t)kvh * D;
-  load_tile16<T, BR, DT>(Qs, q + qoff, q0, Sq, qrs, D);
-  load_tile16<T, BR, DT>(dOs, dout + qoff, q0, Sq, qrs, D);
-
-  const int r0 = q0 + warp * 16 + g;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = r0 + i * 8;
-    lse_r[i] = qi < Sq ? lse[((size_t)b * H + h) * Sq + qi] : 0.f;
-    delta_r[i] = qi < Sq ? delta[((size_t)b * H + h) * Sq + qi] : 0.f;
-  }
-  float acc[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  }
-
-  const int nk = (Sk + BC - 1) / BC;
-  const int hi = causal ? min(nk, (q0 + BR + BC - 1) / BC) : nk;
-  for (int ik = 0; ik < hi; ++ik) {
-    const int k0 = ik * BC;
-    __syncthreads();
-    load_tile16<T, BC, DT>(Ks, kb, k0, Sk, krs, D);
-    load_tile16<T, BC, DT>(Vs, vb, k0, Sk, krs, D);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4], oa[4];
-      ld_a<T, P>(qa, Qs, warp * 16, kk * 16, g, t);
-      ld_a<T, P>(oa, dOs, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int off = (nt * 8 + g) * P + kk * 16 + 2 * t;
-        Mma<T>::run(s[nt], qa, ld32(Ks + off), ld32(Ks + off + 8));
-        Mma<T>::run(dp[nt], oa, ld32(Vs + off), ld32(Vs + off + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = r0 + (e >> 1) * 8;
-        const int kj = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = kj < Sk && (!causal || qi >= kj);
-        const float x = ok ? s[nt][e] * scale : kNegInf;
-        const float p = expf(x - lse_r[e >> 1]);
-        s[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]);  // dS
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      const uint32_t da[4] = {
-          Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-          Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-          Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const T* kp = Ks + (kk * 16 + 2 * t) * P + g;
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        Mma<T>::run(acc[dn], da, ld_col2<T, P>(kp + dn * 8),
-                    ld_col2<T, P>(kp + 8 * P + dn * 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = r0 + i * 8;
-    if (qi >= Sq) continue;
-    T* row = dq + ((size_t)b * Sq + qi) * qrs + (size_t)h * D;
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      const int d = dn * 8 + 2 * t;
-      if (d < D) {
-        row[d] = Cvt<T>::to(scale * acc[dn][2 * i]);
-        row[d + 1] = Cvt<T>::to(scale * acc[dn][2 * i + 1]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Hopper kernels for bfloat16 and float16 at D <= 128: K2 and K4 (design in
-// the head comment). Shared-memory tiles are what TMA writes with 128-byte
-// swizzle: rows of 64 16-bit elements (128 bytes), 8-row groups of 1024
-// bytes, the 16-byte chunks of a row XOR-ed with the row's index mod 8; a
-// tile of DT columns is DT / 64 such "halves" one after the other. Every
-// tile starts on a 1024-byte boundary, so the swizzle of the address is the
-// swizzle of the tile.
-// ---------------------------------------------------------------------------
-constexpr int kWsThreads = 384;   // consumer warpgroups 0 and 1, producer 2
-constexpr int kConsumers = 256;
-constexpr int kFwdStages = 2;     // K2's ring of K/V tiles
-constexpr int kDkvKeys = 64;      // K4's keys per CTA
-constexpr int kDkvQRows = 64;     // K4's q tile
-constexpr int kDkvStages = 2;     // K4's ring of Q/dO tiles
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed. A wait still
-// open after 2^34 clocks (about 9 s) traps: a fault in the pipeline's
-// protocol ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-// The i-th tile of a ring of S stages: its stage, and the parity of the
-// stage's barrier phases for this use (the producer waits on "empty" with
-// the other parity, so a stage's first use does not wait).
-template <int S>
-struct Ring {
-  int s, phase;
-  __device__ __forceinline__ explicit Ring(int i)
-      : s(i % S), phase((i / S) & 1) {}
-};
-
-// TMA: one box of a 4-D map (coordinates innermost first) into shared
-// memory, completing `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
-      : "memory");
 }
 
 // wgmma shared-memory descriptor of a swizzled tile at `addr`: 8-row
@@ -1055,10 +800,10 @@ template <typename T, int NT>
 __device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* s) {
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
-    a[kk][0] = Mma<T>::pack(s[8 * kk + 0], s[8 * kk + 1]);
-    a[kk][1] = Mma<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
-    a[kk][2] = Mma<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
-    a[kk][3] = Mma<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+    a[kk][0] = pack2<T>(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
@@ -1215,11 +960,175 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       for (int j = 0; j < DT / 8; ++j) {
         const int d = j * 8 + 2 * t;
         if (d < D) {
-          *reinterpret_cast<uint32_t*>(orow + d) = Mma<T>::pack(
+          *reinterpret_cast<uint32_t*>(orow + d) = pack2<T>(
               acc[4 * j + 2 * r] / ll, acc[4 * j + 2 * r + 1] / ll);
         }
       }
       if (t == 0) lse[((size_t)b * H + h) * Sq + qi] = m[r] * kLn2 + logf(ll);
+    }
+  }
+}
+
+// K3 on Hopper. CTA = 128 q rows x (head, batch); key tiles of 64. Each
+// consumer warpgroup owns 64 rows: S = Q K^T and dP = dO V^T (SS), dS =
+// P (dP - delta) with P = exp2(S scale log2(e) - LSE log2(e)), then
+// dQ += dS K (RS, dS packed to 16 bits, K MN-major).
+// Shared memory: Q and dO (BR x DT each), then S stages of K and V (BC x DT
+// each), then the barriers: Q/dO's, full[S], empty[S].
+template <typename T, int DT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dq, int Sq, int Sk, int H,
+                              int Hkv, int D, float scale, int causal) {
+  constexpr int BR = 128, BC = kDqKeys, NH = DT / 64;
+  constexpr uint32_t QB = BR * DT * 2, KB = BC * DT * 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u, sdo = sq + QB;
+  constexpr int S = kDqStages;
+  const uint32_t ring0 = sdo + QB;
+  const uint32_t bars = ring0 + 2 * S * KB;
+  const uint32_t qbar = bars, full0 = bars + 8, empty0 = full0 + 8 * S;
+
+  const int nq = (Sq + BR - 1) / BR;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BR;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int nk = (Sk + BC - 1) / BC;
+  const int hi = causal ? min(nk, (q0 + BR + BC - 1) / BC) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      mbar_expect_tx(qbar, 2 * QB);
+      for (int c = 0; c < NH; ++c) {
+        tma_load_4d(sq + c * (BR * 128), &tq, qbar, c * 64, h, q0, b);
+        tma_load_4d(sdo + c * (BR * 128), &tdo, qbar, c * 64, h, q0, b);
+      }
+      for (int i = 0; i < hi; ++i) {
+        const Ring<S> r(i);
+        const uint32_t full = full0 + 8 * r.s;
+        const uint32_t ks = ring0 + 2 * r.s * KB, vs = ks + KB;
+        mbar_wait(empty0 + 8 * r.s, r.phase ^ 1);
+        mbar_expect_tx(full, 2 * KB);
+        for (int c = 0; c < NH; ++c) {
+          tma_load_4d(ks + c * (BC * 128), &tk, full, c * 64, kvh, i * BC, b);
+          tma_load_4d(vs + c * (BC * 128), &tv, full, c * 64, kvh, i * BC, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns q rows [qw, qw + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw = q0 + wg * 64;
+    const int r0 = qw + warp * 16 + g;  // this lane's rows: r0 and r0 + 8
+    const float sl2 = scale * kLog2e;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + r * 8;
+      const size_t row = ((size_t)b * H + h) * Sq + qi;
+      lse2[r] = qi < Sq ? lse[row] * kLog2e : 0.f;
+      dl[r] = qi < Sq ? delta[row] : 0.f;
+    }
+    float acc[DT / 2];
+#pragma unroll
+    for (int i = 0; i < DT / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(qbar, 0);
+    for (int i = 0; i < hi; ++i) {
+      const Ring<S> ring(i);
+      const int k0 = i * BC;
+      const uint32_t ks = ring0 + 2 * ring.s * KB, vs = ks + KB;
+      mbar_wait(full0 + 8 * ring.s, ring.phase);
+
+      // S, then dP, in two commit groups (in one, ptxas injects a wait
+      // between them, C7517/C7519). No branch around the products: one
+      // that skipped a tile wholly past the warpgroup's rows made ptxas
+      // serialise every wgmma (C7520), so such a tile is masked to zero.
+      float sc[BC / 2], dp[BC / 2];
+#pragma unroll
+      for (int j = 0; j < BC / 2; ++j) sc[j] = dp[j] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * (BR * 128) + (kk & 3) * 32 +
+                             wg * 64 * 128;
+        const uint32_t koff = (kk >> 2) * (BC * 128) + (kk & 3) * 32;
+        wg_ss<T, BC>(sc, sw128_desc(sq + off, 16), sw128_desc(ks + koff, 16));
+      }
+      wg_commit_wait();
+      wg_hold<BC / 2>(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * (BR * 128) + (kk & 3) * 32 +
+                             wg * 64 * 128;
+        const uint32_t koff = (kk >> 2) * (BC * 128) + (kk & 3) * 32;
+        wg_ss<T, BC>(dp, sw128_desc(sdo + off, 16), sw128_desc(vs + koff, 16));
+      }
+      wg_commit_wait();
+      wg_hold<BC / 2>(dp);
+
+      // Masks only where the tile crosses the top-left diagonal or Sk.
+      const bool edge = k0 + BC > Sk || (causal && k0 + BC - 1 > qw);
+#pragma unroll
+      for (int j = 0; j < BC / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(sc[4 * j + e], sl2, -lse2[e >> 1]));
+          if (edge) {
+            const int qi = r0 + (e >> 1) * 8;
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            if (kj >= Sk || (causal && qi < kj)) p = 0.f;
+          }
+          sc[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);  // dS
+        }
+      }
+      // dQ += dS K, dS rounded to q's dtype as A fragments.
+      uint32_t pa[BC / 16][4];
+      pack_a<T, BC / 8>(pa, sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        wg_rs<T, DT>(acc, pa[kk], sw128_desc(ks + kk * 16 * 128, BC * 128));
+      }
+      wg_commit_wait();
+      wg_hold<DT / 2>(acc);
+      wg_hold<BC / 16>(pa);
+      mbar_arrive(empty0 + 8 * ring.s);
+    }
+
+    const size_t qrs = (size_t)H * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + r * 8;
+      if (qi >= Sq) continue;
+      T* row = dq + ((size_t)b * Sq + qi) * qrs + (size_t)h * D;
+#pragma unroll
+      for (int j = 0; j < DT / 8; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < D) {
+          *reinterpret_cast<uint32_t*>(row + d) = pack2<T>(
+              scale * acc[4 * j + 2 * r], scale * acc[4 * j + 2 * r + 1]);
+        }
+      }
     }
   }
 }
@@ -1407,7 +1316,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       for (int j = 0; j < DT / 8; ++j) {
         const int d = j * 8 + 2 * t;
         if (d < D) {
-          *reinterpret_cast<uint32_t*>(row + d) = Mma<T>::pack(
+          *reinterpret_cast<uint32_t*>(row + d) = pack2<T>(
               mul * acc[4 * j + 2 * r], mul * acc[4 * j + 2 * r + 1]);
         }
       }
@@ -1426,18 +1335,6 @@ struct Shape {
   int B, Sq, Sk, H, Hkv, D, causal;
   float scale;
 };
-
-// Raise the kernel's dynamic shared-memory limit once per instance (`done`
-// is a static of the instance's launcher), so the call never falls inside
-// a CUDA-graph capture: an instance's first launch is an eager one.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) done = true;
-  return e;
-}
 
 template <typename T, int DT, int BR, int BC>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
@@ -1498,76 +1395,16 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DT>
-cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, const Shape& s, cudaStream_t st) {
-  constexpr size_t smem = (size_t)4 * 64 * (DT + 8) * sizeof(T);
-  auto kernel = flash_bwd_dq_mma_kernel<T, DT>;
-  static bool done = false;
-  cudaError_t e = allow_smem(kernel, smem, done);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((s.Sq + 63) / 64, s.H, s.B);
-  kernel<<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), s.Sq, s.Sk, s.H, s.Hkv, s.D, s.scale, s.causal);
-  return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled (libcuda), found through the runtime's entry-point
-// query, so the library links against nothing but the CUDA runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A [B, S, heads, D] 16-bit tensor as a 4-D map over (D, heads, S, B) with
-// its real extents and strides; boxes of 64 columns x `rows` rows of one
-// head, 128-byte swizzle, zeros past the extents. False where TMA cannot
-// take the tensor (base not 16-byte aligned, a stride not a multiple of 16
-// bytes) or cuTensorMapEncodeTiled refuses the map.
+// A [B, S, heads, D] 16-bit tensor as a 4-D map (heads_map, tma.cuh) with
+// boxes of 64 columns x `rows` rows of one head and 128-byte swizzle.
 template <typename T>
 bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads, int D,
               int rows) {
-  const EncodeTiled encode = encoder();
-  const cuuint64_t row = (cuuint64_t)D * sizeof(T);
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(p) % 16 || row % 16) {
-    return false;
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return encode(m, type, 4, const_cast<void*>(p), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return heads_map(m, p, type, 2, B, S, heads, D, 64, rows,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A flat fp32 [n] array (LSE or delta, [B, H, Sq]) as a 1-D map, boxes of
@@ -1607,6 +1444,32 @@ cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T, int DT>
+cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, const Shape& s, cudaStream_t st) {
+  constexpr size_t smem = 1024 + (size_t)2 * 128 * DT * 2 +
+                          (size_t)2 * kDqStages * kDqKeys * DT * 2 +
+                          8 * (1 + 2 * kDqStages);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!rows_map<T>(&tq, q, s.B, s.Sq, s.H, s.D, 128) ||
+      !rows_map<T>(&tdo, dout, s.B, s.Sq, s.H, s.D, 128) ||
+      !rows_map<T>(&tk, k, s.B, s.Sk, s.Hkv, s.D, kDqKeys) ||
+      !rows_map<T>(&tv, v, s.B, s.Sk, s.Hkv, s.D, kDqKeys)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_bwd_dq_wgmma_kernel<T, DT>;
+  static bool done = false;
+  cudaError_t e = allow_smem(kernel, smem, done);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((s.Sq + 127) / 128, s.H, s.B);
+  kernel<<<grid, kWsThreads, smem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), s.Sq, s.Sk, s.H,
+      s.Hkv, s.D, s.scale, s.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int DT>
 cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv,
@@ -1637,9 +1500,8 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// bfloat16 / float16 at D <= 128 take the tensor-core kernels (Hopper K2
-// and K4, mma.sync K3); float32, and D up to 256 in any dtype, the
-// CUDA-core ones.
+// bfloat16 / float16 at D <= 128 take the Hopper kernels; float32, and D up
+// to 256 in any dtype, the CUDA-core ones.
 template <typename T>
 cudaError_t fwd_dt(const void* q, const void* k, const void* v, void* o,
                    void* lse, const Shape& s, cudaStream_t st) {
@@ -1659,10 +1521,10 @@ cudaError_t bwd_dq_dt(const void* q, const void* k, const void* v,
                       void* dq, const Shape& s, cudaStream_t st) {
   if constexpr (sizeof(T) == 2) {
     if (s.D <= 64) {
-      return bwd_dq_mma<T, 64>(q, k, v, dout, lse, delta, dq, s, st);
+      return bwd_dq_wgmma<T, 64>(q, k, v, dout, lse, delta, dq, s, st);
     }
     if (s.D <= 128) {
-      return bwd_dq_mma<T, 128>(q, k, v, dout, lse, delta, dq, s, st);
+      return bwd_dq_wgmma<T, 128>(q, k, v, dout, lse, delta, dq, s, st);
     }
   } else {
     if (s.D <= 64) {

@@ -10,18 +10,31 @@ nvcc per source, all started together, then one link:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
          -o build/paddle_tpu_torch/libpt_kernels.so *.o
 
-A stamp file beside the library records a hash of the sources, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing
-here runs at import time: this module is imported on machines without
-nvcc, and only a launch on a CUDA tensor calls ``library()``.
+A stamp file beside the library records a hash of the sources and the
+headers they include, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Nothing here runs at import time: this module is
+imported on machines without nvcc, and only a launch on a CUDA tensor
+calls ``library()``.
+
+    python -m paddle_tpu_torch.ops.kernels._build --report
+
+prints, per kernel instance, what ptxas says (registers, spill stores and
+loads, and the codes of its performance notes such as C7512 "wgmma
+serialized"; ``-Xptxas -v``) and how many HGMMA and WARPGROUP.DEPBAR
+instructions its SASS holds (``cuobjdump -sass``): a pipelined wgmma
+product shows one DEPBAR per batch of HGMMA, a serialised one one per
+HGMMA.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -33,6 +46,7 @@ _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 LIB_PATH = _PKG.parent / "build" / "paddle_tpu_torch" / "libpt_kernels.so"
 SOURCES = ("decode_attention.cu", "flash_attention.cu", "fused_ce.cu")
+HEADERS = ("tma.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -54,7 +68,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()
@@ -140,3 +154,63 @@ def library() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
         return _lib
+
+
+def _tool(name: str) -> str:
+    return str(Path(_nvcc()).with_name(name))
+
+
+def report() -> str:
+    """One line per kernel instance of every source: its registers and
+    spill bytes (ptxas) and its HGMMA / WARPGROUP.DEPBAR counts (SASS)."""
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in SOURCES:
+            cubin = Path(tmp) / f"{Path(src).stem}.cubin"
+            ptxas = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-cubin",
+                 str(CSRC / src), "-o", str(cubin)],
+                capture_output=True, text=True, check=True).stderr
+            stats, name = {}, None
+            for line in ptxas.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    name = m.group(1)
+                    stats[name] = {}
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m and name:
+                    stats[name]["spills"] = (int(m.group(1)), int(m.group(2)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    stats[name]["registers"] = int(m.group(1))
+                m = re.search(r"\((C\d+)\).*in the function '(\S+)'", line)
+                if m:      # e.g. C7512, "wgmma serialized"
+                    stats.setdefault(m.group(2), {}).setdefault(
+                        "ptxas", []).append(m.group(1))
+            sass = subprocess.run([_tool("cuobjdump"), "-sass", str(cubin)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            for chunk in sass.split("Function : ")[1:]:
+                fn = chunk.split(None, 1)[0]
+                stats.setdefault(fn, {}).update(
+                    hgmma=chunk.count("HGMMA."),
+                    depbar=chunk.count("WARPGROUP.DEPBAR"))
+            names = subprocess.run([_tool("cu++filt")], input="\n".join(stats),
+                                   capture_output=True, text=True).stdout
+            for fn, pretty in zip(stats, names.splitlines() or list(stats)):
+                st = stats[fn]
+                lines.append(f"{src}: {pretty} registers={st.get('registers')} "
+                             f"spill_stores/loads={st.get('spills')} "
+                             f"HGMMA={st.get('hgmma')} "
+                             f"DEPBAR={st.get('depbar')}"
+                             + (f" ptxas={','.join(st['ptxas'])}"
+                                if st.get("ptxas") else ""))
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--report"]:
+        sys.exit("usage: python -m paddle_tpu_torch.ops.kernels._build "
+                 "--report")
+    print(report())

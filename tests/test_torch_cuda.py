@@ -38,6 +38,12 @@ CASES = [
     (2, 64, 8, 1, 256, [64, 5]),              # group 8, D = 256
     (8, 2048, 32, 32, 128, LENS_7B),          # LLaMA-7B decode, MHA
     (8, 2048, 32, 8, 128, LENS_7B),           # GQA
+    # The split-KV edges (ranks of 256 keys at S_max 2048): a length at a
+    # rank boundary, one below and one above it, one key in the last rank.
+    (4, 2048, 8, 8, 128, [256, 255, 257, 1793]),
+    (3, 2047, 8, 2, 128, [2047, 1792, 1]),    # S_max % (splits x chunk) != 0
+    (3, 200, 8, 8, 64, [200, 199, 0]),        # S_max < 256: one rank
+    (3, 4096, 8, 4, 128, [4096, 512, 3585]),  # ranks of 512 keys
 ]
 
 
@@ -154,6 +160,8 @@ FLASH_CASES = [
     (1, 129, 129, 8, 1, 96, True),        # group 8, D = 96, S = 129
     (1, 129, 257, 8, 1, 64, False),       # group 8, D = 64, Sk = 2 tiles + 1
     (2, 2048, 2048, 32, 32, 128, True),   # the llama_7b training shape
+    (1, 1, 129, 4, 4, 128, True),         # causal Sq = 1: only key 0 is live
+    (1, 257, 257, 8, 2, 64, True),        # a partial last 128-row q-block
 ]
 
 
