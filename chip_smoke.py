@@ -199,6 +199,13 @@ DECODE_CASES = [
     ("split_s2047", 3, 2047, 8, 2, 128, ALL_DTYPES, [2047, 1792, 1]),
     ("split_one_rank", 3, 200, 8, 8, 64, ALL_DTYPES, [200, 199, 0]),
     ("split_s4096", 3, 4096, 8, 4, 128, ALL_DTYPES, [4096, 512, 3585]),
+    # GQA groups above 8 (chunks of query heads along the grid, one launch)
+    # and head widths off the TMA path (element loads).
+    ("group16", 2, 300, 16, 1, 128, ALL_DTYPES, [300, 77]),
+    ("group32_mqa", 3, 600, 32, 1, 64, ALL_DTYPES, [600, 1, 0]),
+    ("d80", 2, 300, 8, 2, 80, ALL_DTYPES, [300, 41]),
+    ("d100", 2, 300, 8, 2, 100, ALL_DTYPES, [300, 41]),
+    ("d320", 2, 300, 4, 1, 320, ALL_DTYPES, [300, 257]),
 ]
 
 
@@ -520,6 +527,9 @@ FLASH_CASES = [
     ("d64_gqa8_sq129_sk257", 1, 129, 257, 8, 1, 64, False),
     ("d128_mha_causal_sq1_sk129", 1, 1, 129, 4, 4, 128, True),
     ("d64_gqa4_causal_s257", 1, 257, 257, 8, 2, 64, True),
+    ("d80_gqa2_causal_s130", 1, 130, 130, 4, 2, 80, True),
+    ("d100_mha_sq100_sk140", 2, 100, 140, 4, 4, 100, False),
+    ("d320_mha_causal_sq70_sk90", 1, 70, 90, 2, 2, 320, True),
 ]
 # (rtol, step) per dtype. Every row of D values (one batch, position and
 # head: a query row of O and dQ, a key row of dK and dV) is held to its own
@@ -845,20 +855,28 @@ def phase_flash_timing(torch, fa, heads, head_dim):
 
 
 # Fused CE cases: (name, N, H, V, vocab_offset, last). Ragged N, H and V
-# (element loads), V not a multiple of 8, the 16-byte path with a vocab
-# offset (a third of the labels outside the shard), labels all in the last
-# vocab tile (last=True).
+# (element loads), V not a multiple of 8 (the mma.sync kernels), the 16-byte
+# path with a vocab offset (a third of the labels outside the shard),
+# labels all in the last vocab tile (last=True).
 FCE_CASES = [
     ("n13_h50_v777", 13, 50, 777, 0, False),
     ("n200_h136_v1030", 200, 136, 1030, 0, False),
     ("n300_h256_v4096_off1000", 300, 256, 4096, 1000, False),
     ("n130_h512_v2000_lasttile", 130, 512, 2000, 0, True),
+    # bf16/fp16 with H and V multiples of 8 run the wgmma K6/K7: N, H and V
+    # off their tiles, many vocab tiles, an 8-column last vocab slice with
+    # labels in it, two 512-row slices with a vocab offset.
+    ("n200_h520_v1032", 200, 520, 1032, 0, False),
+    ("n256_h4096_v32000", 256, 4096, 32000, 0, False),
+    ("n333_h136_v2056_lasttile", 333, 136, 2056, 0, True),
+    ("n1000_h128_v1024_off300", 1000, 128, 1024, 300, False),
 ]
 # m, lse and loss per row: atol 1e-4 / rtol 1e-5 (fp32 sums of the same
 # products in another order). dh row by row and dW column by column under
 # FLASH_TOL's rule with two steps: both round the same dl to the dtype, from
 # fp32 logits summed in another order, and round an fp32 sum once; K6 and
-# K7 add their products with atomics, in an order that changes between runs.
+# K7 add their products with fp32 reductions, in an order that changes
+# between runs.
 
 
 def fce_inputs(torch, N, H, V, offset, last, dtype, seed):

@@ -32,9 +32,16 @@
 //   - compute runs on CUDA cores from shared memory: "row groups" of tpr
 //     threads each take one K/V row at a time with 16-byte loads, and keep
 //     their own (m, l, acc) in fp32 registers (an online softmax), so no
-//     [B, H, S_max] probability tensor is ever written. The CTA serves the
-//     group = H / Hkv query heads that share the kv head, so each K/V byte
-//     is read once for the whole group;
+//     [B, H, S_max] probability tensor is ever written. The CTA serves up
+//     to 8 of the group = H / Hkv query heads that share the kv head (fewer
+//     for rows of more than 32 vectors), so each K/V byte is read once per
+//     chunk of the group; a larger group (MQA) takes several CTAs per kv
+//     head along grid y, each re-reading the K/V rows, mostly from L2, in
+//     the same single launch;
+//   - rows TMA cannot take (D x sizeof(T) not a multiple of 16 bytes, or
+//     D > 256, up to kMaxD = 512) are loaded by every thread with element
+//     loads into rows padded to the vector width, one tile at a time: a
+//     path off the main one, kept simple;
 //   - merge: the row groups of a warp merge with shuffles, the warps of a
 //     CTA in shared memory into the rank's partial (m, l, acc per head);
 //     after cluster.sync() each live rank merges one slice of the group x
@@ -63,12 +70,11 @@ namespace cg = cooperative_groups;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 512;
 constexpr int kMaxSplits = 8;      // the portable cluster size
 constexpr int kSplitKeys = 256;    // key positions that earn one more rank
 constexpr int kStages = 2;         // the ring of K/V tiles
 constexpr int kStageBytes = 8192;  // at most, per K (and per V) tile
-constexpr int kMaxG = 8;
 constexpr float kNegInf = -1e30f;
 
 template <typename T>
@@ -86,6 +92,7 @@ struct VecIO<float> {
     out[3] = v.w;
   }
   __device__ __forceinline__ static float from_float(float x) { return x; }
+  __device__ __forceinline__ static float f(float x) { return x; }
 };
 
 template <>
@@ -104,6 +111,9 @@ struct VecIO<__half> {
   }
   __device__ __forceinline__ static __half from_float(float x) {
     return __float2half_rn(x);
+  }
+  __device__ __forceinline__ static float f(__half x) {
+    return __half2float(x);
   }
 };
 
@@ -126,53 +136,85 @@ struct VecIO<__nv_bfloat16> {
   __device__ __forceinline__ static __nv_bfloat16 from_float(float x) {
     return __float2bfloat16_rn(x);
   }
+  __device__ __forceinline__ static float f(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
 };
 
 // Dynamic shared memory, from a 128-byte boundary: the ring of kStages K
-// and V tiles (R x D each), which the warps' partials [kWarps][group] m, l
-// and [kWarps][group][D] acc reuse once the ring is drained; then the
-// rank's partial m[group], l[group], acc[group][D] that the cluster reads;
+// and V tiles (R x DP each), which the warps' partials [kWarps][heads] m, l
+// and [kWarps][heads][DP] acc reuse once the ring is drained; then the
+// rank's partial m[heads], l[heads], acc[heads][DP] that the cluster reads;
 // then the ring's full barriers.
 struct Layout {
   size_t part, bars, total;  // offsets from the base; the ring is at 0
-  __host__ __device__ Layout(int group, int D, int tile_bytes) {
+  __host__ __device__ Layout(int heads, int DP, int tile_bytes) {
     const size_t tiles = (size_t)kStages * 2 * tile_bytes;
-    const size_t warps = (size_t)kWarps * group * (D + 2) * 4;
+    const size_t warps = (size_t)kWarps * heads * (DP + 2) * 4;
     part = ((tiles > warps ? tiles : warps) + 15) & ~(size_t)15;
-    bars = (part + (size_t)group * (D + 2) * 4 + 7) & ~(size_t)7;
+    bars = (part + (size_t)heads * (DP + 2) * 4 + 7) & ~(size_t)7;
     total = bars + 8 * kStages + 128;  // + the alignment of the base
   }
 };
 
-// G: compile-time bound on the query heads per kv head (group <= G).
-// NV: 16-byte vectors per thread per row (2 only for fp32 rows wider than
-// 32 vectors). U: K/V rows each row group takes per step.
-template <typename T, int G, int NV>
+// Rows [j0, j0 + rows) of one kv head of the K and V caches into the tiles
+// ks / vs (row pitch DP) with element loads, zeros at columns >= D and at
+// rows >= c1: the path for rows TMA cannot take.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* ks, T* vs,
+                                          const T* __restrict__ kc,
+                                          const T* __restrict__ vc, int b,
+                                          int j0, int c1, int kvh, int S,
+                                          int Hkv, int D, int DP, int rows) {
+  for (int idx = threadIdx.x; idx < rows * DP; idx += kThreads) {
+    const int r = idx / DP, d = idx - r * DP;
+    const bool in = j0 + r < c1 && d < D;
+    const size_t off = (((size_t)b * S + j0 + r) * Hkv + kvh) * D + d;
+    ks[idx] = in ? kc[off] : VecIO<T>::from_float(0.f);
+    vs[idx] = in ? vc[off] : VecIO<T>::from_float(0.f);
+  }
+}
+
+// G: compile-time bound on the query heads a CTA serves (a chunk of the
+// GQA group; blockIdx.y walks (kv head, chunk)). NV: 16-byte vectors per
+// thread per row. TMA: K/V tiles by TMA through the ring (D x sizeof(T) a
+// multiple of 16 bytes, D <= 256); otherwise by element loads, one tile at a
+// time, into rows of DP (D rounded up to the vector) elements. U: K/V rows
+// each row group takes per step.
+template <typename T, int G, int NV, bool TMA>
 __global__ void __launch_bounds__(kThreads)
     ragged_decode_split_kernel(const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
+                               const T* __restrict__ kc,
+                               const T* __restrict__ vc,
                                const T* __restrict__ q,
                                const int* __restrict__ lengths,
                                T* __restrict__ out, int S, int H, int Hkv,
-                               int D, int group, int tpr, int rows, int chunk,
-                               float scale) {
+                               int D, int DP, int group, int tpr, int rows,
+                               int chunk, float scale) {
   constexpr int VEC = VecIO<T>::N;
   constexpr int E = NV * VEC;  // elements of a row per thread
-  constexpr int U = G >= 8 ? 2 : 4;
+  constexpr int U = G >= 8 || E >= 16 ? 2 : 4;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
 
+  // This CTA's query heads: [h0, h0 + heads) of kv head kvh.
+  const int nchunks = (group + G - 1) / G;
+  const int kvh = blockIdx.y / nchunks;
+  const int hc = blockIdx.y - kvh * nchunks;
+  const int h0 = kvh * group + hc * G;
+  const int heads = min(G, group - hc * G);
+
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((128 - smem_u32(smem_raw) % 128) % 128);
-  const int tile_bytes = rows * D * (int)sizeof(T);
-  const Layout lay(group, D, tile_bytes);
+  const int tile_bytes = rows * DP * (int)sizeof(T);
+  const Layout lay(heads, DP, tile_bytes);
   float* part_m = reinterpret_cast<float*>(smem + lay.part);
-  float* part_l = part_m + group;
-  float* part_acc = part_l + group;
+  float* part_l = part_m + heads;
+  float* part_acc = part_l + heads;
   const uint32_t full0 = smem_u32(smem + lay.bars);
   const uint32_t ring0 = smem_u32(smem);
 
-  const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -181,7 +223,7 @@ __global__ void __launch_bounds__(kThreads)
   const int rg_per_warp = 32 / tpr;
   const int n_rg = kWarps * rg_per_warp;  // row groups in the CTA
   const int rg = warp * rg_per_warp + lane / tpr;
-  const int nvec = D / VEC;
+  const int nvec = DP / VEC;
 
   int n = lengths[b];
   n = n < 0 ? 0 : (n > S ? S : n);
@@ -195,19 +237,20 @@ __global__ void __launch_bounds__(kThreads)
   const int c1 = min(c0 + chunk, n);           // [c0, c1)
   const int ntiles = c1 > c0 ? (c1 - c0 + rows - 1) / rows : 0;
 
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(full0 + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int i = 0; i < min(kStages, ntiles); ++i) {
-      const uint32_t ks = ring0 + 2 * i * tile_bytes;
-      mbar_expect_tx(full0 + 8 * i, 2 * tile_bytes);
-      tma_load_4d(ks, &tk, full0 + 8 * i, 0, kvh, c0 + i * rows, b);
-      tma_load_4d(ks + tile_bytes, &tv, full0 + 8 * i, 0, kvh, c0 + i * rows,
-                  b);
+  if constexpr (TMA) {
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(full0 + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int i = 0; i < min(kStages, ntiles); ++i) {
+        const uint32_t ks = ring0 + 2 * i * tile_bytes;
+        mbar_expect_tx(full0 + 8 * i, 2 * tile_bytes);
+        tma_load_4d(ks, &tk, full0 + 8 * i, 0, kvh, c0 + i * rows, b);
+        tma_load_4d(ks + tile_bytes, &tv, full0 + 8 * i, 0, kvh,
+                    c0 + i * rows, b);
+      }
     }
   }
 
-  const int h0 = kvh * group;
   float qr[G][E];
   float m[G], l[G], acc[G][E];
 #pragma unroll
@@ -217,9 +260,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int iv = 0; iv < NV; ++iv) {
       const int vi = iv * tpr + sub;
-      if (g < group && vi < nvec) {
-        VecIO<T>::load(q + ((size_t)b * H + h0 + g) * D + vi * VEC,
-                       &qr[g][iv * VEC]);
+      const T* qrow = q + ((size_t)b * H + h0 + g) * D;
+      if (g < heads && vi < nvec) {
+        if constexpr (TMA) {
+          VecIO<T>::load(qrow + vi * VEC, &qr[g][iv * VEC]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int d = vi * VEC + e;
+            qr[g][iv * VEC + e] = d < D ? VecIO<T>::f(qrow[d]) : 0.f;
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) qr[g][iv * VEC + e] = 0.f;
@@ -232,11 +283,16 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int i = 0; i < ntiles; ++i) {
     const Ring<kStages> ring(i);
-    const T* ks = reinterpret_cast<const T*>(smem + (size_t)2 * ring.s *
-                                                        tile_bytes);
-    const T* vs = ks + rows * D;
+    const int stage = TMA ? ring.s : 0;
+    T* ks = reinterpret_cast<T*>(smem + (size_t)2 * stage * tile_bytes);
+    T* vs = ks + rows * DP;
     const int j0 = c0 + i * rows;  // the tile's first key position
-    mbar_wait(full0 + 8 * ring.s, ring.phase);
+    if constexpr (TMA) {
+      mbar_wait(full0 + 8 * ring.s, ring.phase);
+    } else {
+      load_rows(ks, vs, kc, vc, b, j0, c1, kvh, S, Hkv, D, DP, rows);
+      __syncthreads();
+    }
     // The step bound is uniform across the CTA, so every lane of a warp
     // takes part in every shuffle; rows at or past c1 are masked to p = 0.
     for (int r0 = 0; r0 < rows; r0 += U * n_rg) {
@@ -250,8 +306,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int iv = 0; iv < NV; ++iv) {
           const int vi = iv * tpr + sub;
           if (ok[u] && vi < nvec) {
-            VecIO<T>::load(ks + jt * D + vi * VEC, &kr[u][iv * VEC]);
-            VecIO<T>::load(vs + jt * D + vi * VEC, &vr[u][iv * VEC]);
+            VecIO<T>::load(ks + jt * DP + vi * VEC, &kr[u][iv * VEC]);
+            VecIO<T>::load(vs + jt * DP + vi * VEC, &vr[u][iv * VEC]);
           } else {
 #pragma unroll
             for (int e = 0; e < VEC; ++e) {
@@ -292,13 +348,15 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();  // every thread has read the stage: refill it
-    if (tid == 0 && i + kStages < ntiles) {
-      const uint32_t ks_addr = ring0 + 2 * ring.s * tile_bytes;
-      const int jn = c0 + (i + kStages) * rows;
-      mbar_expect_tx(full0 + 8 * ring.s, 2 * tile_bytes);
-      tma_load_4d(ks_addr, &tk, full0 + 8 * ring.s, 0, kvh, jn, b);
-      tma_load_4d(ks_addr + tile_bytes, &tv, full0 + 8 * ring.s, 0, kvh, jn,
-                  b);
+    if constexpr (TMA) {
+      if (tid == 0 && i + kStages < ntiles) {
+        const uint32_t ks_addr = ring0 + 2 * ring.s * tile_bytes;
+        const int jn = c0 + (i + kStages) * rows;
+        mbar_expect_tx(full0 + 8 * ring.s, 2 * tile_bytes);
+        tma_load_4d(ks_addr, &tk, full0 + 8 * ring.s, 0, kvh, jn, b);
+        tma_load_4d(ks_addr + tile_bytes, &tv, full0 + 8 * ring.s, 0, kvh,
+                    jn, b);
+      }
     }
   }
 
@@ -325,15 +383,15 @@ __global__ void __launch_bounds__(kThreads)
   // Merge the warps in shared memory (over the drained ring) into this
   // rank's partial.
   float* sm_m = reinterpret_cast<float*>(smem);
-  float* sm_l = sm_m + kWarps * group;
-  float* sm_acc = sm_l + kWarps * group;  // [kWarps][group][D]
+  float* sm_l = sm_m + kWarps * heads;
+  float* sm_acc = sm_l + kWarps * heads;  // [kWarps][heads][DP]
   if (lane < tpr) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      if (g >= group) break;
+      if (g >= heads) break;
       if (lane == 0) {
-        sm_m[warp * group + g] = m[g];
-        sm_l[warp * group + g] = l[g];
+        sm_m[warp * heads + g] = m[g];
+        sm_l[warp * heads + g] = l[g];
       }
 #pragma unroll
       for (int iv = 0; iv < NV; ++iv) {
@@ -341,7 +399,7 @@ __global__ void __launch_bounds__(kThreads)
         if (vi < nvec) {
 #pragma unroll
           for (int e = 0; e < VEC; ++e) {
-            sm_acc[(warp * group + g) * D + vi * VEC + e] =
+            sm_acc[(warp * heads + g) * DP + vi * VEC + e] =
                 acc[g][iv * VEC + e];
           }
         }
@@ -349,34 +407,35 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int i = tid; i < group * D; i += kThreads) {
-    const int g = i / D;
+  for (int i = tid; i < heads * DP; i += kThreads) {
+    const int g = i / DP;
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * group + g]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * heads + g]);
     float lsum = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float sc = expf(sm_m[w * group + g] - mx);
-      lsum = fmaf(sm_l[w * group + g], sc, lsum);
-      a = fmaf(sm_acc[w * group * D + i], sc, a);
+      const float sc = expf(sm_m[w * heads + g] - mx);
+      lsum = fmaf(sm_l[w * heads + g], sc, lsum);
+      a = fmaf(sm_acc[w * heads * DP + i], sc, a);
     }
     part_acc[i] = a;
-    if (i - g * D == 0) {
+    if (i - g * DP == 0) {
       part_m[g] = mx;
       part_l[g] = lsum;
     }
   }
 
   // Merge the ranks: rank r writes outputs [r per, (r + 1) per) of the
-  // group's group x D, reading every live rank's partial in rank order.
+  // chunk's heads x DP, reading every live rank's partial in rank order.
   cluster.sync();
-  const int total = group * D;
+  const int total = heads * DP;
   const int per = (total + live - 1) / live;
   T* out_b = out + ((size_t)b * H + h0) * D;
   for (int i = rank * per + tid; i < min(total, (rank + 1) * per);
        i += kThreads) {
-    const int g = i / D;
+    const int g = i / DP, d = i - g * DP;
+    if (d >= D) continue;
     float mx = kNegInf;
     for (int r = 0; r < live; ++r) {
       mx = fmaxf(mx, cluster.map_shared_rank(part_m, r)[g]);
@@ -385,43 +444,51 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < live; ++r) {
       const float* pm = cluster.map_shared_rank(part_m, r);
       const float sc = expf(pm[g] - mx);
-      lsum = fmaf(pm[group + g], sc, lsum);      // part_l
-      a = fmaf(pm[2 * group + i], sc, a);        // part_acc
+      lsum = fmaf(pm[heads + g], sc, lsum);      // part_l
+      a = fmaf(pm[2 * heads + i], sc, a);        // part_acc
     }
-    out_b[i] = VecIO<T>::from_float(a / fmaxf(lsum, 1e-30f));
+    out_b[g * D + d] = VecIO<T>::from_float(a / fmaxf(lsum, 1e-30f));
   }
   cluster.sync();  // no CTA leaves while a peer may still read its partial
 }
 
-template <typename T, int G, int NV>
+template <typename T, int G, int NV, bool TMA>
 cudaError_t split_launch(const CUtensorMap& tk, const CUtensorMap& tv,
-                         const void* q, const void* lengths, void* out, int B,
-                         int S, int H, int Hkv, int D, int group, int tpr,
-                         int rows, int splits, int chunk, float scale,
+                         const void* k, const void* v, const void* q,
+                         const void* lengths, void* out, int B, int S, int H,
+                         int Hkv, int D, int DP, int group, int tpr, int rows,
+                         int splits, int chunk, float scale,
                          cudaStream_t stream) {
-  auto kernel = ragged_decode_split_kernel<T, G, NV>;
+  auto kernel = ragged_decode_split_kernel<T, G, NV, TMA>;
   static bool done = false;
-  // The largest layout any call of this instance can need.
-  const cudaError_t e = allow_smem(
-      kernel, Layout(G, kMaxD, kStageBytes).total, done);
+  // The largest layout any call of this instance can need: tiles of at
+  // most kStageBytes, or of 8 rows where one row is wider than that / 8.
+  constexpr int kMaxTile = kStageBytes > 8 * kMaxD * (int)sizeof(T)
+                               ? kStageBytes
+                               : 8 * kMaxD * (int)sizeof(T);
+  const cudaError_t e =
+      allow_smem(kernel, Layout(G, kMaxD, kMaxTile).total, done);
   if (e != cudaSuccess) return e;
+  const int nchunks = (group + G - 1) / G;
+  if ((long long)Hkv * nchunks > 65535) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.gridDim = dim3(splits, Hkv * nchunks, B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes =
-      Layout(group, D, rows * D * (int)sizeof(T)).total;
+      Layout(group < G ? group : G, DP, rows * DP * (int)sizeof(T)).total;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, kernel, tk, tv, static_cast<const T*>(q),
+      &cfg, kernel, tk, tv, static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(q),
       static_cast<const int*>(lengths), static_cast<T*>(out), S, H, Hkv, D,
-      group, tpr, rows, chunk, scale);
+      DP, group, tpr, rows, chunk, scale);
   return le != cudaSuccess ? le : cudaGetLastError();
 }
 
@@ -432,45 +499,69 @@ cudaError_t split_launch_dtype(const void* q, const void* k, const void* v,
                                cudaStream_t stream) {
   constexpr int VEC = VecIO<T>::N;
   const int group = H / Hkv;
-  const int nvec = D / VEC;
+  const int DP = (D + VEC - 1) / VEC * VEC;  // a row's pitch in the tiles
+  const int nvec = DP / VEC;
   int tpr = 1;
   while (tpr < nvec && tpr < 32) tpr <<= 1;
-  const int nv = (nvec + tpr - 1) / tpr;
-  const int gt = group <= 1 ? 1 : group <= 2 ? 2 : group <= 4 ? 4 : 8;
-  // Tiles of R rows, R a power of two in [8, 64] with R x D x sizeof(T) at
-  // most kStageBytes (a multiple of 128 bytes, as TMA's destination needs).
-  const int row_bytes = D * (int)sizeof(T);
+  int nv = (nvec + tpr - 1) / tpr;
+  if (nv == 3) nv = 4;                       // 1, 2 or 4
+  // Heads per CTA: a power of two, at most 8 / nv, so that a thread holds
+  // at most 8 vectors of q and of acc; a larger group takes several CTAs
+  // per kv head (grid y), each re-reading the head's K/V rows (from L2).
+  const int gmax = 8 / nv;
+  int gt = 1;
+  while (gt < group && gt < gmax) gt <<= 1;
+  // Tiles of R rows, R a power of two in [8, 64] with R x DP x sizeof(T)
+  // at most kStageBytes where it can be (a multiple of 128 bytes, as TMA's
+  // destination needs).
+  const int row_bytes = DP * (int)sizeof(T);
   int rows = 64;
   while (rows > 8 && rows * row_bytes > kStageBytes) rows >>= 1;
   const int want = (S + kSplitKeys - 1) / kSplitKeys;
   const int splits = want < kMaxSplits ? want : kMaxSplits;
   const int chunk = (S + splits - 1) / splits;
-  CUtensorMap tk, tv;
-  if (!heads_map(&tk, k, VecIO<T>::kMap, sizeof(T), B, S, Hkv, D, D, rows,
-                 CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !heads_map(&tv, v, VecIO<T>::kMap, sizeof(T), B, S, Hkv, D, D, rows,
-                 CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      reinterpret_cast<uintptr_t>(q) % 16) {
-    return cudaErrorInvalidValue;
-  }
-#define PT_LAUNCH(G_, NV_)                                                   \
-  if (gt == G_ && nv == NV_)                                                 \
-    return split_launch<T, G_, NV_>(tk, tv, q, lengths, out, B, S, H, Hkv,   \
-                                    D, group, tpr, rows, splits, chunk,      \
-                                    scale, stream);
-  PT_LAUNCH(1, 1)
-  PT_LAUNCH(2, 1)
-  PT_LAUNCH(4, 1)
-  PT_LAUNCH(8, 1)
-  // Two vectors per thread only for fp32 rows wider than 32 vectors
-  // (D > 128); a 16-bit row of D <= 256 is at most 32 vectors.
+  CUtensorMap tk = {}, tv = {};
+  const bool tma = D <= 256 && D == DP &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   heads_map(&tk, k, VecIO<T>::kMap, sizeof(T), B, S, Hkv, D,
+                             D, rows, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+                   heads_map(&tv, v, VecIO<T>::kMap, sizeof(T), B, S, Hkv, D,
+                             D, rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+#define PT_LAUNCH(TMA_, G_, NV_)                                              \
+  if (tma == TMA_ && gt == G_ && nv == NV_)                                   \
+    return split_launch<T, G_, NV_, TMA_>(tk, tv, k, v, q, lengths, out, B,   \
+                                          S, H, Hkv, D, DP, group, tpr, rows, \
+                                          splits, chunk, scale, stream);
+  PT_LAUNCH(true, 1, 1)
+  PT_LAUNCH(true, 2, 1)
+  PT_LAUNCH(true, 4, 1)
+  PT_LAUNCH(true, 8, 1)
+  // Two vectors per thread on the TMA path only for fp32 rows wider than
+  // 32 vectors (128 < D <= 256); a 16-bit row of D <= 256 is at most 32.
   if constexpr (VEC == 4) {
-    PT_LAUNCH(1, 2)
-    PT_LAUNCH(2, 2)
-    PT_LAUNCH(4, 2)
-    PT_LAUNCH(8, 2)
+    PT_LAUNCH(true, 1, 2)
+    PT_LAUNCH(true, 2, 2)
+    PT_LAUNCH(true, 4, 2)
   }
 #undef PT_LAUNCH
+  if (tma) return cudaErrorInvalidValue;
+  // The element-load path (D x sizeof(T) not a multiple of 16 bytes, or D
+  // above 256): one instance per vector count, at its largest head chunk.
+  if (nv == 1) {
+    return split_launch<T, 8, 1, false>(tk, tv, k, v, q, lengths, out, B, S,
+                                        H, Hkv, D, DP, group, tpr, rows,
+                                        splits, chunk, scale, stream);
+  }
+  if (nv == 2) {
+    return split_launch<T, 4, 2, false>(tk, tv, k, v, q, lengths, out, B, S,
+                                        H, Hkv, D, DP, group, tpr, rows,
+                                        splits, chunk, scale, stream);
+  }
+  if constexpr (VEC == 4) {  // four vectors a thread: fp32, D > 256
+    return split_launch<T, 2, 4, false>(tk, tv, k, v, q, lengths, out, B, S,
+                                        H, Hkv, D, DP, group, tpr, rows,
+                                        splits, chunk, scale, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -478,17 +569,17 @@ cudaError_t split_launch_dtype(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. Pointers are device
 // pointers to contiguous q [B, 1, H, D], caches [B, S, Hkv, D], lengths [B]
-// int32 and out [B, 1, H, D]; every tensor must start on a 16-byte
-// boundary (the caches are read with TMA). Returns the cudaError_t of the
-// launch (0 on success).
+// int32 and out [B, 1, H, D]; any GQA group and any D <= kMaxD. The caches
+// are read with TMA where a row is a multiple of 16 bytes, D <= 256 and
+// every tensor starts on a 16-byte boundary, else with element loads.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int pt_ragged_decode_attention(const void* q, const void* k,
                                           const void* v, const void* lengths,
                                           void* out, int B, int S, int H,
                                           int Hkv, int D, float scale,
                                           int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      H / Hkv > kMaxG || D <= 0 || D % 8 != 0 || D > kMaxD || B > 65535 ||
-      Hkv > 65535) {
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 ||
+      D > kMaxD || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -4,8 +4,12 @@
 // Replaces the three TPU kernels of paddle_tpu/ops/pallas/fused_ce.py:
 //   K5 _fwd_kernel    (via _fwd_partials, :104) -> fce_fwd_kernel and
 //                                                  fce_merge_kernel
-//   K6 _bwd_dh_kernel (via _bwd_impl, :192)     -> fce_bwd_dh_kernel
-//   K7 _bwd_dw_kernel (via _bwd_impl, :207)     -> fce_bwd_dw_kernel
+//   K6 _bwd_dh_kernel (via _bwd_impl, :192)     -> fce_bwd_dh_wgmma_kernel
+//   K7 _bwd_dw_kernel (via _bwd_impl, :207)     -> fce_bwd_dw_wgmma_kernel
+// (K6 / K7 for bfloat16 / float16 with H and V multiples of 8, the training
+// path: wgmma, TMA and warp specialisation, designed below with the
+// kernels; float32, and H or V not a multiple of 8, take
+// fce_bwd_dh_kernel / fce_bwd_dw_kernel, the mma.sync design that follows).
 // h is [N, H], W is [H, V] (Paddle's [in, out] layout), labels [N] int32,
 // all contiguous; s = h W is never written to memory. Ragged N, H and V are
 // masked here (no padding in memory); offsets into h, W and the fp32
@@ -14,7 +18,7 @@
 // Bound: operations. At the training shape (N = 4096, H = 4096, V = 32000,
 // bf16) K5 does 2NHV = 1.07e12 flops (1.09 ms at 989 TFLOP/s), K6 and K7
 // 4NHV each (s recomputed, then the product): 2.17 ms. W alone is 262 MB,
-// 0.08 ms at 3.35 TB/s. Design, common to all three:
+// 0.08 ms at 3.35 TB/s. Design of K5 and of the mma.sync K6 / K7:
 //   - s is computed in 128 x 128 tiles by 8 warps (4 along rows x 2 along
 //     columns, 32 x 64 each), contracting over H in chunks of 64 (32 for
 //     fp32) through a two-stage cp.async ring in shared memory (16-byte
@@ -44,19 +48,22 @@
 //     red.global.add.f32. The wrapper zeroes the buffer and rounds it once
 //     to the output dtype. s is computed once per CTA, never per H chunk.
 //     The order of the sums across CTAs changes from run to run.
-// wgmma, TMA and a deterministic cluster reduction are later work.
 //
 // Semantics kept from the Pallas kernels: s in fp32; columns >= V are
 // -1e30 and carry no probability; z is the fp32 logit at the label, 0 when
 // label - vocab_offset is outside [0, V); dl is rounded to W's dtype before
 // dl W^T (K6) and to h's dtype before h^T dl (K7); rows with g = 0 (and
 // rows >= N) add nothing.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -645,6 +652,405 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K6 and K7 on Hopper: bfloat16 / float16 with H and V multiples of 8 (rows
+// of 16 bytes, as TMA needs), the training path. 384 threads: warpgroups 0
+// and 1 consume, warpgroup 2 produces (setmaxnreg 232 / 40). One producer
+// thread streams every operand tile with TMA (2-D maps, 128-byte swizzle)
+// through a ring of kWsStages 32 KB stages (full barrier on the bytes,
+// empty barrier on the 256 consumer threads), in exactly the order the
+// consumers take them. Two phases per CTA, the accumulators of the two
+// never live at once:
+//   phase 1: s tiles of 128 rows x 128 vocab columns, s = h W over H in
+//     64-deep stages (h box [128 rows x 64] K-major; W boxes [64 x 64]
+//     twice, N-contiguous, so the B descriptor is MN-major: wgmma's
+//     transpose bit, as V in K2); each consumer warpgroup owns 64 rows and
+//     keeps one product group in flight behind the one it issues. Then dl
+//     = (exp(s - lse) - onehot) g, rounded to the 16-bit type, is written
+//     into a resident [128 x 512] (K6) or [512 x 128] (K7) tile in the
+//     swizzled layout wgmma reads (wgmma.cuh), behind a proxy fence;
+//   phase 2, K6: for each 128-wide chunk of H, acc[64 rows x 128] per
+//     warpgroup = dl W[chunk, slice]^T: A is the resident dl (K-major), B
+//     the W boxes [128 H rows x 64 vocab] (K-major), 128 vocab deep a stage;
+//   phase 2, K7: for each 128-wide chunk of H, acc[64 H x 128 vocab] per
+//     warpgroup = h[slice, chunk]^T dl: A is the h boxes [128 rows x 64 H],
+//     M-contiguous (transpose bit on A), B the resident dl (N-contiguous,
+//     transpose bit on B), 128 rows deep a stage;
+//   epilogue: each thread pairs its two columns with its neighbour lane's
+//     and adds four consecutive fp32 values with one red.global.add.v4.f32
+//     into the zeroed [N, H] / [H, V] buffer (a quarter of the reductions
+//     of per-element atomics; the sum order still varies run to run:
+//     a cluster cannot hold the slice, 128 x 4096 fp32 = 2 MB against the
+//     8 x 227 KB of a portable cluster).
+//   raster: K6's CTAs run in groups of kGroupRows row blocks x every vocab
+//     slice, K7's row slices of one vocab tile one after the other, so the
+//     CTAs in flight share their W slices and add into a few MB of the fp32
+//     buffer, which then stays in L2 (K7's [H, V] buffer is 524 MB at the
+//     training shape: with the vocab tile as the fast index its reductions
+//     missed L2 and K7 took 8.2 ms instead of 5.2).
+// Shared memory: the dl tile (128 KB), the ring (kWsStages x 32 KB), the
+// barriers: 230 KB with three stages. The ring bounds the speed: one stage
+// is being read, one finishing its products, so one loads ahead; two
+// stages (no load ahead) took 6.8 / 7.1 ms instead of 4.8 / 5.2, while
+// narrower slices for a deeper ring (384 x 4 stages, 256 x 5) lost more to
+// the extra reductions than they gained (H100 80GB HBM3 at 700 W;
+// PERF.md).
+// ---------------------------------------------------------------------------
+constexpr int kWsThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumers = 256;
+constexpr int kWsStages = 3;
+constexpr uint32_t kStageBytes = 32768;
+constexpr int kSlice = 512;  // K6's vocab columns, K7's rows per CTA
+constexpr int kGroupRows = 8;  // K6's row blocks per raster group
+constexpr uint32_t kDlBytes = 128 * kSlice * 2;
+constexpr size_t kWsSmem =
+    1024 + kDlBytes + (size_t)kWsStages * kStageBytes + 16 * kWsStages;
+
+struct WsRing {
+  uint32_t ring0, full0, empty0;
+  __device__ uint32_t stage(int s) const { return ring0 + s * kStageBytes; }
+};
+
+// Producer: wait until stage `it` of the sequence is free, arm its full
+// barrier for 32 KB, return its address (and the barrier in `full`).
+__device__ __forceinline__ uint32_t ws_produce(const WsRing& r, int it,
+                                               uint32_t& full) {
+  const Ring<kWsStages> q(it);
+  mbar_wait(r.empty0 + 8 * q.s, q.phase ^ 1);
+  full = r.full0 + 8 * q.s;
+  mbar_expect_tx(full, kStageBytes);
+  return r.stage(q.s);
+}
+
+// Producer, phase 1: the nk stages of one s tile (rows r0.., columns v0..).
+__device__ __forceinline__ void ws_load_s_tile(const WsRing& r, int& it,
+                                               const CUtensorMap* th,
+                                               const CUtensorMap* tw, int r0,
+                                               int v0, int nk) {
+  for (int ks = 0; ks < nk; ++ks, ++it) {
+    uint32_t full;
+    const uint32_t st = ws_produce(r, it, full);
+    tma_load_2d(st, th, full, ks * 64, r0);
+    tma_load_2d(st + 16384, tw, full, v0, ks * 64);
+    tma_load_2d(st + 24576, tw, full, v0 + 64, ks * 64);
+  }
+}
+
+// Consumer: wait for stage `it`; release the one before it.
+__device__ __forceinline__ uint32_t ws_acquire(const WsRing& r, int it) {
+  const Ring<kWsStages> q(it);
+  mbar_wait(r.full0 + 8 * q.s, q.phase);
+  return r.stage(q.s);
+}
+
+__device__ __forceinline__ void ws_release(const WsRing& r, int it) {
+  mbar_arrive(r.empty0 + 8 * Ring<kWsStages>(it).s);
+}
+
+// Consumer, phase 1: warpgroup wg's 64 rows x 128 columns of s = h W in
+// fp32, one product group in flight behind the one being issued.
+template <typename T>
+__device__ __forceinline__ void ws_s_tile(float (&s)[64], const WsRing& r,
+                                          int& it, int nk, int wg) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  for (int ks = 0; ks < nk; ++ks, ++it) {
+    const uint32_t st = ws_acquire(r, it);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      Wg<T>::template ss128x<0, 1>(
+          s, sw128_desc(st + wg * 64 * 128 + kk * 32, 16),
+          sw128_desc(st + 16384 + kk * 16 * 128, 8192));
+    }
+    wg_commit();
+    wg_wait<1>();
+    if (ks > 0) ws_release(r, it - 1);
+  }
+  wg_wait<0>();
+  wg_hold<64>(s);
+  if (nk > 0) ws_release(r, it - 1);
+}
+
+// dl of the s tile in `s` (rows rl, columns cl as the fragment layout gives
+// them; rw: this lane's two rows' lse, g and local label), rounded and
+// stored as a packed pair at (row, col) of a dl tile whose 64-column halves
+// are `half` bytes apart. Columns at or past V carry nothing.
+template <typename T>
+__device__ __forceinline__ void ws_store_dl(const float (&s)[64],
+                                            uint32_t dl0, uint32_t half,
+                                            int row0, int col0, int v0,
+                                            int V, const float (&lse)[2],
+                                            const float (&g)[2],
+                                            const int (&lab)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + 8 * rr, col = col0 + 8 * j + 2 * t;
+      float x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = v0 + 8 * j + 2 * t + e;
+        x[e] = v < V ? (expf(s[4 * j + 2 * rr + e] - lse[rr]) -
+                        (v == lab[rr] ? 1.f : 0.f)) *
+                           g[rr]
+                     : 0.f;
+      }
+      const uint32_t a = dl0 + (col >> 6) * half + row * 128 +
+                         ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+                         (col & 7) * 2;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a),
+                   "r"(pack2<T>(x[0], x[1]))
+                   : "memory");
+    }
+  }
+}
+
+// dl's generic-proxy stores visible to the consumers' wgmma reads.
+__device__ __forceinline__ void ws_publish_dl() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// out[row, col..col+3] += four fp32 values of a 64 x 128 accumulator, rows
+// r0 + warp-local rows, columns c0 + ..., within R x C (C a multiple of 8).
+__device__ __forceinline__ void ws_red_add(const float (&acc)[64],
+                                           float* __restrict__ out,
+                                           size_t ld, int r0, int c0, int R,
+                                           int C, int g, int t) {
+  const bool odd = t & 1;
+  const int row = r0 + g + (odd ? 8 : 0);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+    const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+    const float o0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float o1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    const int col = c0 + 8 * j + 2 * (t & ~1);
+    float4 v;
+    if (odd) {
+      v = make_float4(o0, o1, acc[4 * j + 2], acc[4 * j + 3]);
+    } else {
+      v = make_float4(acc[4 * j], acc[4 * j + 1], o0, o1);
+    }
+    if (row < R && col < C) {
+      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(
+                       out + (size_t)row * ld + col),
+                   "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+                   : "memory");
+    }
+  }
+}
+
+// K6 on Hopper: CTA = 128 rows x kSlice vocab columns (N/128 x V/kSlice
+// CTAs), dh32 [N, H] += dl W^T.
+template <typename T>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fce_bwd_dh_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                            const __grid_constant__ CUtensorMap tw,
+                            const int* __restrict__ labels, int offset,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ gr,
+                            float* __restrict__ dh32, int N, int H, int V) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t dl0 = (smem_u32(smem) + 1023) & ~1023u;
+  WsRing r;
+  r.ring0 = dl0 + kDlBytes;
+  r.full0 = r.ring0 + kWsStages * kStageBytes;
+  r.empty0 = r.full0 + 8 * kWsStages;
+  // Grouped raster: consecutive CTAs take kGroupRows row blocks x the
+  // vocab slices, so those in flight share W slices and add into a few MB
+  // of dh32 that stay in L2.
+  const int nrb = (N + 127) / 128, nvs = (V + kSlice - 1) / kSlice;
+  const int grp = blockIdx.x / (kGroupRows * nvs);
+  const int gsz = min(kGroupRows, nrb - grp * kGroupRows);
+  const int in_grp = blockIdx.x - grp * kGroupRows * nvs;
+  const int r0 = (grp * kGroupRows + in_grp % gsz) * 128;
+  const int vg0 = (in_grp / gsz) * kSlice;
+  const int nt = (min(kSlice, V - vg0) + 127) / 128;  // s tiles, 128 wide
+  const int nk = (H + 63) / 64, nh = (H + 127) / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWsStages; ++i) {
+      mbar_init(r.full0 + 8 * i, 1);
+      mbar_init(r.empty0 + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      int it = 0;
+      for (int j = 0; j < nt; ++j) {
+        ws_load_s_tile(r, it, &th, &tw, r0, vg0 + j * 128, nk);
+      }
+      for (int hc = 0; hc < nh; ++hc) {
+        for (int vs = 0; vs < nt; ++vs, ++it) {
+          uint32_t full;
+          const uint32_t st = ws_produce(r, it, full);
+          for (int c = 0; c < 2; ++c) {
+            for (int rh = 0; rh < 2; ++rh) {
+              tma_load_2d(st + c * 16384 + rh * 8192, &tw, full,
+                          vg0 + vs * 128 + c * 64, hc * 128 + rh * 64);
+            }
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows [r0 + 64 wg, r0 + 64 wg + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl = wg * 64 + warp * 16 + g;  // this lane's rows: rl, rl + 8
+    float ls[2], gv[2];
+    int lab[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + rl + 8 * rr;
+      const bool in = row < N;
+      ls[rr] = in ? lse[row] : 0.f;
+      gv[rr] = in ? gr[row] : 0.f;
+      lab[rr] = in ? labels[row] - offset : -1;
+    }
+    int it = 0;
+    float acc[64];
+    for (int j = 0; j < nt; ++j) {
+      ws_s_tile<T>(acc, r, it, nk, wg);
+      ws_store_dl<T>(acc, dl0, 128 * 128, rl, j * 128, vg0 + j * 128, V, ls,
+                     gv, lab, t);
+    }
+    ws_publish_dl();
+    for (int hc = 0; hc < nh; ++hc) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int vs = 0; vs < nt; ++vs, ++it) {
+        const uint32_t st = ws_acquire(r, it);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t a = dl0 + (vs * 2 + (kk >> 2)) * (128 * 128) +
+                             wg * 64 * 128 + (kk & 3) * 32;
+          Wg<T>::template ss128x<0, 0>(
+              acc, sw128_desc(a, 16),
+              sw128_desc(st + (kk >> 2) * 16384 + (kk & 3) * 32, 16));
+        }
+        wg_commit();
+        wg_wait<1>();
+        if (vs > 0) ws_release(r, it - 1);
+      }
+      wg_wait<0>();
+      wg_hold<64>(acc);
+      ws_release(r, it - 1);
+      ws_red_add(acc, dh32, H, r0 + wg * 64 + warp * 16, hc * 128, N, H, g,
+                 t);
+    }
+  }
+}
+
+// K7 on Hopper: CTA = 128 vocab columns x kSlice rows (V/128 x N/kSlice
+// CTAs), dW32 [H, V] += h^T dl.
+template <typename T>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fce_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                            const __grid_constant__ CUtensorMap tw,
+                            const int* __restrict__ labels, int offset,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ gr,
+                            float* __restrict__ dw32, int N, int H, int V) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t dl0 = (smem_u32(smem) + 1023) & ~1023u;
+  WsRing r;
+  r.ring0 = dl0 + kDlBytes;
+  r.full0 = r.ring0 + kWsStages * kStageBytes;
+  r.empty0 = r.full0 + 8 * kWsStages;
+  // The row slices of a vocab tile are consecutive CTAs: those in flight
+  // add into a few vocab tiles' 2 MB column blocks of dw32 (524 MB at the
+  // training shape), which stay in L2, and share their W columns.
+  const int nrs = (N + kSlice - 1) / kSlice;
+  const int v0 = (blockIdx.x / nrs) * 128;
+  const int rg0 = (blockIdx.x % nrs) * kSlice;
+  const int nt = (min(kSlice, N - rg0) + 127) / 128;  // s tiles, 128 high
+  const int nk = (H + 63) / 64, nh = (H + 127) / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWsStages; ++i) {
+      mbar_init(r.full0 + 8 * i, 1);
+      mbar_init(r.empty0 + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      int it = 0;
+      for (int i = 0; i < nt; ++i) {
+        ws_load_s_tile(r, it, &th, &tw, rg0 + i * 128, v0, nk);
+      }
+      for (int hc = 0; hc < nh; ++hc) {
+        for (int rs = 0; rs < nt; ++rs, ++it) {
+          uint32_t full;
+          const uint32_t st = ws_produce(r, it, full);
+          tma_load_2d(st, &th, full, hc * 128, rg0 + rs * 128);
+          tma_load_2d(st + 16384, &th, full, hc * 128 + 64, rg0 + rs * 128);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns 64 rows of each s tile, then
+            // H rows [hc + 64 wg, hc + 64 wg + 64) of each dW chunk
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl = wg * 64 + warp * 16 + g;
+    int it = 0;
+    float acc[64];
+    for (int i = 0; i < nt; ++i) {
+      float ls[2], gv[2];
+      int lab[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = rg0 + i * 128 + rl + 8 * rr;
+        const bool in = row < N;
+        ls[rr] = in ? lse[row] : 0.f;
+        gv[rr] = in ? gr[row] : 0.f;
+        lab[rr] = in ? labels[row] - offset : -1;
+      }
+      ws_s_tile<T>(acc, r, it, nk, wg);
+      ws_store_dl<T>(acc, dl0, kSlice * 128, i * 128 + rl, 0, v0, V, ls, gv,
+                     lab, t);
+    }
+    ws_publish_dl();
+    for (int hc = 0; hc < nh; ++hc) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int rs = 0; rs < nt; ++rs, ++it) {
+        const uint32_t st = ws_acquire(r, it);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          Wg<T>::template ss128x<1, 1>(
+              acc, sw128_desc(st + wg * 16384 + kk * 16 * 128, 16384),
+              sw128_desc(dl0 + (rs * 128 + kk * 16) * 128, kSlice * 128));
+        }
+        wg_commit();
+        wg_wait<1>();
+        if (rs > 0) ws_release(r, it - 1);
+      }
+      wg_wait<0>();
+      wg_hold<64>(acc);
+      ws_release(r, it - 1);
+      ws_red_add(acc, dw32, V, hc * 128 + wg * 64 + warp * 16, v0, H, V, g,
+                 t);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
 struct Args {
@@ -652,18 +1058,6 @@ struct Args {
   const int* labels;
   int offset, N, H, V;
 };
-
-// Raise a kernel's dynamic shared-memory limit once per instance (`done`
-// is a static of the instance's launcher), so the call never falls inside
-// a CUDA-graph capture: an instance's first launch is an eager one.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) done = true;
-  return e;
-}
 
 template <typename T>
 bool vec_ok(const Args& a) {
@@ -694,24 +1088,53 @@ cudaError_t fwd(const Args& a, float* part, float* m, float* l, float* z,
   return cudaGetLastError();
 }
 
+// K6 / K7 on Hopper (16-bit types, H and V multiples of 8).
+template <typename T, bool DH>
+cudaError_t bwd_wgmma(const Args& a, const float* lse, const float* g,
+                      float* out, cudaStream_t st) {
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap th, tw;
+  if (!matrix_map(&th, a.h, type, 2, a.N, a.H, 64, 128,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !matrix_map(&tw, a.w, type, 2, a.H, a.V, 64, 64,
+                  CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = DH ? fce_bwd_dh_wgmma_kernel<T> : fce_bwd_dw_wgmma_kernel<T>;
+  static bool done = false;
+  const cudaError_t e = allow_smem(kernel, kWsSmem, done);
+  if (e != cudaSuccess) return e;
+  const int ctas = DH ? ((a.N + 127) / 128) * ((a.V + kSlice - 1) / kSlice)
+                       : ((a.V + 127) / 128) * ((a.N + kSlice - 1) / kSlice);
+  kernel<<<ctas, kWsThreads, kWsSmem, st>>>(th, tw, a.labels, a.offset, lse,
+                                            g, out, a.N, a.H, a.V);
+  return cudaGetLastError();
+}
+
 template <typename T, bool VEC, bool DH>
 cudaError_t bwd(const Args& a, const float* lse, const float* g, float* out,
                 cudaStream_t st) {
-  using L = Lay<T>;
-  constexpr size_t smem =
-      (2 * (size_t)L::STAGE + (size_t)kTile * L::PD) * sizeof(T);
-  auto kernel = DH ? fce_bwd_dh_kernel<T, VEC> : fce_bwd_dw_kernel<T, VEC>;
-  static bool done = false;
-  cudaError_t e = allow_smem(kernel, smem, done);
-  if (e != cudaSuccess) return e;
-  const dim3 grid = DH ? dim3((a.N + kTile - 1) / kTile,
-                              (a.V + L::VS - 1) / L::VS)
-                       : dim3((a.V + kTile - 1) / kTile,
-                              (a.N + L::VS - 1) / L::VS);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(a.h), static_cast<const T*>(a.w), a.labels,
-      a.offset, lse, g, out, a.N, a.H, a.V);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2 && VEC) {
+    return bwd_wgmma<T, DH>(a, lse, g, out, st);
+  } else {
+    using L = Lay<T>;
+    constexpr size_t smem =
+        (2 * (size_t)L::STAGE + (size_t)kTile * L::PD) * sizeof(T);
+    auto kernel = DH ? fce_bwd_dh_kernel<T, VEC> : fce_bwd_dw_kernel<T, VEC>;
+    static bool done = false;
+    cudaError_t e = allow_smem(kernel, smem, done);
+    if (e != cudaSuccess) return e;
+    const dim3 grid = DH ? dim3((a.N + kTile - 1) / kTile,
+                                (a.V + L::VS - 1) / L::VS)
+                         : dim3((a.V + kTile - 1) / kTile,
+                                (a.N + L::VS - 1) / L::VS);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(a.h), static_cast<const T*>(a.w), a.labels,
+        a.offset, lse, g, out, a.N, a.H, a.V);
+    return cudaGetLastError();
+  }
 }
 
 bool bad(const Args& a) {

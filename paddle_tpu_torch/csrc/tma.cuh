@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the port's kernels: mbarriers, TMA
 // loads of tensor-map boxes into shared memory, and the host-side tensor
-// map of a [B, S, heads, D] tensor.
+// maps of a [B, S, heads, D] tensor and of a row-major matrix.
 #pragma once
 
 #include <cuda.h>
@@ -73,6 +73,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0) {
   asm volatile(
@@ -128,6 +137,27 @@ bool heads_map(CUtensorMap* m, const void* p, CUtensorMapDataType type,
   const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(m, type, 4, const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous row-major [rows, cols] matrix of `esize`-byte elements as a
+// 2-D map over (cols, rows), boxes of box_cols x box_rows, zeros past the
+// extents. False where TMA cannot take it (as heads_map).
+bool matrix_map(CUtensorMap* m, const void* p, CUtensorMapDataType type,
+                int esize, int rows, int cols, int box_cols, int box_rows,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  const cuuint64_t row = (cuuint64_t)cols * esize;
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(p) % 16 || row % 16) {
+    return false;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {row};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(m, type, 2, const_cast<void*>(p), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.errors import NotInThisSlice
@@ -53,6 +54,13 @@ class LlamaConfig:
     max_position_embeddings: int = 2048
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    use_flash_attention: bool = True
+    sequence_parallel: bool = False
+    # long-context attention over a mesh axis ("ring" or "ulysses"); with
+    # sequence_parallel it waits for the multi-GPU slice (ROADMAP.md)
+    context_parallel: Optional[str] = None
+    recompute: bool = False
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -187,9 +195,18 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    """The decoder stack. ``config.recompute`` checkpoints each layer of the
+    cache-free forward (``torch.utils.checkpoint``, as the reference's
+    ``recompute``, llama.py:272-274); ``sequence_parallel`` and
+    ``context_parallel`` shard over a mesh and raise ``NotInThisSlice``."""
+
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
                  generator=None):
         super().__init__()
+        for knob in ("sequence_parallel", "context_parallel"):
+            if getattr(config, knob):
+                raise NotInThisSlice("sequence/context-parallel LLaMA",
+                                     f"{knob}={getattr(config, knob)!r}")
         self.config = config
         self.embed_tokens = VocabParallelEmbedding(
             config.vocab_size, config.hidden_size, device, dtype, generator)
@@ -204,7 +221,10 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         if caches is None:
             for layer in self.layers:
-                x = layer(x)
+                if self.config.recompute and torch.is_grad_enabled():
+                    x = checkpoint(layer, x, use_reentrant=False)
+                else:
+                    x = layer(x)
         else:
             for layer, cache in zip(self.layers, caches):
                 x = layer(x, position_offset=position_offset, kv_cache=cache)
@@ -451,7 +471,6 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         accumulate_steps = int(getattr(optimizer, "_accumulate_steps", 1)
                                or 1)
     from torch.func import functional_call
-    from torch.utils.checkpoint import checkpoint
 
     params = dict(model.named_parameters())
     layers = list(model.llama.layers)

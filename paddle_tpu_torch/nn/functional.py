@@ -89,7 +89,8 @@ def flash_attention(query, key, value, dropout: float = 0.0,
                     causal: bool = False, return_softmax: bool = False,
                     name=None):
     """Paddle's ``flash_attention(...) -> (out, None)`` (attention.py:75-80)
-    over ``scaled_dot_product_attention`` with no mask."""
+    over ``scaled_dot_product_attention`` with no mask (which takes any
+    strided view of q, k and v)."""
     return scaled_dot_product_attention(query, key, value, None, dropout,
                                         causal), None
 
@@ -107,7 +108,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     flash causal mask is top-left, ``sdpa_ref``'s bottom-right: they agree
     when Sq == Sk."""
     if attn_mask is None and query.dtype in _FLASH_DTYPES:
-        return _flash(query, key, value, is_causal, scale)
+        # the kernels read contiguous [B, S, H, D]; any strided view is
+        # copied here, as the reference's _prep transposes and pads
+        return _flash(query.contiguous(), key.contiguous(),
+                      value.contiguous(), is_causal, scale)
     return sdpa_ref(query, key, value, mask=attn_mask, causal=is_causal,
                     scale=scale)
 

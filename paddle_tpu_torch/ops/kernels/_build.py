@@ -46,7 +46,7 @@ _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 LIB_PATH = _PKG.parent / "build" / "paddle_tpu_torch" / "libpt_kernels.so"
 SOURCES = ("decode_attention.cu", "flash_attention.cu", "fused_ce.cu")
-HEADERS = ("tma.cuh",)
+HEADERS = ("tma.cuh", "wgmma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 

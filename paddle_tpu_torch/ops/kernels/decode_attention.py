@@ -9,6 +9,11 @@ attention serves ``H / Hkv`` query heads per kv head. The kernel
 ``ragged_decode_attention_ref`` is the same function written plainly over
 the full ``S_max`` (the math of ``_ragged_ref``).
 
+The kernel takes any GQA group (up to 8 query heads per CTA, several CTAs
+per kv head above that, in one launch) and any head width up to ``MAX_D``
+(512): rows that are not a multiple of 16 bytes, or wider than 256, are
+read with element loads instead of TMA, so the caches are never padded.
+
 ``ragged_decode_attention`` takes the plain version for tensors on the CPU
 and launches the kernel for tensors on the card, or raises: there is no
 fallback from the card to the plain version. ``ragged_decode_attention.
@@ -23,6 +28,7 @@ import torch
 __all__ = ["ragged_decode_attention", "ragged_decode_attention_ref"]
 
 _NEG_INF = -1e30
+MAX_D = 512               # the widest head the CUDA kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -82,11 +88,8 @@ def _check_cuda(q, k_cache, v_cache, lengths, B, H, Hkv, D):
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if D % 8 or D > 256:
-        raise ValueError(f"kernel takes D % 8 == 0 and D <= 256, got D={D}")
-    if H // Hkv > 8:
-        raise ValueError(f"kernel takes at most 8 query heads per kv head, "
-                         f"got {H // Hkv}")
+    if D > MAX_D:
+        raise ValueError(f"kernel takes D <= {MAX_D}, got D={D}")
 
 
 def ragged_decode_attention(q, k_cache, v_cache, lengths,

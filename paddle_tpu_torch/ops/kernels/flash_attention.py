@@ -20,6 +20,12 @@ Three kernels in ``paddle_tpu_torch/csrc/flash_attention.cu``:
 ``delta = rowsum(dO * O)`` is computed here, in fp32, as a PyTorch op
 (``_flash_bwd_core``, :280), and handed to K3 and K4.
 
+The kernels take head widths that are multiples of 8 up to ``MAX_D``
+(512); the wrappers zero-pad any other D up to the next multiple of 8
+(``_pad_d``) and slice the outputs back, with the scale taken from the
+real D, as the Pallas kernels pad D to a multiple of 128 (``_prep``).
+Above ``MAX_D`` they raise.
+
 Each wrapper takes its plain version (``*_ref``: the same math over the
 full ``[Sq, Sk]`` matrices) for tensors on the CPU, and launches its kernel
 for tensors on the card, or raises: there is no fallback from the card to
@@ -40,6 +46,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv_ref"]
 
 _NEG_INF = -1e30
+MAX_D = 512               # the widest head the CUDA kernels take
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -58,6 +65,17 @@ def _shapes(q, k, v):
 
 def _scale(scale, D) -> float:
     return float(scale) if scale is not None else 1.0 / math.sqrt(D)
+
+
+def _pad_d(*xs):
+    """Zero-pad the last axis of each tensor to the next multiple of 8 (the
+    kernels' 16-byte rows); zero columns add nothing to q k^T and give zero
+    output columns, which the caller slices away."""
+    D = xs[0].shape[-1]
+    pad = -D % 8
+    if not pad:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +159,7 @@ def _check_cuda(tensors, fp32=()):
     """Raise on what the kernels cannot take: mixed devices, a dtype other
     than float32/float16/bfloat16 (or not shared by q, k, v, dO), fp32
     side inputs (lse, delta) of another dtype, non-contiguous or
-    unaligned storage, D % 8 != 0 or D > 256."""
+    unaligned storage, D > MAX_D."""
     named = list(tensors) + list(fp32)
     dev = named[0][1].device
     for name, t in named:
@@ -162,8 +180,8 @@ def _check_cuda(tensors, fp32=()):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     D = tensors[0][1].shape[-1]
-    if D % 8 or D > 256:
-        raise ValueError(f"kernel takes D % 8 == 0 and D <= 256, got D={D}")
+    if D > MAX_D:
+        raise ValueError(f"kernel takes D <= {MAX_D}, got D={D}")
 
 
 def _launch(fn_name, q, *ptrs_and_shape):
@@ -191,15 +209,17 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     if _device_gate(q, "flash-attention"):
         return flash_attention_fwd_ref(q, k, v, causal, scale)
     _check_cuda([("q", q), ("k", k), ("v", v)])
-    o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
     if q.numel() == 0 or Sk == 0:
-        return o.zero_(), lse.fill_(_NEG_INF)
-    _launch("pt_flash_attention_fwd", q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, Hkv, D,
-            _scale(scale, D), int(bool(causal)), _DTYPE_CODE[q.dtype])
+        return torch.zeros_like(q), lse.fill_(_NEG_INF)
+    qp, kp, vp = _pad_d(q, k, v)
+    o = torch.empty_like(qp)
+    _launch("pt_flash_attention_fwd", q, qp.data_ptr(), kp.data_ptr(),
+            vp.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, Hkv,
+            qp.shape[-1], _scale(scale, D), int(bool(causal)),
+            _DTYPE_CODE[q.dtype])
     flash_attention_fwd.launches += 1
-    return o, lse
+    return o[..., :D].contiguous(), lse
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
@@ -212,15 +232,16 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
                                           scale)
     _check_cuda([("q", q), ("k", k), ("v", v), ("do", do)],
                 [("lse", lse), ("delta", delta)])
-    dq = torch.empty_like(q)
     if q.numel() == 0 or Sk == 0:
-        return dq.zero_()
-    _launch("pt_flash_attention_bwd_dq", q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), B, Sq, Sk, H, Hkv, D, _scale(scale, D),
+        return torch.zeros_like(q)
+    qp, kp, vp, dop = _pad_d(q, k, v, do)
+    dq = torch.empty_like(qp)
+    _launch("pt_flash_attention_bwd_dq", q, qp.data_ptr(), kp.data_ptr(),
+            vp.data_ptr(), dop.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, Sq, Sk, H, Hkv, qp.shape[-1], _scale(scale, D),
             int(bool(causal)), _DTYPE_CODE[q.dtype])
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq[..., :D].contiguous()
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
@@ -234,15 +255,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
                                            scale)
     _check_cuda([("q", q), ("k", k), ("v", v), ("do", do)],
                 [("lse", lse), ("delta", delta)])
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.numel() == 0 or Sq == 0:
-        return dk.zero_(), dv.zero_()
-    _launch("pt_flash_attention_bwd_dkv", q, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, D,
+        return torch.zeros_like(k), torch.zeros_like(v)
+    qp, kp, vp, dop = _pad_d(q, k, v, do)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    _launch("pt_flash_attention_bwd_dkv", q, qp.data_ptr(), kp.data_ptr(),
+            vp.data_ptr(), dop.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Hkv, qp.shape[-1],
             _scale(scale, D), int(bool(causal)), _DTYPE_CODE[q.dtype])
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return dk[..., :D].contiguous(), dv[..., :D].contiguous()
 
 
 flash_attention_fwd.launches = 0

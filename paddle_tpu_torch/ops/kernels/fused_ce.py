@@ -19,9 +19,12 @@ Three kernels in ``paddle_tpu_torch/csrc/fused_ce.cu``:
 - ``fused_ce_bwd_dw`` (K7) -> dW in W's dtype: the same ``dl`` rounded to
   h's dtype, then ``h^T dl`` summed in fp32 (``_bwd_dw_kernel``, :156-179).
 
-K6 and K7 add their products into an fp32 buffer with atomics, so their
-sums are taken in an order that changes from run to run; the buffer is
-rounded once to the output dtype here. ``set_block_sizes`` (:49) is a knob
+K6 and K7 add their products into a zeroed fp32 buffer with fp32
+reductions, so their sums are taken in an order that changes from run to
+run; the buffer is rounded once to the output dtype here. In bfloat16 and
+float16 with H and V multiples of 8 (the training path) they are Hopper
+kernels (wgmma, TMA, a warp-specialised pipeline); float32 and unaligned
+widths take the mma.sync kernels. ``set_block_sizes`` (:49) is a knob
 of the TPU's VMEM tiling and has no counterpart: the CUDA tiles are fixed
 by the card's shared memory. The vocab-parallel variant
 (``fused_linear_cross_entropy_tp``, :291-340) waits for the hybrid-parallel

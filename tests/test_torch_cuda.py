@@ -44,6 +44,16 @@ CASES = [
     (3, 2047, 8, 2, 128, [2047, 1792, 1]),    # S_max % (splits x chunk) != 0
     (3, 200, 8, 8, 64, [200, 199, 0]),        # S_max < 256: one rank
     (3, 4096, 8, 4, 128, [4096, 512, 3585]),  # ranks of 512 keys
+    # Groups above 8 (chunks of query heads along grid y, one launch) and
+    # head widths off the TMA path (D x 2 bytes not a multiple of 16, or
+    # D > 256: element loads).
+    (2, 300, 16, 1, 128, [300, 77]),          # group 16
+    (3, 600, 32, 1, 64, [600, 1, 0]),         # group 32 (MQA), split ranks
+    (2, 200, 32, 2, 128, [200, 13]),          # group 16 on two kv heads
+    (2, 300, 8, 2, 80, [300, 41]),            # D = 80 (TMA, 160-byte rows)
+    (2, 300, 8, 2, 100, [300, 41]),           # D = 100 (element loads)
+    (2, 300, 4, 1, 320, [300, 257]),          # D = 320 (element loads)
+    (1, 64, 32, 1, 100, [64]),                # group 32 and D = 100
 ]
 
 
@@ -109,16 +119,11 @@ def test_decode_wrapper_raises_on_inputs_it_cannot_take(cuda_device):
             q, k.transpose(1, 2).contiguous().transpose(1, 2), k, lens)
     with pytest.raises(ValueError):
         ragged_decode_attention(q, k, k, lens.cpu())
-    with pytest.raises(ValueError):
-        ragged_decode_attention(torch.zeros(2, 1, 8, 12, device=cuda_device),
-                                torch.zeros(2, 16, 4, 12, device=cuda_device),
-                                torch.zeros(2, 16, 4, 12, device=cuda_device),
-                                lens)
-    with pytest.raises(ValueError):
-        ragged_decode_attention(torch.zeros(2, 1, 16, 64, device=cuda_device),
-                                torch.zeros(2, 16, 1, 64, device=cuda_device),
-                                torch.zeros(2, 16, 1, 64, device=cuda_device),
-                                lens)
+    with pytest.raises(ValueError):                   # D > 512
+        ragged_decode_attention(
+            torch.zeros(2, 1, 8, 520, device=cuda_device),
+            torch.zeros(2, 16, 4, 520, device=cuda_device),
+            torch.zeros(2, 16, 4, 520, device=cuda_device), lens)
     assert ragged_decode_attention.launches == before
 
 
@@ -162,6 +167,12 @@ FLASH_CASES = [
     (2, 2048, 2048, 32, 32, 128, True),   # the llama_7b training shape
     (1, 1, 129, 4, 4, 128, True),         # causal Sq = 1: only key 0 is live
     (1, 257, 257, 8, 2, 64, True),        # a partial last 128-row q-block
+    # D not a multiple of 8 (padded by the wrappers) and D above 256
+    (1, 130, 130, 4, 2, 80, True),        # D = 80
+    (2, 100, 140, 4, 4, 100, False),      # D = 100
+    (1, 150, 150, 4, 1, 100, True),       # D = 100, group 4
+    (1, 70, 90, 2, 2, 320, True),         # D = 320 (16 x 16 tiles)
+    (1, 40, 40, 2, 1, 512, False),        # D = 512, group 2
 ]
 
 
@@ -232,6 +243,31 @@ def test_flash_autograd_on_card_matches_cpu_plain_path(cuda_device):
 
 
 @pytest.mark.cuda
+def test_flash_sdpa_takes_strided_views_on_card(cuda_device):
+    """Transposed q/k/v views through F.scaled_dot_product_attention on the
+    card (K2-K4 get contiguous copies) equal the contiguous call, output
+    and grads, bitwise."""
+    from paddle_tpu_torch.nn import functional as F
+    q, k, v, do = flash_inputs(2, 100, 100, 8, 2, 64, torch.bfloat16,
+                               cuda_device)
+    dense = [x.clone().requires_grad_() for x in (q, k, v)]
+    store = [x.transpose(1, 2).contiguous().requires_grad_()
+             for x in (q, k, v)]
+    strided = [x.transpose(1, 2) for x in store]
+    assert not any(x.is_contiguous() for x in strided)
+    before = fa.flash_attention_fwd.launches
+    want = F.scaled_dot_product_attention(*dense, is_causal=True)
+    got = F.scaled_dot_product_attention(*strided, is_causal=True)
+    assert fa.flash_attention_fwd.launches == before + 2
+    want.backward(do)
+    got.backward(do)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, b in zip(store, dense):
+        torch.testing.assert_close(a.grad.transpose(1, 2), b.grad, rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.cuda
 def test_flash_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
     q, k, v, do = flash_inputs(1, 16, 16, 4, 2, 64, torch.float32,
                                cuda_device)
@@ -242,10 +278,10 @@ def test_flash_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
 
     def wide(d):
         return [torch.zeros(1, 16, 2, d, device=cuda_device)] * 3
-    with pytest.raises(ValueError):                   # D > 256
-        fa.flash_attention_fwd(*wide(264))
-    with pytest.raises(ValueError):                   # D % 8 != 0
-        fa.flash_attention_fwd(*wide(12))
+    with pytest.raises(ValueError):                   # D > 512
+        fa.flash_attention_fwd(*wide(520))
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(*wide(1000), wide(1000)[0], lse, lse)
     with pytest.raises(ValueError):                   # mixed devices
         fa.flash_attention_fwd(q, k.cpu(), v)
     with pytest.raises(ValueError):                   # non-contiguous
@@ -265,15 +301,23 @@ def test_flash_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
 
 
 # Fused linear + cross-entropy (K5-K7). (N, H, V, vocab_offset, last):
-# ragged N, H and V (element loads), V not a multiple of 8 with H aligned,
-# the 16-byte path with a vocab offset (a third of the labels fall outside
-# the shard), and labels all in the last vocab tile (last=True).
+# ragged N, H and V (element loads), V not a multiple of 8 with H aligned
+# (the mma.sync kernels in every dtype), the 16-byte path with a vocab offset (a
+# third of the labels fall outside the shard), and labels all in the last
+# vocab tile (last=True). In bf16/fp16 with H and V multiples of 8, K6/K7
+# run the wgmma kernels: N, H and V off their 128-row, 64-deep and
+# 512-column tiles, many vocab tiles at the training head's width, a last
+# 512-column slice 8 columns wide, and two 512-row slices of K7.
 FCE_CASES = [
     (13, 50, 777, 0, False),
     (24, 64, 1000, 0, False),
     (200, 136, 1030, 0, False),
     (300, 256, 4096, 1000, False),
     (130, 512, 2000, 0, True),
+    (200, 520, 1032, 0, False),
+    (256, 4096, 32000, 0, False),
+    (333, 136, 2056, 0, True),
+    (1000, 128, 1024, 300, False),
 ]
 # (rtol, step) per dtype for dh rows and dW columns, as FLASH_STEP's grads:
 # the kernel and the plain version round the same dl, from fp32 logits

@@ -32,6 +32,15 @@ CASES = [
     (3, 384, 8, 8, 64, [1, 200, 384]),       # MHA, the JAX test's shape
     (3, 384, 8, 4, 64, [1, 200, 384]),       # GQA
     (4, 300, 8, 4, 64, [0, 1, 150, 300]),    # a length-0 row, S_max % 256 != 0
+    # Groups above 8 (the kernel serves them in chunks of 8 query heads)
+    # and head widths that are not a multiple of 8 or exceed 256 (its
+    # element-load path); the Pallas kernel pads the group and D itself.
+    (2, 100, 16, 1, 64, [37, 100]),          # group 16
+    (3, 130, 32, 1, 32, [1, 0, 130]),        # group 32 (MQA)
+    (2, 96, 32, 2, 64, [96, 50]),            # group 16, two kv heads
+    (2, 70, 8, 2, 100, [70, 9]),             # D = 100
+    (2, 40, 4, 4, 80, [40, 3]),              # D = 80
+    (2, 33, 4, 1, 320, [33, 17]),            # D = 320, group 4
 ]
 
 

@@ -36,6 +36,11 @@ CASES = [
     (1, 64, 2, 64, 2, True, 128),      # causal Sq != Sk: top-left mask
     (1, 160, 4, 128, 1, True, 64),     # causal Sq > Sk, group 4, D 128
     (1, 129, 8, 96, 1, True, 129),     # group 8, D 96, S one past 128
+    # D not a multiple of 8 (the card's wrappers pad it) and D = 80
+    (1, 70, 4, 80, 2, True, 70),
+    (1, 70, 4, 80, 2, False, 90),
+    (1, 50, 2, 100, 1, True, 50),
+    (2, 40, 2, 100, 2, False, 60),
 ]
 
 
@@ -180,3 +185,66 @@ def test_sdp_attention_ref_matches_jax_reference():
     got = F.sdp_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("D,causal", [(80, True), (100, True), (100, False),
+                                      (12, False)])
+def test_padded_head_width_with_the_real_scale_equals_the_unpadded(D,
+                                                                   causal):
+    """The card's wrappers zero-pad D to a multiple of 8 (``_pad_d``) and
+    pass the scale of the real D. The same rule through the plain versions:
+    O, LSE, dQ, dK and dV of the padded call, sliced back, equal the
+    unpadded ones (rtol 1e-5, atol 1e-6); the scale of the padded width
+    would not."""
+    q, k, v, g = (torch.from_numpy(x)
+                  for x in _inputs(1, 24, 4, D, 2, 24, seed=8))
+    padded = fa_mod._pad_d(q, k, v, g)
+    Dp = padded[0].shape[-1]
+    assert Dp % 8 == 0 and Dp - D < 8
+    assert all(x.shape[-1] == Dp and not x[..., D:].any() for x in padded)
+    scale = fa_mod._scale(None, D)
+    o, lse = fa_mod.flash_attention_fwd_ref(q, k, v, causal)
+    po, plse = fa_mod.flash_attention_fwd_ref(*padded[:3], causal, scale)
+    torch.testing.assert_close(po[..., :D], o, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(plse, lse, rtol=1e-5, atol=1e-6)
+    delta = (g * o).sum(-1).transpose(1, 2).contiguous()
+    dq = fa_mod.flash_attention_bwd_dq_ref(q, k, v, g, lse, delta, causal)
+    pdq = fa_mod.flash_attention_bwd_dq_ref(*padded, lse, delta, causal,
+                                            scale)
+    torch.testing.assert_close(pdq[..., :D], dq, rtol=1e-5, atol=1e-6)
+    dk, dv = fa_mod.flash_attention_bwd_dkv_ref(q, k, v, g, lse, delta,
+                                                causal)
+    pdk, pdv = fa_mod.flash_attention_bwd_dkv_ref(*padded, lse, delta,
+                                                  causal, scale)
+    torch.testing.assert_close(pdk[..., :D], dk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(pdv[..., :D], dv, rtol=1e-5, atol=1e-6)
+    if Dp != D:
+        wrong, _ = fa_mod.flash_attention_fwd_ref(*padded[:3], causal)
+        assert not torch.allclose(wrong[..., :D], o, rtol=1e-5, atol=1e-6)
+
+
+def test_strided_views_through_sdpa_equal_the_contiguous_call(monkeypatch):
+    """q, k, v as transposed views ([B, H, S, D] storage seen as
+    [B, S, H, D]) give the contiguous call's output and grads, and the
+    flash entry hands the kernel contiguous tensors (the card's wrappers
+    raise on strided ones)."""
+    import paddle_tpu_torch.nn.functional as fmod
+    seen = []
+    orig = fmod._flash
+    monkeypatch.setattr(fmod, "_flash", lambda *a, **kw: seen.append(
+        all(x.is_contiguous() for x in a[:3])) or orig(*a, **kw))
+    q, k, v, g = _inputs(2, 20, 4, 16, 2, 20, seed=9)
+    dense = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    views = [torch.from_numpy(x.transpose(0, 2, 1, 3).copy())
+             .requires_grad_() for x in (q, k, v)]
+    strided = [x.transpose(1, 2) for x in views]
+    assert not any(x.is_contiguous() for x in strided)
+    want = F.scaled_dot_product_attention(*dense, is_causal=True)
+    got = F.scaled_dot_product_attention(*strided, is_causal=True)
+    assert seen == [True, True]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    want.backward(torch.from_numpy(g))
+    got.backward(torch.from_numpy(g))
+    for a, b in zip(views, dense):
+        torch.testing.assert_close(a.grad.transpose(1, 2), b.grad, rtol=0,
+                                   atol=0)

@@ -60,7 +60,7 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "fce_variants.py"]))
 def test_source_imports_neither_jax_nor_paddle_tpu(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path

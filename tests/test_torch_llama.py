@@ -211,3 +211,33 @@ def test_port_init_is_seeded_xavier_normal_and_ones():
             assert bool((p == 1).all()), n
     w = a.llama.layers[0].mlp.gate_proj.weight      # [32, 64]
     assert abs(float(w.std()) - (2.0 / (32 + 64)) ** 0.5) < 0.03
+
+
+@pytest.mark.parametrize("field,value", [
+    ("tie_word_embeddings", True), ("use_flash_attention", False),
+    ("recompute", True), ("sequence_parallel", False),
+    ("context_parallel", None)])
+def test_config_takes_the_reference_fields_with_its_defaults(field, value):
+    """Every field of the reference's LlamaConfig exists with its default
+    and builds a model when set (the mesh-sharding two only at their
+    defaults here: set, they raise, see the next test)."""
+    ref, port = JaxConfig(), LlamaConfig()
+    assert getattr(port, field) == getattr(ref, field)
+    cfg = LlamaConfig.tiny(**TINY)
+    setattr(cfg, field, value)
+    built = LlamaConfig(**{**vars(cfg)})
+    assert getattr(built, field) == value
+    LlamaForCausalLM(built, device="cpu")
+    assert set(vars(JaxConfig())) <= set(vars(LlamaConfig()))
+
+
+@pytest.mark.parametrize("knob", [{"sequence_parallel": True},
+                                  {"context_parallel": "ring"},
+                                  {"context_parallel": "ulysses"}])
+def test_sequence_and_context_parallel_raise_not_in_this_slice(knob):
+    from paddle_tpu_torch.core.errors import NotInThisSlice
+    cfg = LlamaConfig(**{**vars(LlamaConfig.tiny(**TINY)), **knob})
+    for k, v in knob.items():
+        assert getattr(cfg, k) == v           # stored as the reference
+    with pytest.raises(NotInThisSlice):
+        LlamaForCausalLM(cfg, device="cpu")

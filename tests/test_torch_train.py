@@ -78,6 +78,34 @@ def test_compute_loss_and_every_grad_match_jax(kv_heads):
                                    atol=ATOL, err_msg=n)
 
 
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_recompute_loss_and_every_grad_match_jax(kv_heads):
+    """``recompute=True`` checkpoints each decoder layer (the JAX model's
+    ``recompute``): the loss and every grad equal the JAX model's with
+    ``recompute=True``, and the port's own without it."""
+    jm, pm = _pair(kv_heads)
+    jm.config.recompute = pm.config.recompute = True
+    ids, labels = _batch(ignore=0.2, seed=7)
+    jl = jm.compute_loss(P.to_tensor(ids), P.to_tensor(labels))
+    jl.backward()
+    pl = pm.compute_loss(torch.from_numpy(ids), torch.from_numpy(labels))
+    pl.backward()
+    np.testing.assert_allclose(float(pl.detach()), float(jl.numpy()),
+                               rtol=RTOL)
+    grads = {n: p.grad.clone() for n, p in pm.named_parameters()}
+    for n, p in jm.named_parameters():
+        np.testing.assert_allclose(grads[n].numpy(),
+                                   np.asarray(p.grad._value), rtol=RTOL,
+                                   atol=ATOL, err_msg=n)
+    pm.config.recompute = False
+    pm.zero_grad()
+    plain = pm.compute_loss(torch.from_numpy(ids), torch.from_numpy(labels))
+    plain.backward()
+    assert float(plain.detach()) == float(pl.detach())
+    for n, p in pm.named_parameters():
+        torch.testing.assert_close(p.grad, grads[n], rtol=1e-6, atol=1e-7)
+
+
 @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
 def test_cross_entropy_with_ignored_labels_matches_jax(reduction):
     r = np.random.RandomState(0)
