@@ -59,7 +59,9 @@ fails:
    bf16), beside the unfused head as the yardstick: no single PyTorch call
    computes linear + cross-entropy, so it is ``F.cross_entropy(
    torch.matmul(h, w).float(), labels, reduction="none")`` forward and its
-   autograd backward (one time for K6 and K7 together).
+   autograd backward (one time for K6 and K7 together); and beside
+   ``torch.matmul(h, w)`` alone (``gemm_ms``), the product all three
+   contain.
 
 The last lines are ``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"kernels": [...]}`` (all seven kernels),
@@ -854,22 +856,30 @@ def phase_flash_timing(torch, fa, heads, head_dim):
     return res
 
 
-# Fused CE cases: (name, N, H, V, vocab_offset, last). Ragged N, H and V
+# Fused CE cases: (name, N, H, V, vocab_offset, kind). Ragged N, H and V
 # (element loads), V not a multiple of 8 (the mma.sync kernels), the 16-byte
-# path with a vocab offset (a third of the labels outside the shard),
-# labels all in the last vocab tile (last=True).
+# path with a vocab offset (a third of the labels outside the shard); kind
+# "last": labels all in the last 128-column vocab tile, "neg": every logit
+# negative (h >= 0, W <= 0), so a padded column taken as s = 0 would win
+# the max; "any": neither.
 FCE_CASES = [
-    ("n13_h50_v777", 13, 50, 777, 0, False),
-    ("n200_h136_v1030", 200, 136, 1030, 0, False),
-    ("n300_h256_v4096_off1000", 300, 256, 4096, 1000, False),
-    ("n130_h512_v2000_lasttile", 130, 512, 2000, 0, True),
-    # bf16/fp16 with H and V multiples of 8 run the wgmma K6/K7: N, H and V
-    # off their tiles, many vocab tiles, an 8-column last vocab slice with
-    # labels in it, two 512-row slices with a vocab offset.
-    ("n200_h520_v1032", 200, 520, 1032, 0, False),
-    ("n256_h4096_v32000", 256, 4096, 32000, 0, False),
-    ("n333_h136_v2056_lasttile", 333, 136, 2056, 0, True),
-    ("n1000_h128_v1024_off300", 1000, 128, 1024, 300, False),
+    ("n13_h50_v777", 13, 50, 777, 0, "any"),
+    ("n200_h136_v1030", 200, 136, 1030, 0, "any"),
+    ("n300_h256_v4096_off1000", 300, 256, 4096, 1000, "any"),
+    ("n130_h512_v2000_lasttile", 130, 512, 2000, 0, "last"),
+    # bf16/fp16 with H and V multiples of 8 run the Hopper K5-K7: N, H and V
+    # off their tiles, many vocab tiles, an 8-column last vocab tile (256
+    # wide in K5, a 512-column slice in K6) with labels in it, two 512-row
+    # slices with a vocab offset, one row, a row past 32 row blocks, H off
+    # the 64-deep chunk, all logits negative with a ragged last tile.
+    ("n200_h520_v1032", 200, 520, 1032, 0, "any"),
+    ("n256_h4096_v32000", 256, 4096, 32000, 0, "any"),
+    ("n333_h136_v2056_lasttile", 333, 136, 2056, 0, "last"),
+    ("n1000_h128_v1024_off300", 1000, 128, 1024, 300, "any"),
+    ("n1_h256_v2048", 1, 256, 2048, 0, "any"),
+    ("n4097_h256_v1032", 4097, 256, 1032, 0, "any"),
+    ("n77_h4104_v1000", 77, 4104, 1000, 0, "any"),
+    ("n300_h512_v2056_neg", 300, 512, 2056, 0, "neg"),
 ]
 # m, lse and loss per row: atol 1e-4 / rtol 1e-5 (fp32 sums of the same
 # products in another order). dh row by row and dW column by column under
@@ -879,13 +889,16 @@ FCE_CASES = [
 # between runs.
 
 
-def fce_inputs(torch, N, H, V, offset, last, dtype, seed):
+def fce_inputs(torch, N, H, V, offset, kind, dtype, seed):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    h = torch.randn(N, H, generator=g, device=DEVICE).to(dtype)
-    w = (0.05 * torch.randn(H, V, generator=g, device=DEVICE)).to(dtype)
+    h = torch.randn(N, H, generator=g, device=DEVICE)
+    w = 0.05 * torch.randn(H, V, generator=g, device=DEVICE)
+    if kind == "neg":            # every logit negative
+        h, w = h.abs(), -w.abs()
+    h, w = h.to(dtype), w.to(dtype)
     top = V + offset + (V // 2 if offset else 0)
     labels = torch.randint(0, top, (N,), generator=g, device=DEVICE)
-    if last:                     # the last vocab tile of 128 columns
+    if kind == "last":           # the last vocab tile of 128 columns
         labels = V - 1 - labels % (V - (V - 1) // 128 * 128)
     gr = torch.randn(N, generator=g, device=DEVICE) / N
     gr[::5] = 0.0                        # rows that add nothing
@@ -933,8 +946,8 @@ def phase_fce_cases(torch, fce):
     vocab offset and labels in the last tile, in every dtype."""
     out = {}
     for dt in (torch.float32, torch.bfloat16, torch.float16):
-        for name, N, H, V, offset, last in FCE_CASES:
-            h, w, labels, gr = fce_inputs(torch, N, H, V, offset, last, dt,
+        for name, N, H, V, offset, kind in FCE_CASES:
+            h, w, labels, gr = fce_inputs(torch, N, H, V, offset, kind, dt,
                                           4)
             label = f"{name}_{str(dt).replace('torch.', '')}"
             errs, shares, _ = fce_check(torch, fce, h, w, labels, gr, offset,
@@ -963,10 +976,11 @@ def fce_bound(N, H, V, esize, kind):
 def phase_fce_timing(torch, fce, N, H, V):
     """K5, K6 and K7 at the training head's shape (bf16): held against
     their plain versions, then each timed beside its plain version, the
-    unfused head (forward; autograd backward for K6 + K7 together) and its
+    unfused head (forward; autograd backward for K6 + K7 together), the bare
+    product h W that all three contain (cuBLAS, ``gemm_ms``) and its
     bound."""
     import torch.nn.functional as tF
-    h, w, labels, gr = fce_inputs(torch, N, H, V, 0, False, torch.bfloat16,
+    h, w, labels, gr = fce_inputs(torch, N, H, V, 0, "any", torch.bfloat16,
                                   8)
     errs, shares, lse = fce_check(torch, fce, h, w, labels, gr, 0,
                                   "training_head_bf16")
@@ -996,7 +1010,9 @@ def phase_fce_timing(torch, fce, N, H, V):
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(
         out, leaves, gr, retain_graph=True), [()], stream=side)
     res["dh"]["library_ms"] = res["dw"]["library_ms"] = lib_bwd
+    gemm = cuda_ms(torch.matmul, [(h, w)])
     for kind in ("fwd", "dh", "dw"):
+        res[kind]["gemm_ms"] = gemm
         bound, by = fce_bound(N, H, V, h.element_size(), kind)
         res[kind].update(bound_ms=bound, bound_by=by)
     del out, leaves
@@ -1121,6 +1137,7 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "gemm_ms": r["gemm_ms"],
             "library": "unfused head: F.cross_entropy(matmul(h, w).float())"
                        + (" forward" if key == "fwd" else
                           " autograd backward, K6 + K7 together")})

@@ -2,13 +2,13 @@
 // (sm_90a).
 //
 // Replaces the three TPU kernels of paddle_tpu/ops/pallas/fused_ce.py:
-//   K5 _fwd_kernel    (via _fwd_partials, :104) -> fce_fwd_kernel and
+//   K5 _fwd_kernel    (via _fwd_partials, :104) -> fce_fwd_wgmma_kernel and
 //                                                  fce_merge_kernel
 //   K6 _bwd_dh_kernel (via _bwd_impl, :192)     -> fce_bwd_dh_wgmma_kernel
 //   K7 _bwd_dw_kernel (via _bwd_impl, :207)     -> fce_bwd_dw_wgmma_kernel
-// (K6 / K7 for bfloat16 / float16 with H and V multiples of 8, the training
-// path: wgmma, TMA and warp specialisation, designed below with the
-// kernels; float32, and H or V not a multiple of 8, take
+// (for bfloat16 / float16 with H and V multiples of 8, the training path:
+// wgmma, TMA and warp specialisation, designed below with the kernels;
+// float32, and H or V not a multiple of 8, take fce_fwd_kernel /
 // fce_bwd_dh_kernel / fce_bwd_dw_kernel, the mma.sync design that follows).
 // h is [N, H], W is [H, V] (Paddle's [in, out] layout), labels [N] int32,
 // all contiguous; s = h W is never written to memory. Ragged N, H and V are
@@ -18,7 +18,7 @@
 // Bound: operations. At the training shape (N = 4096, H = 4096, V = 32000,
 // bf16) K5 does 2NHV = 1.07e12 flops (1.09 ms at 989 TFLOP/s), K6 and K7
 // 4NHV each (s recomputed, then the product): 2.17 ms. W alone is 262 MB,
-// 0.08 ms at 3.35 TB/s. Design of K5 and of the mma.sync K6 / K7:
+// 0.08 ms at 3.35 TB/s. Design of the mma.sync K5 / K6 / K7:
 //   - s is computed in 128 x 128 tiles by 8 warps (4 along rows x 2 along
 //     columns, 32 x 64 each), contracting over H in chunks of 64 (32 for
 //     fp32) through a two-stage cp.async ring in shared memory (16-byte
@@ -1051,6 +1051,235 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K5 on Hopper: bfloat16 / float16 with H and V multiples of 8, the training
+// path. The same s = h W as K6/K7's phase 1, with no dl tile: the shared
+// memory is all ring. 384 threads, warpgroups 0-1 consume, warpgroup 2
+// produces (setmaxnreg 232 / 40); one producer thread streams, per 64-deep
+// chunk of H, the h box [128 rows x 64] (K-major) and kFwdN / 64 W boxes
+// [64 x 64] (N-contiguous: the B descriptor is MN-major, wgmma's transpose
+// bit) into a ring of kFwdStages stages; each consumer warpgroup owns 64
+// rows and computes its 64 x kFwdN slice of s with one m64n{kFwdN}k16
+// product a k-step (SS: no A fragments in registers), one commit group a
+// chunk, one group in flight behind the one it issues. After a tile each
+// lane folds its columns into an online (m, l, z) for its two rows (exp2
+// with log2 e folded in; columns at or past V are -1e30 for the max and add
+// nothing to the sum, since TMA's zero fill would give them s = 0); the
+// quad merges at the end, and lane 0 of a quad writes the split's partials
+// part[3][splits][N]. fce_merge_kernel then merges the splits per row.
+//   grid: row blocks (the fast index) x vocab splits, chosen so that one
+//     wave fills the SMs (N = 4096: 32 x 4 = 128 CTAs); the CTAs in flight
+//     walk the same W tiles in step, so W streams from HBM about once and
+//     h (32 MB at N = 4096) stays in L2.
+//   bound: operations (2NHV). A stage feeds 2 * 128 * kFwdN * 64 flops for
+//     (128 + kFwdN) * 128 bytes from L2: 85 flops a byte at kFwdN = 256
+//     against 64 at 128, the width of K6/K7's phase 1.
+// Measured at N = H = 4096, V = 32000, bf16 (H100 80GB HBM3 at 700 W;
+// PERF.md section 6): 1.40-1.42 ms against cuBLAS's 1.35-1.38 for h W alone,
+// and a 1.086 bound; 128 x 128 tiles with six stages took 1.73, two 48 KB
+// stages 2.32, three as four; the fold costs about 0.05 ms; a 2 x 1
+// cluster multicasting W (fce_variants.py k5_cl2) took 1-2% off. Under
+// sustained load K5 and cuBLAS's product both hold the card at its power
+// limit, at 1350-1425 MHz.
+// ---------------------------------------------------------------------------
+constexpr int kFwdN = 256;       // vocab columns of an s tile
+constexpr int kFwdStages = 4;    // ring depth: 4 x 48 KB
+constexpr uint32_t kFwdStageBytes = 16384 + 128 * kFwdN;  // h, then W
+constexpr size_t kFwdSmem =
+    1024 + (size_t)kFwdStages * kFwdStageBytes + 16 * kFwdStages;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Consumer warp done with stage `it`: lane 0 arrives on the stage's empty
+// barrier (a predicate, not a branch).
+__device__ __forceinline__ void fwd_release(uint32_t empty0, int it,
+                                            int lane) {
+  const uint32_t bar = empty0 + 8 * Ring<kFwdStages>(it).s;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(lane)
+      : "memory");
+}
+
+// Fold one s tile into this lane's online (m, l, z): rows rl and rl + 8
+// (rr), columns c0 + 8 j + e (c0 = v0 + 2 t). RAGGED: the tile reaches past
+// V, whose columns are -1e30 for the max and add nothing to the sum. z
+// takes the logit at the local label when it lies in [v0, min(v0 + kFwdN,
+// V)).
+template <bool RAGGED>
+__device__ __forceinline__ void fwd_fold(float (&s)[kFwdN / 2], float (&m)[2],
+                                         float (&l)[2], float (&z)[2],
+                                         const int (&lab)[2], int v0, int V,
+                                         int c0) {
+  constexpr int NJ = kFwdN / 8;
+  const int left = V - c0;  // this lane's columns 8 j + e < left are real
+  if constexpr (RAGGED) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (8 * j + (i & 1) >= left) s[4 * j + i] = kNegInf;
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (lab[rr] >= v0 && lab[rr] < min(v0 + kFwdN, V)) {
+      const int lc = lab[rr] - c0;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (8 * j + e == lc) z[rr] += s[4 * j + 2 * rr + e];
+        }
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
+    }
+    const float mn = fmaxf(m[rr], mx), b = mn * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2(fmaf(s[4 * j + 2 * rr + e], kLog2e, -b));
+        sum += RAGGED && 8 * j + e >= left ? 0.f : p;
+      }
+    }
+    l[rr] = l[rr] * ex2(fmaf(m[rr], kLog2e, -b)) + sum;
+    m[rr] = mn;
+  }
+}
+
+// K5 on Hopper: CTA = 128 rows x one split of the kFwdN-wide vocab tiles.
+template <typename T>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                         const __grid_constant__ CUtensorMap tw,
+                         const int* __restrict__ labels, int offset,
+                         float* __restrict__ part, int N, int H, int V,
+                         int tiles_per_split) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t ring0 = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t full0 = ring0 + kFwdStages * kFwdStageBytes;
+  const uint32_t empty0 = full0 + 8 * kFwdStages;
+  const int r0 = blockIdx.x * 128;
+  const int split = blockIdx.y;
+  const int nvt = (V + kFwdN - 1) / kFwdN;
+  const int vt0 = split * tiles_per_split;
+  const int vt1 = min(vt0 + tiles_per_split, nvt);
+  const int nk = (H + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 8);  // consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * 128) {
+      int it = 0;
+      for (int vt = vt0; vt < vt1; ++vt) {
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const Ring<kFwdStages> q(it);
+          mbar_wait(empty0 + 8 * q.s, q.phase ^ 1);
+          const uint32_t full = full0 + 8 * q.s;
+          const uint32_t st = ring0 + q.s * kFwdStageBytes;
+          mbar_expect_tx(full, kFwdStageBytes);
+          tma_load_2d(st, &th, full, ks * 64, r0);
+#pragma unroll
+          for (int c = 0; c < kFwdN / 64; ++c) {
+            tma_load_2d(st + 16384 + c * 8192, &tw, full, vt * kFwdN + c * 64,
+                        ks * 64);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows [r0 + 64 wg, r0 + 64 wg + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rl = wg * 64 + warp * 16 + g;  // this lane's rows: rl, rl + 8
+    int lab[2];
+    float m[2], l[2], z[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + rl + 8 * rr;
+      lab[rr] = row < N ? labels[row] - offset : -1;
+      m[rr] = kNegInf;
+      l[rr] = 0.f;
+      z[rr] = 0.f;
+    }
+    float s[kFwdN / 2];
+    int it = 0;
+    for (int vt = vt0; vt < vt1; ++vt) {
+#pragma unroll
+      for (int i = 0; i < kFwdN / 2; ++i) s[i] = 0.f;
+      for (int ks = 0; ks < nk; ++ks, ++it) {
+        const Ring<kFwdStages> q(it);
+        mbar_wait(full0 + 8 * q.s, q.phase);
+        const uint32_t st = ring0 + q.s * kFwdStageBytes;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Wg<T>::template ss256x<0, 1>(
+              s, sw128_desc(st + wg * 64 * 128 + kk * 32, 16),
+              sw128_desc(st + 16384 + kk * 16 * 128, 8192));
+        }
+        wg_commit();
+        wg_wait<1>();
+        if (ks > 0) fwd_release(empty0, it - 1, lane);
+      }
+      wg_wait<0>();
+      wg_hold<kFwdN / 2>(s);
+      fwd_release(empty0, it - 1, lane);
+      const int v0 = vt * kFwdN;
+      if (v0 + kFwdN > V) {
+        fwd_fold<true>(s, m, l, z, lab, v0, V, v0 + 2 * t);
+      } else {
+        fwd_fold<false>(s, m, l, z, lab, v0, V, v0 + 2 * t);
+      }
+    }
+    // Merge the quad's four lanes (same rows, other columns).
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, m[rr], off);
+        const float ol = __shfl_xor_sync(0xffffffffu, l[rr], off);
+        const float oz = __shfl_xor_sync(0xffffffffu, z[rr], off);
+        const float mn = fmaxf(m[rr], om), b = mn * kLog2e;
+        l[rr] = l[rr] * ex2(fmaf(m[rr], kLog2e, -b)) +
+                ol * ex2(fmaf(om, kLog2e, -b));
+        m[rr] = mn;
+        z[rr] += oz;
+      }
+      const int row = r0 + rl + 8 * rr;
+      if (t == 0 && row < N) {
+        const size_t o = (size_t)split * N + row;
+        const size_t plane = (size_t)gridDim.y * N;
+        part[o] = m[rr];
+        part[plane + o] = l[rr];
+        part[2 * plane + o] = z[rr];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
 struct Args {
@@ -1067,24 +1296,82 @@ bool vec_ok(const Args& a) {
          reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
 }
 
+// Whether K5 takes its Hopper kernel: 16-bit types with H and V multiples
+// of 8 and 16-byte aligned bases (TMA's rows).
+template <typename T, bool VEC>
+constexpr bool kFwdWg = sizeof(T) == 2 && VEC;
+
+// K5's vocab splits on the current device, 0 if it cannot be read. The
+// Hopper kernel (WG) plans one wave of CTAs over kFwdN-wide tiles, the
+// mma.sync kernel two waves of two CTAs an SM over 128-wide tiles; no
+// split is empty. pt_fused_ce_fwd_splits gives the wrapper this count.
+int fwd_splits(int N, int V, bool wg) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
+  const int tile = wg ? kFwdN : kTile;
+  const int nvt = (V + tile - 1) / tile;
+  const int rb = (N + kTile - 1) / kTile;
+  const int want = min(nvt, max(1, wg ? sms / rb : (4 * sms + rb - 1) / rb));
+  const int per = (nvt + want - 1) / want;
+  return (nvt + per - 1) / per;
+}
+
+template <typename T>
+bool tma_maps(const Args& a, CUtensorMap* th, CUtensorMap* tw) {
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return matrix_map(th, a.h, type, 2, a.N, a.H, 64, 128,
+                    CU_TENSOR_MAP_SWIZZLE_128B) &&
+         matrix_map(tw, a.w, type, 2, a.H, a.V, 64, 64,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// K5 on Hopper (16-bit types, H and V multiples of 8).
+template <typename T>
+cudaError_t fwd_wgmma(const Args& a, float* part, int splits, int tps,
+                      cudaStream_t st) {
+  CUtensorMap th, tw;
+  if (!tma_maps<T>(a, &th, &tw)) return cudaErrorInvalidValue;
+  auto kernel = fce_fwd_wgmma_kernel<T>;
+  static bool done = false;
+  const cudaError_t e = allow_smem(kernel, kFwdSmem, done);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.N + kTile - 1) / kTile, splits);
+  kernel<<<grid, kWsThreads, kFwdSmem, st>>>(th, tw, a.labels, a.offset, part,
+                                             a.N, a.H, a.V, tps);
+  return cudaSuccess;
+}
+
 template <typename T, bool VEC>
 cudaError_t fwd(const Args& a, float* part, float* m, float* l, float* z,
                 int splits, cudaStream_t st) {
-  constexpr size_t smem = 2 * (size_t)Lay<T>::STAGE * sizeof(T);
-  auto kernel = fce_fwd_kernel<T, VEC>;
-  static bool done = false;
-  cudaError_t e = allow_smem(kernel, smem, done);
-  if (e != cudaSuccess) return e;
-  const int nvt = (a.V + kTile - 1) / kTile;
-  const int tps = (nvt + splits - 1) / splits;
-  const dim3 grid((a.N + kTile - 1) / kTile, (nvt + tps - 1) / tps);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(a.h), static_cast<const T*>(a.w), a.labels,
-      a.offset, part, a.N, a.H, a.V, tps);
-  e = cudaGetLastError();
+  constexpr bool WG = kFwdWg<T, VEC>;
+  if (splits != fwd_splits(a.N, a.V, WG)) return cudaErrorInvalidValue;
+  const int tile = WG ? kFwdN : kTile;
+  const int tps = ((a.V + tile - 1) / tile + splits - 1) / splits;
+  cudaError_t e;
+  if constexpr (WG) {
+    e = fwd_wgmma<T>(a, part, splits, tps, st);
+  } else {
+    constexpr size_t smem = 2 * (size_t)Lay<T>::STAGE * sizeof(T);
+    auto kernel = fce_fwd_kernel<T, VEC>;
+    static bool done = false;
+    e = allow_smem(kernel, smem, done);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((a.N + kTile - 1) / kTile, splits);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(a.h), static_cast<const T*>(a.w), a.labels,
+        a.offset, part, a.N, a.H, a.V, tps);
+  }
+  if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   fce_merge_kernel<<<(a.N + 255) / 256, 256, 0, st>>>(part, m, l, z, a.N,
-                                                      (int)grid.y);
+                                                      splits);
   return cudaGetLastError();
 }
 
@@ -1092,16 +1379,8 @@ cudaError_t fwd(const Args& a, float* part, float* m, float* l, float* z,
 template <typename T, bool DH>
 cudaError_t bwd_wgmma(const Args& a, const float* lse, const float* g,
                       float* out, cudaStream_t st) {
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap th, tw;
-  if (!matrix_map(&th, a.h, type, 2, a.N, a.H, 64, 128,
-                  CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !matrix_map(&tw, a.w, type, 2, a.H, a.V, 64, 64,
-                  CU_TENSOR_MAP_SWIZZLE_128B)) {
-    return cudaErrorInvalidValue;
-  }
+  if (!tma_maps<T>(a, &th, &tw)) return cudaErrorInvalidValue;
   auto kernel = DH ? fce_bwd_dh_wgmma_kernel<T> : fce_bwd_dw_wgmma_kernel<T>;
   static bool done = false;
   const cudaError_t e = allow_smem(kernel, kWsSmem, done);
@@ -1166,7 +1445,23 @@ cudaError_t by_dtype(int dtype, const Args& a, F f) {
 // are device pointers to contiguous h [N, H], W [H, V], labels [N] int32,
 // lse / g [N] fp32. Each returns the cudaError_t of its launches (0 = ok).
 
-// K5: part is fp32 [3, splits, N] scratch; m, l, z are fp32 [N].
+// K5's vocab splits for these inputs on the current device: the count
+// pt_fused_ce_fwd takes, which sizes its part scratch; 0 for inputs it
+// refuses.
+extern "C" int pt_fused_ce_fwd_splits(const void* h, const void* w, int N,
+                                      int H, int V, int dtype) {
+  const Args a{h, w, nullptr, 0, N, H, V};
+  if (bad(a)) return 0;
+  int splits = 0;
+  by_dtype(dtype, a, [&](auto t, auto vec) {
+    splits = fwd_splits(N, V, kFwdWg<decltype(t), decltype(vec)::value>);
+    return cudaSuccess;
+  });
+  return splits;
+}
+
+// K5: part is fp32 [3, splits, N] scratch; m, l, z are fp32 [N]. splits
+// must be pt_fused_ce_fwd_splits's count (else cudaErrorInvalidValue).
 extern "C" int pt_fused_ce_fwd(const void* h, const void* w,
                                const void* labels, int offset, void* part,
                                void* m, void* l, void* z, int N, int H, int V,

@@ -135,12 +135,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # h, w, labels, offset, ...
     lib.pt_fused_ce_fwd.argtypes = [vp, vp, vp, ci] + [vp] * 4 + [ci] * 5 \
         + [vp]                        # part, m, l, z; N, H, V, splits, dtype
+    lib.pt_fused_ce_fwd_splits.argtypes = [vp, vp] + [ci] * 4  # N, H, V, dtype
     lib.pt_fused_ce_bwd_dh.argtypes = [vp, vp, vp, ci] + [vp] * 3 \
         + [ci] * 4 + [vp]             # lse, g, out; N, H, V, dtype
     lib.pt_fused_ce_bwd_dw.argtypes = lib.pt_fused_ce_bwd_dh.argtypes
     for name in ("pt_flash_attention_fwd", "pt_flash_attention_bwd_dq",
                  "pt_flash_attention_bwd_dkv", "pt_fused_ce_fwd",
-                 "pt_fused_ce_bwd_dh", "pt_fused_ce_bwd_dw"):
+                 "pt_fused_ce_fwd_splits", "pt_fused_ce_bwd_dh",
+                 "pt_fused_ce_bwd_dw"):
         getattr(lib, name).restype = ci
 
 

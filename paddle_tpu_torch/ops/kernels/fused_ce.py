@@ -12,7 +12,8 @@ Three kernels in ``paddle_tpu_torch/csrc/fused_ce.cu``:
 - ``fused_ce_fwd`` (K5) -> per-row ``(m, l, z)``: max, sum of
   ``exp(s - m)`` and the fp32 logit at ``label - vocab_offset`` (0 outside
   ``[0, V)``), as ``_fwd_partials`` (:97-124). The vocab is split across
-  CTAs and the splits' partials are merged by a second launch.
+  CTAs (as many as the launcher plans for the card, ``_fwd_splits``)
+  and the splits' partials are merged by a second launch.
 - ``fused_ce_bwd_dh`` (K6) -> dh in h's dtype: ``dl = (softmax - onehot) g``
   rounded to W's dtype, then ``dl W^T`` summed in fp32 (``_bwd_dh_kernel``,
   :131-153).
@@ -22,11 +23,11 @@ Three kernels in ``paddle_tpu_torch/csrc/fused_ce.cu``:
 K6 and K7 add their products into a zeroed fp32 buffer with fp32
 reductions, so their sums are taken in an order that changes from run to
 run; the buffer is rounded once to the output dtype here. In bfloat16 and
-float16 with H and V multiples of 8 (the training path) they are Hopper
-kernels (wgmma, TMA, a warp-specialised pipeline); float32 and unaligned
-widths take the mma.sync kernels. ``set_block_sizes`` (:49) is a knob
-of the TPU's VMEM tiling and has no counterpart: the CUDA tiles are fixed
-by the card's shared memory. The vocab-parallel variant
+float16 with H and V multiples of 8 (the training path) all three are
+Hopper kernels (wgmma, TMA, a warp-specialised pipeline); float32 and
+unaligned widths take the mma.sync kernels. ``set_block_sizes`` (:49) is
+a knob of the TPU's VMEM tiling and has no counterpart: the CUDA tiles are
+fixed by the card's shared memory. The vocab-parallel variant
 (``fused_linear_cross_entropy_tp``, :291-340) waits for the hybrid-parallel
 slice (ROADMAP.md).
 
@@ -46,9 +47,6 @@ from .flash_attention import _DTYPE_CODE, _device_gate, _launch
 __all__ = ["fused_linear_cross_entropy", "fused_linear_ce_partials",
            "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
            "fused_ce_fwd_ref", "fused_ce_bwd_dh_ref", "fused_ce_bwd_dw_ref"]
-
-_TILE = 128                 # rows and vocab columns of the kernels' s tiles
-_FWD_CTAS = 2 * 2 * 132     # K5 aims at two waves of two CTAs per SM
 
 
 def _shapes(h, w, labels) -> Tuple[int, int, int]:
@@ -139,13 +137,19 @@ def _check_cuda(h, w, labels, fp32=()):
     return labels.to(torch.int32).contiguous()
 
 
-def _fwd_splits(N: int, V: int) -> int:
-    """Vocab splits of K5: enough CTAs for two waves, none of them empty
-    (the launcher in fused_ce.cu derives the same count)."""
-    nvt = -(-V // _TILE)
-    splits = min(nvt, max(1, -(-_FWD_CTAS // -(-N // _TILE))))
-    per = -(-nvt // splits)
-    return -(-nvt // per)
+def _fwd_splits(h, w) -> int:
+    """K5's vocab splits for these inputs on h's card, as the launcher in
+    fused_ce.cu plans them; they size its ``part`` scratch."""
+    from ._build import library
+    N, H = h.shape
+    with torch.cuda.device(h.device):
+        splits = library().pt_fused_ce_fwd_splits(
+            h.data_ptr(), w.data_ptr(), N, H, w.shape[1],
+            _DTYPE_CODE[h.dtype])
+    if splits <= 0:
+        raise RuntimeError(f"fused_ce_fwd: no split plan for h "
+                           f"{tuple(h.shape)}, w {tuple(w.shape)}")
+    return splits
 
 
 def fused_ce_fwd(h, w, labels, vocab_offset: int = 0):
@@ -159,7 +163,7 @@ def fused_ce_fwd(h, w, labels, vocab_offset: int = 0):
     m, l, z = torch.empty(3, N, device=h.device, dtype=torch.float32)
     if N == 0:
         return m, l, z
-    splits = _fwd_splits(N, V)
+    splits = _fwd_splits(h, w)
     part = torch.empty(3, splits, N, device=h.device, dtype=torch.float32)
     _launch("pt_fused_ce_fwd", h, h.data_ptr(), w.data_ptr(), lab.data_ptr(),
             int(vocab_offset), part.data_ptr(), m.data_ptr(), l.data_ptr(),

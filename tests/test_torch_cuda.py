@@ -300,24 +300,31 @@ def test_flash_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
             fa.flash_attention_bwd_dkv.launches) == before
 
 
-# Fused linear + cross-entropy (K5-K7). (N, H, V, vocab_offset, last):
+# Fused linear + cross-entropy (K5-K7). (N, H, V, vocab_offset, kind):
 # ragged N, H and V (element loads), V not a multiple of 8 with H aligned
 # (the mma.sync kernels in every dtype), the 16-byte path with a vocab offset (a
-# third of the labels fall outside the shard), and labels all in the last
-# vocab tile (last=True). In bf16/fp16 with H and V multiples of 8, K6/K7
-# run the wgmma kernels: N, H and V off their 128-row, 64-deep and
-# 512-column tiles, many vocab tiles at the training head's width, a last
-# 512-column slice 8 columns wide, and two 512-row slices of K7.
+# third of the labels fall outside the shard); kind "last": labels all in
+# the last 128-column vocab tile, "neg": every logit negative (h >= 0,
+# W <= 0), so a padded column taken as s = 0 would win the max. In
+# bf16/fp16 with H and V multiples of 8 all three run the Hopper kernels:
+# N, H and V off their 128-row, 64-deep and 256-column (K5) or 512-column
+# (K6) tiles, many vocab tiles at the training head's width, a last tile 8
+# columns wide, two 512-row slices of K7, one row, a row past 32 row
+# blocks, H off the 64-deep chunk, all logits negative.
 FCE_CASES = [
-    (13, 50, 777, 0, False),
-    (24, 64, 1000, 0, False),
-    (200, 136, 1030, 0, False),
-    (300, 256, 4096, 1000, False),
-    (130, 512, 2000, 0, True),
-    (200, 520, 1032, 0, False),
-    (256, 4096, 32000, 0, False),
-    (333, 136, 2056, 0, True),
-    (1000, 128, 1024, 300, False),
+    (13, 50, 777, 0, "any"),
+    (24, 64, 1000, 0, "any"),
+    (200, 136, 1030, 0, "any"),
+    (300, 256, 4096, 1000, "any"),
+    (130, 512, 2000, 0, "last"),
+    (200, 520, 1032, 0, "any"),
+    (256, 4096, 32000, 0, "any"),
+    (333, 136, 2056, 0, "last"),
+    (1000, 128, 1024, 300, "any"),
+    (1, 256, 2048, 0, "any"),
+    (4097, 256, 1032, 0, "any"),
+    (77, 4104, 1000, 0, "any"),
+    (300, 512, 2056, 0, "neg"),
 ]
 # (rtol, step) per dtype for dh rows and dW columns, as FLASH_STEP's grads:
 # the kernel and the plain version round the same dl, from fp32 logits
@@ -327,13 +334,16 @@ FCE_STEP = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7,) * 2,
             torch.float16: (2.0 ** -10,) * 2}
 
 
-def fce_inputs(N, H, V, offset, last, dtype, device, seed=6):
+def fce_inputs(N, H, V, offset, kind, dtype, device, seed=6):
     g = torch.Generator(device=device).manual_seed(seed)
-    h = torch.randn(N, H, generator=g, device=device).to(dtype)
-    w = (0.05 * torch.randn(H, V, generator=g, device=device)).to(dtype)
+    h = torch.randn(N, H, generator=g, device=device)
+    w = 0.05 * torch.randn(H, V, generator=g, device=device)
+    if kind == "neg":               # every logit negative
+        h, w = h.abs(), -w.abs()
+    h, w = h.to(dtype), w.to(dtype)
     top = V + offset + (V // 2 if offset else 0)
     labels = torch.randint(0, top, (N,), generator=g, device=device)
-    if last:                        # the last vocab tile of 128 columns
+    if kind == "last":              # the last vocab tile of 128 columns
         labels = V - 1 - labels % (V - (V - 1) // 128 * 128)
     gr = torch.randn(N, generator=g, device=device)
     gr[::5] = 0.0                           # rows that add nothing
@@ -354,13 +364,13 @@ def _close_lines(got, want, rtol, step, dim):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("N,H,V,offset,last", FCE_CASES)
+@pytest.mark.parametrize("N,H,V,offset,kind", FCE_CASES)
 def test_fused_ce_kernels_match_plain_versions(cuda_device, dtype, N, H, V,
-                                               offset, last):
+                                               offset, kind):
     """m, lse and the loss per row within atol 1e-4 / rtol 1e-5 (both are
     fp32 sums of the same products, in other orders); dh row by row and
     dW column by column under FCE_STEP."""
-    h, w, labels, gr = fce_inputs(N, H, V, offset, last, dtype,
+    h, w, labels, gr = fce_inputs(N, H, V, offset, kind, dtype,
                                   cuda_device)
     before = (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
               fce.fused_ce_bwd_dw.launches)
@@ -391,7 +401,7 @@ def test_fused_ce_kernels_match_plain_versions(cuda_device, dtype, N, H, V,
 def test_fused_ce_autograd_on_card_matches_cpu_plain_path(cuda_device):
     """The same fp32 inputs through fused_linear_cross_entropy's autograd on
     the card (K5, K6, K7) and on the CPU (the plain versions)."""
-    h, w, labels, gr = fce_inputs(70, 96, 1500, 0, False, torch.float32,
+    h, w, labels, gr = fce_inputs(70, 96, 1500, 0, "any", torch.float32,
                                   "cpu")
     outs = []
     for dev in (cuda_device, torch.device("cpu")):
@@ -405,7 +415,7 @@ def test_fused_ce_autograd_on_card_matches_cpu_plain_path(cuda_device):
 
 @pytest.mark.cuda
 def test_fused_ce_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
-    h, w, labels, gr = fce_inputs(8, 16, 40, 0, False, torch.float32,
+    h, w, labels, gr = fce_inputs(8, 16, 40, 0, "any", torch.float32,
                                   cuda_device)
     before = (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
               fce.fused_ce_bwd_dw.launches)
@@ -429,3 +439,72 @@ def test_fused_ce_wrappers_raise_on_inputs_they_cannot_take(cuda_device):
         fce.fused_ce_bwd_dw(h, w, labels, gr, gr.cpu())
     assert (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
             fce.fused_ce_bwd_dw.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_fwd_launcher_refuses_a_split_count_it_did_not_derive(
+        cuda_device, dtype):
+    """K5's launcher derives the split count (fwd_splits) and refuses any
+    other than the one pt_fused_ce_fwd_splits gave the wrapper with
+    cudaErrorInvalidValue (1), so part [3, splits, N] is never written
+    past its end."""
+    from paddle_tpu_torch.ops.kernels._build import library
+    h, w, labels, _ = fce_inputs(300, 256, 4096, 0, "any", dtype,
+                                 cuda_device)
+    N, H = h.shape
+    V = w.shape[1]
+    splits = fce._fwd_splits(h, w)
+    lab = labels.to(torch.int32)
+    out = torch.zeros(3, N, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (splits - 1, splits + 1):
+        part = torch.zeros(3, n, N, device=cuda_device)
+        rc = library().pt_fused_ce_fwd(
+            h.data_ptr(), w.data_ptr(), lab.data_ptr(), 0, part.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), N, H, V,
+            n, fa._DTYPE_CODE[dtype], stream)
+        torch.cuda.synchronize()
+        assert rc == 1 and not part.any() and not out.any()
+
+
+# (N, V, Hopper kernel, splits) on a 132-SM H100: the plans that
+# tests/test_torch_fused_ce.py's SPLIT_CASES model on the CPU, and the
+# training head (32 row blocks x 4 splits = 128 CTAs).
+FWD_PLANS_132 = [(24, 200, True, 1), (24, 1000, True, 4),
+                 (4352, 2056, True, 3), (40, 2056, True, 9),
+                 (16900, 600, True, 1), (13, 777, False, 7),
+                 (4096, 32000, True, 4), (4096, 32000, False, 17)]
+
+
+@pytest.mark.cuda
+def test_fused_ce_fwd_splits_fill_one_wave_without_empty_splits(cuda_device):
+    """pt_fused_ce_fwd_splits, which sizes the wrapper's part scratch: every
+    split holds a tile; the Hopper kernel's 128-row blocks x splits fit in
+    one wave of the card's SMs; on a 132-SM card, FWD_PLANS_132. The
+    Hopper kernel takes bf16/fp16 with H, V multiples of 8 and 16-byte
+    aligned bases (the bases are only read for their alignment here)."""
+    from paddle_tpu_torch.ops.kernels._build import library
+    lib = library()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    bf16, fp32 = fa._DTYPE_CODE[torch.bfloat16], fa._DTYPE_CODE[torch.float32]
+
+    def plan(n, v, hopper, base=256, code=bf16):
+        with torch.cuda.device(cuda_device):
+            return lib.pt_fused_ce_fwd_splits(base, base, n, 64, v,
+                                              code if hopper else fp32)
+
+    for n in (1, 128, 4097, 16384, 40000):
+        for v in (8, 200, 2056, 32000, 128256):
+            for hopper in (True, False):
+                splits = plan(n, v, hopper)
+                nvt = -(-v // (256 if hopper else 128))
+                per = -(-nvt // splits)
+                assert 1 <= splits <= nvt and (splits - 1) * per < nvt
+                if hopper and splits > 1:
+                    assert -(-n // 128) * splits <= sms
+            # a base off 16 bytes takes the mma.sync kernel's plan
+            assert plan(n, v, True, base=258) == plan(n, v, False)
+    if sms == 132:
+        assert [plan(n, v, hop) for n, v, hop, _ in FWD_PLANS_132] == \
+            [s for *_, s in FWD_PLANS_132]

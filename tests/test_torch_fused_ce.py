@@ -94,6 +94,87 @@ def test_grads_for_a_per_row_cotangent_match_pallas(n, hd, v):
     assert not th.grad[1].any()
 
 
+def _split_vocab(h, w, labels, vocab_offset, tile, splits):
+    """K5's split-vocab algebra in plain torch (fp32): vocab tiles of
+    `tile` columns, W zero-filled past V as TMA fills it; split k takes
+    tiles [k t, (k + 1) t) with t = ceil(tiles / splits) and folds them into
+    an online (m, l, z) per row, columns at or past V at -1e30 for the max
+    and left out of the sum, z the logit at the local label when it lies in
+    the tile and below V; then the splits merged per row as
+    fce_merge_kernel does: M = max m_k, L = sum l_k exp(m_k - M), z = sum
+    z_k."""
+    N, H = h.shape
+    V = w.shape[1]
+    nvt = -(-V // tile)
+    per = -(-nvt // splits)
+    lab = labels.long() - vocab_offset
+    parts = []
+    for k in range(splits):
+        m, l, z = torch.full((N,), -1e30), torch.zeros(N), torch.zeros(N)
+        for vt in range(k * per, min((k + 1) * per, nvt)):
+            v0 = vt * tile
+            wt = torch.zeros(H, tile)
+            wt[:, :min(tile, V - v0)] = w[:, v0:v0 + tile]
+            col = v0 + torch.arange(tile)
+            real = col < V
+            s = torch.where(real, h @ wt, torch.tensor(-1e30))
+            hit = (col[None] == lab[:, None]) & real
+            z = z + torch.where(hit, s, torch.zeros(())).sum(1)
+            mn = torch.maximum(m, s.amax(1))
+            p = torch.where(real, torch.exp(s - mn[:, None]), torch.zeros(()))
+            l = l * torch.exp(m - mn) + p.sum(1)
+            m = mn
+        parts.append((m, l, z))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = sum(l * torch.exp(m - M) for m, l, _ in parts)
+    return M, L, sum(z for _, _, z in parts)
+
+
+# (N, H, V, vocab_offset, kind, tile, splits): the launch plan that
+# fused_ce.cu's fwd_splits makes for the shape on a 132-SM H100 (held
+# against the library on the card by test_torch_cuda.py's
+# test_fused_ce_fwd_splits_fill_one_wave_without_empty_splits). The Hopper
+# kernel's 256-wide tiles with one split (one tile; three tiles when 133
+# row blocks fill the wave), one tile a split, and three tiles a split (34
+# row blocks leave room for 3 splits in a wave); the mma.sync kernel's
+# 128-wide tiles; V not a multiple of the tile with labels in the last,
+# partial tile ("last"); a vocab offset; every logit negative ("neg"), so
+# a padded column taken as s = 0 would win the max.
+SPLIT_CASES = [
+    (24, 64, 200, 0, "any", 256, 1),
+    (24, 64, 1000, 0, "last", 256, 4),
+    (24, 64, 1000, 600, "any", 256, 4),
+    (4352, 32, 2056, 0, "last", 256, 3),
+    (40, 64, 2056, 0, "neg", 256, 9),
+    (4352, 32, 2056, 0, "neg", 256, 3),
+    (16900, 16, 600, 0, "last", 256, 1),
+    (13, 50, 777, 0, "last", 128, 7),
+]
+
+
+@pytest.mark.parametrize("n,hd,v,offset,kind,tile,splits", SPLIT_CASES)
+def test_split_vocab_partials_match_jax_interpret_kernel(n, hd, v, offset,
+                                                         kind, tile, splits):
+    h, w, lab = _data(n, hd, v, seed=7)
+    if kind == "neg":
+        h, w = np.abs(h), -np.abs(w)
+    if kind == "last":           # labels in the last, partial tile
+        lab = v - 1 - lab % (v - (v - 1) // tile * tile)
+    if offset:                   # global ids; a third outside the shard
+        lab = np.random.RandomState(8).randint(0, v + offset + v // 2, (n,))
+    want = jax_partials(jnp.asarray(h), jnp.asarray(w),
+                        jnp.asarray(lab, jnp.int32), vocab_offset=offset)
+    got = _split_vocab(torch.from_numpy(h), torch.from_numpy(w),
+                       torch.from_numpy(lab), offset, tile, splits)
+    for name, g, wv in zip("mlz", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wv), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    if kind == "neg":
+        assert v % tile and (got[0] < 0).all()
+    if kind == "last":
+        assert v % tile and (lab >= v // tile * tile).all()
+
+
 def test_backward_goes_through_the_dh_and_dw_wrappers(monkeypatch):
     """The autograd.Function calls the dh and dW wrappers once each per
     backward, and only the one whose input needs a grad."""
