@@ -11,12 +11,17 @@ fails:
 1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
 2. build: every kernel of the serving and training paths (K1 decode
    attention, K2-K4 flash attention forward, dQ and dK/dV, K5-K7 fused
-   linear + cross-entropy forward, dh and dW), from
+   linear + cross-entropy forward, dh and dW, U1 and U2 the multi-tensor
+   sum of squares with finite flag and Adam/AdamW update), from
    ``paddle_tpu_torch/csrc``, one nvcc per source for sm_90a, all started
    together (the build time is printed);
 3. each kernel against its plain PyTorch version on the card, at the
    listed shapes and dtypes, with the tolerance stated per dtype and
-   tensor;
+   tensor; U1 and U2 over size classes (one element, an empty tensor,
+   odd sizes, a misaligned view, the 8-layer model's 75 shapes at 1/64)
+   in fp32, bf16 and fp16, with and without the loss and clip scales (U2
+   bit for bit), a finite flag of 0 that must leave every byte, and one
+   CUDA-graph capture of U1 + U2 replayed against the eager launches;
 4. a reference check at a small size in fp32: the engine's tokens equal
    ``generate()`` with and without the KV cache (the cache-free path runs
    K2, flash attention, once per layer and new token: its launches are
@@ -47,24 +52,36 @@ fails:
    2 warm-up and 10 timed steps on one seeded batch each; every loss
    finite, the last below the first, and per step exactly 2 x layers K2
    launches (forward and the remat recompute) and layers K3 and K4
-   launches, and with the fused loss one K5, K6 and K7 launch; then one
+   launches, with the fused loss one K5, K6 and K7 launch, and one U2
+   launch (the update; no clip, as bench.py trains, so no U1); then one
    step of each traced with ``torch.profiler``;
-9. K2, K3 and K4 timed at the training shape (B=2, S=2048, H=32, D=128,
+9. ``compile_train_step`` at llama_7b width cut to 2 layers, fp32, with
+   a GradScaler (2**15, growth every 2 steps) and a global-norm clip: 3
+   steps, one whose loss a batch field multiplies by inf, 2 more; the bad
+   step skipped with every parameter and moment unchanged (checksums),
+   the scale halved there and doubled after 2 good steps, the loss finite
+   and falling, U1 and U2 launched once a step;
+10. K2, K3 and K4 timed at the training shape (B=2, S=2048, H=32, D=128,
    bf16, causal) from CUDA-graph replays, beside their plain versions,
    ``F.scaled_dot_product_attention(is_causal=True)`` forward and its
    autograd backward (one time for K3 and K4 together) as the library
    yardstick, and the least time the card could take (``bound_ms``);
-10. K5, K6 and K7 held against their plain versions and timed the same way
+11. K5, K6 and K7 held against their plain versions and timed the same way
    at the training head's shape (N = B x S = 4096, H = 4096, V = 32000,
    bf16), beside the unfused head as the yardstick: no single PyTorch call
    computes linear + cross-entropy, so it is ``F.cross_entropy(
    torch.matmul(h, w).float(), labels, reduction="none")`` forward and its
    autograd backward (one time for K6 and K7 together); and beside
    ``torch.matmul(h, w)`` alone (``gemm_ms``), the product all three
-   contain.
+   contain;
+12. U1 and U2 over the 8-layer training model's 75 fp32 tensors (1.881e9
+   elements), held against their plain versions, then timed the same way
+   beside ``torch._foreach_norm`` and ``torch.optim.AdamW(fused=True)``
+   (same math, other rounding) and their byte bounds.
 
 The last lines are ``{"decode_profile": ...}``, ``{"training": ...}``,
-``{"training_fused": ...}``, ``{"kernels": [...]}`` (all seven kernels),
+``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"kernels":
+[...]}`` (K1-K7, U1 and U2),
 ``{"serving": ...}``, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. The run uses one card: it shows torch
 only the first of ``CUDA_VISIBLE_DEVICES`` (default 0). ``--out`` also writes every
@@ -672,9 +689,10 @@ def train_flops(n_params, layers, batch, seq, hidden):
 
 
 def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
-                fa, fce, fused):
+                fa, fce, mt, fused):
     """The training main path at llama_7b width, cut to TRAIN_LAYERS, with
-    the fused loss (K5-K7) on or off."""
+    the fused loss (K5-K7) on or off; the update is one U2 launch a step
+    (no clip, as bench.py trains: no U1)."""
     from torch.profiler import ProfilerActivity, profile
     base = LlamaConfig.llama_7b()
     cfg = LlamaConfig(vocab_size=base.vocab_size,
@@ -704,7 +722,8 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
     torch.cuda.reset_peak_memory_stats()
     kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv, fce.fused_ce_fwd,
-               fce.fused_ce_bwd_dh, fce.fused_ce_bwd_dw)
+               fce.fused_ce_bwd_dh, fce.fused_ce_bwd_dw,
+               mt.multi_tensor_sumsq_finite, mt.multi_tensor_adam)
     for kern in kernels:
         kern.launches = 0     # the main path's run starts here
     step_ms = []
@@ -717,10 +736,12 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
     launches = [kern.launches for kern in kernels]
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = [TRAIN_STEPS * 2 * TRAIN_LAYERS, TRAIN_STEPS * TRAIN_LAYERS,
-            TRAIN_STEPS * TRAIN_LAYERS] + [TRAIN_STEPS * int(fused)] * 3
+            TRAIN_STEPS * TRAIN_LAYERS] + [TRAIN_STEPS * int(fused)] * 3 \
+        + [0, TRAIN_STEPS]
     check(launches == want,
-          f"kernels launched {launches} times (K2, K3, K4, K5, K6, K7) in "
-          f"{TRAIN_STEPS} train steps with fused_loss={fused}, want {want}")
+          f"kernels launched {launches} times (K2, K3, K4, K5, K6, K7, U1, "
+          f"U2) in {TRAIN_STEPS} train steps with fused_loss={fused}, want "
+          f"{want}")
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0],
           f"training loss did not fall: {losses[0]} -> {losses[-1]}")
@@ -759,7 +780,8 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
         "flops_per_step": flops, "peak_mem_gib": peak,
         "launches_per_step": dict(zip(
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_ce_fwd",
-             "fused_ce_bwd_dh", "fused_ce_bwd_dw"),
+             "fused_ce_bwd_dh", "fused_ce_bwd_dw", "multi_tensor_sumsq",
+             "multi_tensor_adam"),
             (n // TRAIN_STEPS for n in launches))),
         "traced_device_ms": device_ms if rows else None,
         "busy_share": device_ms / p50 if rows else None,
@@ -771,6 +793,7 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
             "fused_ce_fwd": share("fce_fwd", "fce_merge"),
             "fused_ce_bwd_dh": share("fce_bwd_dh"),
             "fused_ce_bwd_dw": share("fce_bwd_dw"),
+            "multi_tensor_adam": share("adam_kernel"),
             "gemm": share("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet"),
         } if rows else None,
         "top_kernels": [{"name": r[0][:90], "ms": r[1], "calls": r[2]}
@@ -778,7 +801,7 @@ def phase_train(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
     }
     log(f"trained {TRAIN_WARMUP}+{TRAIN_STEPS} steps, fused_loss={fused}: "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, step p50 {p50:.1f} ms, "
-        f"launches {launches} (= steps x [2L, L, L, f, f, f], f = "
+        f"launches {launches} (= steps x [2L, L, L, f, f, f, 0, 1], f = "
         f"{int(fused)})")
     return model, opt, step, training
 
@@ -1019,6 +1042,341 @@ def phase_fce_timing(torch, fce, N, H, V):
     return res
 
 
+# U1 and U2 size classes (tests/test_torch_cuda.py's MT_SIZES): one
+# element; an empty tensor beside one element; odd sizes 1-1031 (no multiple
+# of a 16-byte vector); a view 2 or 4 bytes past a 16-byte boundary; the
+# 8-layer training model's 75 shapes at 1/64 of each dim.
+def model_shapes(layers, hidden=4096, inter=11008, vocab=32000, div=1):
+    """LlamaForCausalLM's parameter shapes at llama_7b width (each dim
+    divided by div), in named_parameters order: 2 + 9 x layers + 1."""
+    h, i, v = hidden // div, inter // div, vocab // div
+    layer = [(h,), (h, h), (h, h), (h, h), (h, h), (h,), (h, i), (h, i),
+             (i, h)]
+    return [(v, h)] + layer * layers + [(h,), (h, v)]
+
+
+MT_SIZES = {
+    "one": [(1,)],
+    "empty": [(0,), (1,), (0,)],
+    "odd": [(n,) for n in (1, 3, 7, 15, 17, 31, 33, 127, 129, 255, 257,
+                           1023, 1031)],
+    "misaligned": "misaligned",
+    "model_div64": model_shapes(TRAIN_LAYERS, div=64),
+}
+# U1's per-tensor fp32 sums against float64 sums: each CTA adds up to 2**16
+# squares in 4-8 running sums a thread, then in fixed trees, so the relative
+# error stays far below 1e-5 for sums of non-negative terms. U2 is held bit
+# for bit: every op is an IEEE-rounded intrinsic, rounded to the dtype as
+# the plain version's PyTorch ops round it.
+U1_RTOL = 1e-5
+ADAM_KW = dict(lr=0.01, beta1=0.8, beta2=0.95, epsilon=1e-8,
+               weight_decay=0.05)
+
+
+def mt_lists(torch, sizes, dtype, seed, grad_scale=1.0):
+    """(params, grads, exp_avgs, exp_avg_sqs) on the card for a size class."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    if sizes == "misaligned":          # 2 or 4 bytes off the boundary
+        out = []
+        for scale in (1.0, grad_scale, 0.1, -0.1):
+            base = scale * torch.randn(1032, generator=g, device=DEVICE)
+            out.append([(base.abs() if scale < 0 else base).to(dtype)[1:]])
+        check(all(t[0].data_ptr() % 16 for t in out),
+              "the misaligned case is aligned")
+        return out
+
+    def make(scale):
+        return [(scale * torch.randn(s, generator=g, device=DEVICE)).to(dtype)
+                for s in sizes]
+    ps, gs, ms, vs = make(1.0), make(grad_scale), make(0.1), make(0.1)
+    return ps, gs, ms, [v.abs() for v in vs]
+
+
+def u1_check(torch, mt, gs, inv, label):
+    """U1 against float64 sums and its total against the list-order fp32
+    sum of its own per-tensor sums (bit for bit). Returns (max abs error,
+    max relative error) of the per-tensor sums."""
+    sumsq, total, finite = mt.multi_tensor_sumsq_finite(gs, inv)
+    torch.cuda.synchronize()
+    abs_err = rel_err = 0.0
+    acc = torch.zeros((), device=DEVICE)
+    for x, gr in zip(sumsq, gs):
+        want = (gr * inv.to(gr.dtype) if inv is not None else gr).double() \
+            .square().sum()
+        err = float((x.double() - want).abs())
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / max(float(want), 1e-300))
+        acc = acc + x
+    check(rel_err <= U1_RTOL, f"U1 sums disagree with float64 in case "
+                              f"{label}: rel err {rel_err}")
+    check(torch.equal(total, acc), f"U1 total is not the list-order sum of "
+                                   f"its per-tensor sums in case {label}")
+    check(int(finite) == 1, f"U1 found a non-finite grad in case {label}")
+    return abs_err, rel_err
+
+
+def u2_check(torch, mt, ps, gs, ms, vs, inv, clip, label, steps=(1, 2, 3)):
+    """U2 against its plain version on clones, Adam and AdamW, bit for bit.
+    Returns the largest abs difference (0.0 when equal)."""
+    err = 0.0
+    for decoupled in (False, True):
+        ref = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+        for step in steps:
+            mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=decoupled,
+                                 step=step, inv_scale=inv, clip_scale=clip,
+                                 **ADAM_KW)
+            mt.multi_tensor_adam_ref(ref[0], gs, ref[1], ref[2],
+                                     decoupled=decoupled, step=step,
+                                     inv_scale=inv, clip_scale=clip,
+                                     **ADAM_KW)
+        torch.cuda.synchronize()
+        for got, want in zip(ps + ms + vs, ref[0] + ref[1] + ref[2]):
+            if got.numel():
+                err = max(err, float((got.float() - want.float()).abs()
+                                     .max()))
+            check(torch.equal(got, want), f"U2 disagrees with its plain "
+                  f"version in case {label}, decoupled={decoupled}")
+        del ref
+    return err
+
+
+def phase_multi_tensor_cases(torch, mt, clip_cls):
+    """U1 and U2 against their plain versions on the card: every size
+    class in fp32, bf16 and fp16, with and without inv_scale and
+    clip_scale; then a finite flag of 0 (a nan, +inf or -inf in any grad)
+    leaves every byte of p, m and v; then U1 + U2 captured in one CUDA
+    graph: a replay gives the eager launches' bits."""
+    out = {}
+    for sizes, shapes in MT_SIZES.items():
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            for scaled in (False, True):
+                label = f"{sizes}_{str(dt).replace('torch.', '')}" \
+                    + ("_scaled" if scaled else "")
+                ps, gs, ms, vs = mt_lists(torch, shapes, dt, 5,
+                                          8.0 if scaled else 1.0)
+                inv = torch.tensor(0.125, device=DEVICE) if scaled else None
+                clip = torch.tensor(0.43, device=DEVICE) if scaled else None
+                abs_err, rel_err = u1_check(torch, mt, gs, inv, label)
+                err = u2_check(torch, mt, ps, gs, ms, vs, inv, clip, label)
+                out[label] = {"u1_rel_err": rel_err, "u2_max_abs_err": err}
+    log(f"multi-tensor kernels-vs-plain: {len(out)} cases (size classes "
+        f"{', '.join(MT_SIZES)} x fp32/bf16/fp16 x scaled or not): U2 bit "
+        f"for bit, U1 worst rel err "
+        f"{max(v['u1_rel_err'] for v in out.values()):.3g} (rtol {U1_RTOL})")
+
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        ps, gs, ms, vs = mt_lists(torch, MT_SIZES["model_div64"], dt, 6)
+        before = [t.clone() for t in ps + ms + vs]
+        for i, bad in ((0, float("nan")), (len(gs) // 2, float("inf")),
+                       (len(gs) - 1, float("-inf"))):
+            poisoned = [x.clone() for x in gs]
+            poisoned[i].view(-1)[7] = bad
+            _, total, finite = mt.multi_tensor_sumsq_finite(
+                poisoned, torch.tensor(0.5, device=DEVICE))
+            check(int(finite) == 0, f"U1 missed a {bad} in grad {i}, {dt}")
+            mt.multi_tensor_adam(ps, poisoned, ms, vs, decoupled=True,
+                                 step=1, clip_scale=torch.sqrt(total),
+                                 finite=finite, **ADAM_KW)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                  for a, b in zip(before, ps + ms + vs)),
+              f"U2 wrote under a finite flag of 0 ({dt})")
+    log("multi-tensor finite flag: a nan, +inf or -inf in any of 75 grads "
+        "found by U1; U2 under the flag left every byte of p, m, v (fp32, "
+        "bf16, fp16)")
+
+    clip = clip_cls(1.0)
+    inv = torch.tensor(2.0 ** -4, device=DEVICE)
+
+    def step(ps, gs, ms, vs):
+        _, total, finite = mt.multi_tensor_sumsq_finite(gs, inv)
+        mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=True, step=3,
+                             inv_scale=inv,
+                             clip_scale=clip.scale_from_sumsq(total),
+                             finite=finite, **ADAM_KW)
+
+    eager = mt_lists(torch, MT_SIZES["model_div64"], torch.float32, 7, 16.0)
+    graphed = [[t.clone() for t in ts] for ts in eager]
+    warm = [[t.clone() for t in ts] for ts in eager]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(*warm)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(*graphed)
+    for ts, es in zip(graphed, eager):
+        for t, e in zip(ts, es):
+            t.copy_(e)
+    graph.replay()
+    step(*eager)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(sum(graphed, []),
+                                                 sum(eager, []))),
+          "U1 + U2 replayed from a CUDA graph differ from the eager launches")
+    del graph
+    log("multi-tensor CUDA graph: U1 + clip scale + U2 captured once, the "
+        "replay bit for bit the eager launches")
+    return out
+
+
+# compile_train_step at llama_7b width cut to 2 layers (fp32 masters,
+# grads, moments and fp32 compute for 6.7e8 params fit beside nothing else;
+# 2 layers keep the phase to seconds).
+TRAINSTEP_LAYERS, TRAINSTEP_BATCH, TRAINSTEP_SEQ = 2, 2, 1024
+
+
+def phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM, mt,
+                    compile_train_step, GradScaler, ClipGradByGlobalNorm,
+                    AdamW):
+    """The general train step's path: compile_train_step, fp32, with a
+    GradScaler (2**15, growth every 2 good steps) and a global-norm clip;
+    3 steps, one whose loss is multiplied by inf through a batch field,
+    then 2 more. The bad step is skipped (params and moments bit for bit,
+    by checksum), the scale halves there and doubles after 2 good steps,
+    the loss stays finite and falls; U1 and U2 launch once a step."""
+    base = LlamaConfig.llama_7b()
+    cfg = LlamaConfig(vocab_size=base.vocab_size,
+                      hidden_size=base.hidden_size,
+                      intermediate_size=base.intermediate_size,
+                      num_hidden_layers=TRAINSTEP_LAYERS,
+                      num_attention_heads=base.num_attention_heads,
+                      max_position_embeddings=TRAINSTEP_SEQ)
+    model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.float32,
+                             seed=args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2)
+
+    def loss_fn(m, b):
+        return m.compute_loss(b["input_ids"], b["labels"]) * b["loss_mul"]
+
+    step = compile_train_step(model, loss_fn, opt, scaler=scaler)
+    rng = np.random.RandomState(args.seed + 2)
+    ids = rng.randint(0, cfg.vocab_size, (TRAINSTEP_BATCH, TRAINSTEP_SEQ + 1))
+    good = {"input_ids": torch.from_numpy(ids[:, :-1]).to(DEVICE),
+            "labels": torch.from_numpy(ids[:, 1:]).to(DEVICE),
+            "loss_mul": torch.ones((), device=DEVICE)}
+    bad = dict(good, loss_mul=torch.full((), float("inf"), device=DEVICE))
+
+    def checksum():
+        ts = [p.detach() for p in model.parameters()] + [
+            t for st in step._opt_state for t in st.values()]
+        return torch.stack([t.view(torch.int32).sum(dtype=torch.int64)
+                            for t in ts]).tolist()
+
+    log(f"trainstep model: {TRAINSTEP_LAYERS} of llama_7b's 32 layers at "
+        f"its width (depth cut to fit beside nothing and run in seconds), "
+        f"{n_params / 1e9:.3f}B fp32 params, batch {TRAINSTEP_BATCH} x seq "
+        f"{TRAINSTEP_SEQ}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mt.multi_tensor_sumsq_finite.launches = 0   # this path's run starts here
+    mt.multi_tensor_adam.launches = 0
+    losses, scales, step_ms = [], [], []
+    for i, b in enumerate([good] * 3 + [bad] + [good] * 2):
+        if i == 3:
+            before = checksum()
+        t0 = time.perf_counter()
+        loss = float(step(b))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        scales.append(step.loss_scale)
+        if i == 3:
+            after = checksum()
+    launches = [mt.multi_tensor_sumsq_finite.launches,
+                mt.multi_tensor_adam.launches]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    good_losses = losses[:3] + losses[4:]
+    check(launches == [6, 6], f"U1/U2 launched {launches} times in 6 "
+                              f"TrainStep steps, want [6, 6]")
+    check(step.skipped_steps == 1, f"{step.skipped_steps} skipped steps, "
+                                   f"want 1")
+    check(before == after, "a parameter or moment changed across the "
+                           "skipped step")
+    check(not np.isfinite(losses[3]), f"the bad step's loss {losses[3]}")
+    check(all(np.isfinite(good_losses)) and good_losses[-1] < good_losses[0],
+          f"TrainStep losses not finite and falling: {losses}")
+    check(scales[3] == scales[2] / 2 and scales[5] == 2 * scales[4]
+          and scales == [2.0 ** 15, 2.0 ** 16, 2.0 ** 16, 2.0 ** 15,
+                         2.0 ** 15, 2.0 ** 16],
+          f"loss scales {scales}: want halved on the bad step, doubled "
+          f"after 2 good steps")
+    scaler_after = step.sync_scaler()._scale
+    res = {"layers": TRAINSTEP_LAYERS, "hidden": cfg.hidden_size,
+           "params": n_params, "batch": TRAINSTEP_BATCH,
+           "seq": TRAINSTEP_SEQ, "losses": losses, "loss_scales": scales,
+           "scaler_scale_after_sync": scaler_after,
+           "skipped_steps": step.skipped_steps,
+           "params_and_moments_unchanged_across_skip": before == after,
+           "launches": {"multi_tensor_sumsq": launches[0],
+                        "multi_tensor_adam": launches[1]},
+           "step_ms": step_ms, "peak_mem_gib": peak}
+    log(f"trainstep: 6 steps, losses {[round(x, 4) for x in losses]}, "
+        f"scales {scales}, skipped {step.skipped_steps}, U1/U2 launches "
+        f"{launches}")
+    del model, opt, step
+    return res
+
+
+def phase_multi_tensor_timing(torch, mt, shapes):
+    """U1 and U2 over the 8-layer training model's fp32 tensors (its 75
+    shapes, 1.881e9 elements): each held against its plain version there
+    (U1's sums against float64, U2 bit for bit on clones), then timed from
+    CUDA-graph replays beside its plain version, one PyTorch call with the
+    same math and other rounding (U1: ``torch._foreach_norm``; U2:
+    ``torch.optim.AdamW(fused=True, capturable=True).step()``) and the
+    least time the card could take."""
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def make(scale):
+        return [scale * torch.randn(s, generator=g, device=DEVICE)
+                for s in shapes]
+    ps, gs, ms, vs = make(0.02), make(1e-3), make(1e-4), make(1e-3)
+    for v in vs:
+        v.square_()
+    n = sum(p.numel() for p in ps)
+    u1_abs, u1_rel = u1_check(torch, mt, gs, None, "training_model_fp32")
+    u2_err = u2_check(torch, mt, ps, gs, ms, vs, None, None,
+                      "training_model_fp32", steps=(5,))
+    log(f"multi-tensor kernels at the training model's {len(shapes)} fp32 "
+        f"tensors ({n / 1e9:.3f}e9 elements): U1 rel err {u1_rel:.3g}, U2 "
+        f"bit for bit")
+    adam = dict(decoupled=True, step=5, lr=1e-4, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, weight_decay=0.01)
+    res = {"u1": {"ms": cuda_ms(mt.multi_tensor_sumsq_finite, [(gs,)]),
+                  "plain_ms": cuda_ms(mt.multi_tensor_sumsq_finite_ref,
+                                      [(gs,)]),
+                  "library_ms": cuda_ms(torch._foreach_norm, [(gs,)]),
+                  "max_abs_err": u1_abs, "max_rel_err": u1_rel},
+           "u2": {"ms": cuda_ms(lambda: mt.multi_tensor_adam(
+                      ps, gs, ms, vs, **adam), [()]),
+                  "plain_ms": cuda_ms(lambda: mt.multi_tensor_adam_ref(
+                      ps, gs, ms, vs, **adam), [()]),
+                  "max_abs_err": u2_err}}
+    for p, gr in zip(ps, gs):
+        p.grad = gr
+    lib = torch.optim.AdamW(ps, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.01, fused=True, capturable=True)
+    res["u2"]["library_ms"] = cuda_ms(lib.step, [()])
+    del lib
+    for p in ps:
+        p.grad = None
+    esize = 4
+    flops = {"u1": 2.0 * n, "u2": 16.0 * n}
+    nbytes = {"u1": n * esize + 4 * len(shapes) + 8,
+              "u2": 7 * n * esize}
+    for k in ("u1", "u2"):
+        t_bytes = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        t_ops = flops[k] / PEAK_FLOPS["float32"] * 1e3
+        res[k].update(bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      elements=n, tensors=len(shapes))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1038,10 +1396,14 @@ def main(argv=None) -> int:
                                                build_hybrid_train_step)
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.ops.kernels import fused_ce as fce
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
     from paddle_tpu_torch.ops.kernels.decode_attention import (
         ragged_decode_attention as attn, ragged_decode_attention_ref)
     from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import compile_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1059,6 +1421,7 @@ def main(argv=None) -> int:
     case_errs = phase_kernel_cases(torch, attn, ragged_decode_attention_ref)
     flash_cases = phase_flash_cases(torch, fa)
     fce_cases = phase_fce_cases(torch, fce)
+    mt_cases = phase_multi_tensor_cases(torch, mt, ClipGradByGlobalNorm)
     phase_small_reference(torch, LlamaConfig, LlamaForCausalLM,
                           ServingEngine, fa)
     model, eng, reqs, specs, serving = phase_serve(
@@ -1085,12 +1448,18 @@ def main(argv=None) -> int:
     for fused in (False, True):
         tmodel, opt, step, trained[fused] = phase_train(
             torch, args, LlamaConfig, LlamaForCausalLM,
-            build_hybrid_train_step, AdamW, fa, fce, fused)
+            build_hybrid_train_step, AdamW, fa, fce, mt, fused)
         vocab = tmodel.config.vocab_size
+        shapes = [tuple(p.shape) for p in tmodel.parameters()]
         del tmodel, opt, step
         gc.collect()
         torch.cuda.empty_cache()
     training, training_fused = trained[False], trained[True]
+    trainstep = phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM,
+                                mt, compile_train_step, GradScaler,
+                                ClipGradByGlobalNorm, AdamW)
+    gc.collect()
+    torch.cuda.empty_cache()
     flash = phase_flash_timing(torch, fa, heads, head_dim)
     log(f"flash kernels at B={TRAIN_BATCH} S={TRAIN_SEQ} H={heads} "
         f"D={head_dim} bf16 causal: " + json.dumps(flash))
@@ -1098,6 +1467,9 @@ def main(argv=None) -> int:
     fused_ce = phase_fce_timing(torch, fce, head_n, heads * head_dim, vocab)
     log(f"fused CE kernels at N={head_n} H={heads * head_dim} V={vocab} "
         f"bf16: " + json.dumps(fused_ce))
+    multi = phase_multi_tensor_timing(torch, mt, shapes)
+    log("multi-tensor kernels at the training model's tensors: "
+        + json.dumps(multi))
 
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     pallas = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -1141,6 +1513,29 @@ def main(argv=None) -> int:
             "library": "unfused head: F.cross_entropy(matmul(h, w).float())"
                        + (" forward" if key == "fwd" else
                           " autograd backward, K6 + K7 together")})
+    # U1 and U2 replace no Pallas kernel: "replaces" names the XLA-fused
+    # code of the JAX package they stand for; launches are the TrainStep
+    # phase's run, the 8-layer training path's U2 launches beside them.
+    for name, key, where, lib_name in (
+            ("multi_tensor_sumsq_finite", "u1", "paddle_tpu/nn/clip.py:58",
+             "torch._foreach_norm(grads): same sums, other rounding, no "
+             "finite flag"),
+            ("multi_tensor_adam", "u2", "paddle_tpu/optimizer/optimizer.py:81",
+             "torch.optim.AdamW(fused=True).step(): same math, other "
+             "rounding")):
+        r = multi[key]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/multi_tensor.cu",
+            "replaces": where,
+            "launches": trainstep["launches"][name.replace("_finite", "")],
+            "train_launches": per_step[name.replace("_finite", "")]
+            * training["steps"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": lib_name, "elements": r["elements"],
+            "tensors": r["tensors"]})
     serving["teacher_forced_agreement"] = agree
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:
@@ -1148,6 +1543,8 @@ def main(argv=None) -> int:
                        "case_max_abs_err": case_errs,
                        "flash_cases": flash_cases,
                        "fused_ce_cases": fce_cases,
+                       "multi_tensor_cases": mt_cases,
+                       "multi_tensor_timing": multi, "trainstep": trainstep,
                        "fused_ce_timing": fused_ce,
                        "training_fused": training_fused,
                        "live_lengths": live_lengths.tolist(),
@@ -1158,6 +1555,7 @@ def main(argv=None) -> int:
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_fused": training_fused}))
+    log(json.dumps({"trainstep": trainstep}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))
     log(card)

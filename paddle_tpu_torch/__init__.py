@@ -8,9 +8,10 @@ CUDA device they raise. Every Pallas kernel on a ported path is a kernel
 written by hand for Hopper under ``csrc/``, built with nvcc at first use.
 
 Ported so far: serving LLaMA (``models.llama.LlamaForCausalLM``,
-``inference.serving.ServingEngine``) and training it on one device
-(``models.build_hybrid_train_step`` with ``optimizer.AdamW`` and
-``nn.clip.ClipGradByGlobalNorm``).
+``inference.serving.ServingEngine``) and training on one device: the
+LLaMA step ``models.build_hybrid_train_step`` and the general
+``parallel.compile_train_step``, with the optimizers, LR schedulers and
+LBFGS of ``optimizer``, the clips of ``nn.clip`` and ``amp.GradScaler``.
 """
 from .core.device import get_device, resolve_device, set_device  # noqa: F401
 from .core.generator import seed  # noqa: F401

@@ -446,10 +446,13 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     under amp), over the rows whose label is not -100.
     ``accumulate_steps > 1`` splits the batch into micro-steps and takes the
     mean loss and mean grads (:857-880). A ``ClipGradByGlobalNorm`` grad
-    clip is honoured, any other is not (:888-897). Then the optimizer's
-    rule updates every parameter, weight decay included on norms and
-    embeddings, with the step counted from 1 and the lr read by
-    ``get_lr()`` every step (:898-926).
+    clip is honoured, any other is not (:888-897): its norm is one pass
+    over every grad (kernel U1 on the card) and its scale stays on the
+    device. Then the optimizer's ``_multi_update`` updates every parameter
+    in place (for Adam and AdamW one kernel launch on the card, U2),
+    weight decay included on norms and embeddings, with the step counted
+    from 1 and the lr read by ``get_lr()`` every step, so an
+    ``LRScheduler`` works here (:898-926).
 
     The step trains the model's own parameters in place, so they are the
     fp32 masters and ``step.write_back()`` has nothing to copy (the JAX
@@ -538,14 +541,14 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         else:
             loss = loss_fn(ids, labels)
             loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
+        grads = [p.grad for p in params.values()]
         clip = getattr(optimizer, "_grad_clip", None)
-        if isinstance(clip, ClipGradByGlobalNorm):
-            scale = clip.scale([g.float() for g in grads.values()])
-            grads = {n: g * scale.to(g.dtype) for n, g in grads.items()}
-        for n, p in params.items():
-            state["opt"][n] = optimizer.apply_update(
-                p, grads[n], state["opt"][n], lr, state["step"])
+        scale = clip.scale(grads) \
+            if isinstance(clip, ClipGradByGlobalNorm) else None
+        optimizer._multi_update(list(params.values()), grads,
+                                list(state["opt"].values()), lr,
+                                state["step"], clip_scale=scale)
+        for p in params.values():
             p.grad = None
         return loss.detach()
 

@@ -5,7 +5,8 @@ attention,loss}.py``: ``rms_norm``, ``silu``, ``linear`` (weights in
 Paddle's ``[in, out]`` layout, ``y = x @ W``), ``embedding``;
 ``scaled_dot_product_attention`` (flash attention without a mask, the
 plain ``sdpa_ref`` with one), ``sdp_attention_ref`` and the Paddle
-``flash_attention`` shim; and ``cross_entropy`` with hard labels.
+``flash_attention`` shim; and ``cross_entropy`` (hard and soft labels,
+class weights, label smoothing, any class axis).
 """
 from __future__ import annotations
 
@@ -13,7 +14,6 @@ from typing import Optional
 
 import torch
 
-from ..core.errors import NotInThisSlice
 from ..ops.kernels.flash_attention import flash_attention as _flash
 
 __all__ = ["rms_norm", "silu", "linear", "embedding", "sdpa_ref",
@@ -121,32 +121,49 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
                   soft_label: bool = False, axis: int = -1,
                   use_softmax: bool = True, name=None,
                   label_smoothing: float = 0.0) -> torch.Tensor:
-    """Hard-label cross entropy over the last axis (loss.py:27-67):
-    ``log_softmax`` in the logits' dtype, rows whose label is
-    ``ignore_index`` contribute 0, and ``mean`` divides by
-    ``max(valid count, 1)``; ``sum`` and ``none`` as named. Weights, soft
-    labels, label smoothing, another axis and ``use_softmax=False`` are not
-    in this slice and raise."""
-    for off, knob in ((weight is not None, "weight="),
-                      (soft_label, "soft_label=True"),
-                      (axis not in (-1, input.dim() - 1), f"axis={axis}"),
-                      (not use_softmax, "use_softmax=False"),
-                      (label_smoothing != 0.0, "label_smoothing")):
-        if off:
-            raise NotInThisSlice("cross_entropy option", knob)
+    """Cross entropy over the class axis ``axis`` (loss.py:27-67):
+    ``log_softmax`` in the logits' dtype, or ``log(max(input, 1e-30))``
+    with ``use_softmax=False``.
+
+    - Hard labels (integer ids, with or without a size-1 class axis): rows
+      whose label is ``ignore_index`` contribute 0; ``label_smoothing``
+      mixes in the mean of -log p over the classes; ``weight`` (one per
+      class) multiplies each row's loss, and ``mean`` then divides by
+      ``max(sum of the valid rows' weights, 1e-12)``, else by ``max(valid
+      count, 1)``.
+    - ``soft_label=True``: ``-sum(label * log p)`` over the class axis, no
+      row ignored and no weight; ``mean`` over the rows.
+
+    ``sum`` and ``none`` as named."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none, got "
                          f"{reduction!r}")
-    logp = torch.log_softmax(input, dim=-1)
-    ids = label
-    if ids.dim() == logp.dim() and ids.shape[-1] == 1:
-        ids = ids.squeeze(-1)
-    ids = ids.to(torch.int64)
-    valid = ids != ignore_index
-    safe = torch.where(valid, ids, torch.zeros_like(ids))
-    loss = -torch.gather(logp, -1, safe.unsqueeze(-1)).squeeze(-1)
-    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    ax = axis % input.dim()
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=ax)
+    else:
+        logp = torch.log(torch.clamp_min(input, 1e-30))
+    if soft_label:
+        loss = -torch.sum(label * logp, dim=ax)
+        valid = torch.ones(loss.shape, dtype=torch.bool, device=loss.device)
+    else:
+        ids = label
+        if ids.dim() == logp.dim() and ids.shape[ax] == 1:
+            ids = ids.squeeze(ax)
+        ids = ids.to(torch.int64)
+        valid = ids != ignore_index
+        safe = torch.where(valid, ids, torch.zeros_like(ids))
+        loss = -torch.gather(logp, ax, safe.unsqueeze(ax)).squeeze(ax)
+        if label_smoothing > 0.0:
+            smooth = -torch.mean(logp, dim=ax)
+            loss = (1 - label_smoothing) * loss + label_smoothing * smooth
+        if weight is not None:
+            loss = loss * weight[safe]
+        loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":
+        if weight is not None and not soft_label:
+            ww = torch.where(valid, weight[safe], torch.zeros_like(loss))
+            return loss.sum() / ww.sum().clamp_min(1e-12)
         return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)
     if reduction == "sum":
         return loss.sum()

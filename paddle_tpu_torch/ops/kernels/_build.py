@@ -45,7 +45,8 @@ __all__ = ["library", "build", "LIB_PATH", "SOURCES", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 LIB_PATH = _PKG.parent / "build" / "paddle_tpu_torch" / "libpt_kernels.so"
-SOURCES = ("decode_attention.cu", "flash_attention.cu", "fused_ce.cu")
+SOURCES = ("decode_attention.cu", "flash_attention.cu", "fused_ce.cu",
+           "multi_tensor.cu")
 HEADERS = ("tma.cuh", "wgmma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -139,10 +140,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pt_fused_ce_bwd_dh.argtypes = [vp, vp, vp, ci] + [vp] * 3 \
         + [ci] * 4 + [vp]             # lse, g, out; N, H, V, dtype
     lib.pt_fused_ce_bwd_dw.argtypes = lib.pt_fused_ce_bwd_dh.argtypes
+    pv, pll = ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_longlong)
+    lib.pt_multi_tensor_sumsq_workspace.argtypes = [pll, ci]
+    lib.pt_multi_tensor_sumsq_workspace.restype = ctypes.c_longlong
+    # g, n, dtype, count, inv, sumsq, total, finite, first, work, bytes
+    lib.pt_multi_tensor_sumsq_finite.argtypes = [
+        pv, pll, ctypes.POINTER(ci), ci, vp, vp, vp, vp, ci, vp,
+        ctypes.c_longlong, vp]
+    # p, g, m, v, n, count, dtype, 9 scalars, decoupled, inv, clip, finite
+    lib.pt_multi_tensor_adam.argtypes = [pv] * 4 + [pll, ci, ci] \
+        + [ctypes.c_float] * 9 + [ci, vp, vp, vp, vp]
     for name in ("pt_flash_attention_fwd", "pt_flash_attention_bwd_dq",
                  "pt_flash_attention_bwd_dkv", "pt_fused_ce_fwd",
                  "pt_fused_ce_fwd_splits", "pt_fused_ce_bwd_dh",
-                 "pt_fused_ce_bwd_dw"):
+                 "pt_fused_ce_bwd_dw", "pt_multi_tensor_sumsq_finite",
+                 "pt_multi_tensor_adam"):
         getattr(lib, name).restype = ci
 
 

@@ -23,6 +23,7 @@ from paddle_tpu_torch.inference.serving import ServingEngine
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_ce as fce
+from paddle_tpu_torch.ops.kernels import multi_tensor as mt
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     ragged_decode_attention, ragged_decode_attention_ref)
 
@@ -508,3 +509,298 @@ def test_fused_ce_fwd_splits_fill_one_wave_without_empty_splits(cuda_device):
     if sms == 132:
         assert [plan(n, v, hop) for n, v, hop, _ in FWD_PLANS_132] == \
             [s for *_, s in FWD_PLANS_132]
+
+
+# ---------------------------------------------------------------------------
+# U1 and U2, the multi-tensor optimizer kernels
+# ---------------------------------------------------------------------------
+
+def model_shapes(layers=8, hidden=4096, inter=11008, vocab=32000, div=1):
+    """The parameter shapes of LlamaForCausalLM at llama_7b width (each
+    dim divided by div), in named_parameters order: 2 + 9 x layers + 1."""
+    h, i, v = hidden // div, inter // div, vocab // div
+    layer = [(h,), (h, h), (h, h), (h, h), (h, h), (h,), (h, i), (h, i),
+             (i, h)]
+    return [(v, h)] + layer * layers + [(h,), (h, v)]
+
+
+# Size classes: one element; an empty tensor beside one element; odd sizes
+# (no multiple of a 16-byte vector); a view 4 bytes past a 16-byte
+# boundary; the 8-layer training model's 75 shapes at 1/64 of each dim.
+MT_SIZES = {
+    "one": [(1,)],
+    "empty": [(0,), (1,), (0,)],
+    "odd": [(n,) for n in (1, 3, 7, 15, 17, 31, 33, 127, 129, 255, 257,
+                           1023, 1031)],
+    "misaligned": "misaligned",
+    "model_div64": model_shapes(div=64),
+}
+
+
+def _mt_tensors(shapes, dtype, device, seed=0, grad_scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if shapes == "misaligned":
+        def make(scale=1.0, positive=False):
+            base = scale * torch.randn(1032, generator=g, device=device)
+            if positive:
+                base = base.abs()
+            return base.to(dtype)[1:]      # 2 or 4 bytes off the boundary
+        out = [make(), make(grad_scale), make(0.1), make(0.1, True)]
+        assert all(t.data_ptr() % 16 for t in out)
+        return out
+
+    def make_list(scale, shapes=shapes):
+        return [(scale * torch.randn(s, generator=g, device=device))
+                .to(dtype) for s in shapes]
+    ps, gs, ms = make_list(1.0), make_list(grad_scale), make_list(0.1)
+    return ps, gs, ms, [t.abs() for t in make_list(0.1)]
+
+
+def _mt_lists(sizes, dtype, device, seed=0, grad_scale=1.0):
+    out = _mt_tensors(MT_SIZES[sizes], dtype, device, seed, grad_scale)
+    if sizes == "misaligned":
+        return tuple([t] for t in out)
+    return out
+
+
+ADAM_KW = dict(lr=0.01, beta1=0.8, beta2=0.95, epsilon=1e-8,
+               weight_decay=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sizes", sorted(MT_SIZES))
+def test_multi_tensor_kernels_match_plain_versions(cuda_device, sizes,
+                                                   dtype, scaled):
+    """U1's per-tensor sums against float64 sums at rtol 1e-5 (fp32 sums
+    of up to 2**16 squares a CTA in another order), its total the fp32 sum
+    of those in list order, bit for bit; U2 bit for bit the plain version
+    in every dtype (every op is rounded alike), three steps of Adam and of
+    AdamW, with an inverse scale and a clip scale or without."""
+    ps, gs, ms, vs = _mt_lists(sizes, dtype, cuda_device,
+                               grad_scale=8.0 if scaled else 1.0)
+    inv = torch.tensor(0.125, device=cuda_device) if scaled else None
+    clip = torch.tensor(0.43, device=cuda_device) if scaled else None
+    n1 = mt.multi_tensor_sumsq_finite.launches
+    sumsq, total, finite = mt.multi_tensor_sumsq_finite(gs, inv)
+    torch.cuda.synchronize()
+    assert mt.multi_tensor_sumsq_finite.launches == n1 + 1
+    want = [(g * inv.to(dtype) if scaled else g).double().square().sum()
+            for g in gs]
+    torch.testing.assert_close(sumsq.double(), torch.stack(want),
+                               rtol=1e-5, atol=0)
+    acc = torch.zeros((), device=cuda_device)
+    for x in sumsq:
+        acc = acc + x
+    assert torch.equal(total, acc) and int(finite) == 1
+    again = mt.multi_tensor_sumsq_finite(gs, inv)
+    assert torch.equal(again[0], sumsq) and torch.equal(again[1], total)
+    for decoupled in (False, True):
+        ref = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+        for step in (1, 2, 3):
+            n2 = mt.multi_tensor_adam.launches
+            mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=decoupled,
+                                 step=step, inv_scale=inv, clip_scale=clip,
+                                 **ADAM_KW)
+            mt.multi_tensor_adam_ref(*ref[:1], gs, *ref[1:],
+                                     decoupled=decoupled, step=step,
+                                     inv_scale=inv, clip_scale=clip,
+                                     **ADAM_KW)
+            assert mt.multi_tensor_adam.launches == n2 + int(
+                sum(p.numel() for p in ps) > 0)
+        torch.cuda.synchronize()
+        for got, want in zip(ps + ms + vs, ref[0] + ref[1] + ref[2]):
+            assert torch.equal(got, want), (sizes, dtype, decoupled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_multi_tensor_nonfinite_grads_skip_every_byte(cuda_device, dtype):
+    """U1 finds a nan, +inf or -inf in any tensor (after the inverse
+    scale); U2 under that flag writes nothing, however poisoned the grads
+    and the clip scale are."""
+    ps, gs, ms, vs = _mt_lists("model_div64", dtype, cuda_device, seed=1)
+    before = [t.clone() for t in ps + ms + vs]
+    for i, bad in ((0, float("nan")), (len(gs) // 2, float("inf")),
+                   (len(gs) - 1, float("-inf"))):
+        poisoned = [g.clone() for g in gs]
+        poisoned[i].view(-1)[7] = bad
+        _, total, finite = mt.multi_tensor_sumsq_finite(
+            poisoned, torch.tensor(0.5, device=cuda_device))
+        assert int(finite) == 0
+        mt.multi_tensor_adam(ps, poisoned, ms, vs, decoupled=True, step=1,
+                             clip_scale=torch.sqrt(total), finite=finite,
+                             **ADAM_KW)
+    torch.cuda.synchronize()
+    for a, b in zip(before, ps + ms + vs):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_multi_tensor_long_lists_take_several_launches(cuda_device):
+    """200 grads: two U1 launches, the second adding to the first's total
+    and flag; 200 parameters: three U2 launches; a mixed fp32/bf16 list:
+    one U2 launch per dtype. All equal to the plain versions."""
+    shapes = [(int(n),) for n in
+              np.random.RandomState(3).randint(0, 3000, 200)]
+    ps, gs, ms, vs = _mt_tensors(shapes, torch.float32, cuda_device)
+    n1, n2 = mt.multi_tensor_sumsq_finite.launches, mt.multi_tensor_adam.launches
+    sumsq, total, finite = mt.multi_tensor_sumsq_finite(gs)
+    ref = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=True, step=1, **ADAM_KW)
+    mt.multi_tensor_adam_ref(ref[0], gs, ref[1], ref[2], decoupled=True,
+                             step=1, **ADAM_KW)
+    assert mt.multi_tensor_sumsq_finite.launches == n1 + 2
+    assert mt.multi_tensor_adam.launches == n2 + 3
+    acc = torch.zeros((), device=cuda_device)
+    for x in sumsq:
+        acc = acc + x
+    assert torch.equal(total, acc) and int(finite) == 1
+    for got, want in zip(ps + ms + vs, ref[0] + ref[1] + ref[2]):
+        assert torch.equal(got, want)
+    mixed = [p.to(torch.bfloat16) if i % 2 else p for i, p in
+             enumerate(ps[:6])]
+    mm = [torch.zeros_like(p) for p in mixed]
+    vv = [torch.zeros_like(p) for p in mixed]
+    n2 = mt.multi_tensor_adam.launches
+    mt.multi_tensor_adam(mixed, gs[:6], mm, vv, decoupled=False, step=1,
+                         **ADAM_KW)
+    assert mt.multi_tensor_adam.launches == n2 + 2
+
+
+@pytest.mark.cuda
+def test_multi_tensor_graph_replay_equals_eager(cuda_device):
+    """U1 then U2 (clip scale and finite flag from U1, on the device)
+    captured in one CUDA graph: a replay gives the eager launches' bits."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    clip = ClipGradByGlobalNorm(1.0)
+    inv = torch.tensor(2.0 ** -4, device=cuda_device)
+
+    def step(ps, gs, ms, vs):
+        _, total, finite = mt.multi_tensor_sumsq_finite(gs, inv)
+        mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=True, step=3,
+                             inv_scale=inv,
+                             clip_scale=clip.scale_from_sumsq(total),
+                             finite=finite, **ADAM_KW)
+
+    eager = _mt_lists("model_div64", torch.float32, cuda_device, seed=4,
+                      grad_scale=16.0)
+    graphed = [[t.clone() for t in ts] for ts in eager]
+    warm = [[t.clone() for t in ts] for ts in eager]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(*warm)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(*graphed)
+    for ts, ws in zip(graphed, eager):     # capture ran nothing: reset
+        for t, w in zip(ts, ws):
+            t.copy_(w)
+    graph.replay()
+    step(*eager)
+    torch.cuda.synchronize()
+    for a, b in zip(sum(graphed, []), sum(eager, [])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_multi_tensor_wrappers_raise_on_inputs_they_cannot_take(
+        cuda_device):
+    p = torch.zeros(8, 8, device=cuda_device)
+    kw = dict(decoupled=True, step=1, **ADAM_KW)
+    with pytest.raises(ValueError):            # a strided parameter
+        mt.multi_tensor_adam([p.t()], [p], [p], [p], **kw)
+    with pytest.raises(TypeError):             # moments of another dtype
+        mt.multi_tensor_adam([p], [p], [p.half()], [p], **kw)
+    with pytest.raises(ValueError):            # a moment of another shape
+        mt.multi_tensor_adam([p], [p], [p[:4]], [p], **kw)
+    with pytest.raises(TypeError):             # float64
+        mt.multi_tensor_adam([p.double()], [p.double()], [p.double()],
+                             [p.double()], **kw)
+    with pytest.raises(TypeError):             # a scale on the host
+        mt.multi_tensor_adam([p], [p], [p], [p], inv_scale=torch.tensor(1.),
+                             **kw)
+    with pytest.raises(TypeError):             # a bool flag
+        mt.multi_tensor_adam([p], [p], [p], [p],
+                             finite=torch.ones((), dtype=torch.bool,
+                                               device=cuda_device), **kw)
+    with pytest.raises(ValueError):            # a grad on the host
+        mt.multi_tensor_sumsq_finite([p, torch.zeros(3)])
+    with pytest.raises(TypeError):
+        mt.multi_tensor_sumsq_finite([p.double()])
+
+
+@pytest.mark.cuda
+def test_training_paths_reach_the_multi_tensor_kernels(cuda_device):
+    """On the card, AdamW's step (with a global-norm clip), GradScaler,
+    compile_train_step and build_hybrid_train_step each launch U1 and U2
+    as many times as their paths run them; compile_train_step on the card
+    equals it on the CPU (the plain versions) over three steps, losses and
+    parameters at rtol 1e-4 / atol 1e-5 (epsilon 1e-3: see
+    tests/test_torch_trainer.py)."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models import build_hybrid_train_step
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import compile_train_step
+
+    cfg = LlamaConfig.tiny(vocab=64, hidden=64, layers=2, heads=4, inter=128)
+    ids = np.random.RandomState(0).randint(0, 64, (4, 17))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:].copy()}
+
+    def counts():
+        return (mt.multi_tensor_sumsq_finite.launches,
+                mt.multi_tensor_adam.launches)
+
+    def moved(before):
+        return tuple(b - a for a, b in zip(before, counts()))
+
+    def loss_fn(m, b):
+        return m.compute_loss(b["input_ids"], b["labels"])
+
+    runs = {}
+    for dev in (cuda_device, "cpu"):
+        m = LlamaForCausalLM(cfg, device="cpu", seed=2).to(dev)
+        opt = AdamW(learning_rate=1e-2, epsilon=1e-3,
+                    parameters=m.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(0.5))
+        step = compile_train_step(m, loss_fn, opt,
+                                  scaler=GradScaler(init_loss_scaling=256.0))
+        c = counts()
+        runs[str(dev)] = ([float(step(batch)) for _ in range(3)],
+                          {n: p.detach().cpu() for n, p in
+                           m.named_parameters()})
+        assert moved(c) == ((3, 3) if dev != "cpu" else (0, 0))
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for n, p in runs["cuda"][1].items():
+        torch.testing.assert_close(p, runs["cpu"][1][n], rtol=1e-4,
+                                   atol=1e-5)
+
+    m = LlamaForCausalLM(cfg, device=cuda_device, seed=2)
+    ids_t = torch.from_numpy(batch["input_ids"]).to(cuda_device)
+    lab_t = torch.from_numpy(batch["labels"]).to(cuda_device)
+    opt = AdamW(parameters=m.parameters(),
+                grad_clip=ClipGradByGlobalNorm(0.5))
+    c = counts()
+    m.compute_loss(ids_t, lab_t).backward()
+    opt.step()
+    assert moved(c) == (1, 1)
+    opt.clear_grad()
+    scaler = GradScaler(init_loss_scaling=64.0)
+    c = counts()
+    scaler.scale(m.compute_loss(ids_t, lab_t)).backward()
+    scaler.step(opt)
+    scaler.update()
+    assert moved(c) == (2, 1)          # the finite check, then the clip
+    for clip, want in ((ClipGradByGlobalNorm(0.5), (2, 2)), (None, (0, 2))):
+        opt = AdamW(parameters=m.parameters(), grad_clip=clip)
+        hstep = build_hybrid_train_step(m, opt, amp=True)
+        c = counts()
+        for _ in range(2):
+            hstep(batch)
+        assert moved(c) == want

@@ -43,6 +43,10 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.ops.kernels.fused_ce\n"
         "import paddle_tpu_torch.incubate.nn.functional\n"
         "import paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip\n"
+        "import paddle_tpu_torch.optimizer.lr\n"
+        "import paddle_tpu_torch.optimizer.lbfgs\n"
+        "import paddle_tpu_torch.ops.kernels.multi_tensor\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.parallel\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
         "             None and (m == 'paddle_tpu' or m.startswith(\n"
         "             'paddle_tpu.') or m.split('.')[0] == 'jax'))\n"

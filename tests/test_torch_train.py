@@ -119,9 +119,14 @@ def test_cross_entropy_with_ignored_labels_matches_jax(reduction):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     all_ignored = torch.full((3, 5), -100)
     assert float(cross_entropy(torch.from_numpy(logits), all_ignored)) == 0.0
-    with pytest.raises(NotInThisSlice):
+    # label smoothing, once raising here, now follows the reference too
+    # (tests/test_torch_cross_entropy.py holds every option)
+    smooth = jax_ce(P.to_tensor(logits), P.to_tensor(labels),
+                    reduction=reduction, label_smoothing=0.1)
+    np.testing.assert_allclose(
         cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                      label_smoothing=0.1)
+                      reduction=reduction, label_smoothing=0.1).numpy(),
+        np.asarray(smooth.numpy()), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("cls", ["Adam", "AdamW"])
