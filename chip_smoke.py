@@ -28,9 +28,12 @@ fails:
    counted and checked);
 5. serving at the full ``LlamaConfig.llama_7b()`` width (32 layers, bf16,
    seeded random weights): 16 requests through ``ServingEngine`` with a
-   late join; every request must finish with its prompt plus its new
-   tokens, sampled logits rows must be finite, and the decode kernel's
-   launch count must be exactly ``decode_steps * num_hidden_layers``;
+   late join, once with step capture off (eager steps) and once on (each
+   step kind a CUDA graph, ``jit.capture``); every request must finish
+   with its prompt plus its new tokens, the two runs' tokens must be
+   bitwise equal (greedy and seeded sampled), the decode kernel's launch
+   count must be exactly ``decode_steps * num_hidden_layers`` in each, and
+   no captured signature may bail out;
 6. a full batch after the serving run: every slot refilled with a greedy
    request (each prefill timed alone), then the decode kernel on every
    layer's caches at the slots' lengths, held against the plain version
@@ -39,8 +42,23 @@ fails:
    plain version, ``F.scaled_dot_product_attention`` as the library
    yardstick, and the least time the card could take (``bound_ms``, from
    the bytes and flops the inputs need); then decode steps timed on the
-   host clock and a few traced with ``torch.profiler``: device time per
-   step by kernel, and the device's busy share of a step;
+   host clock and a few traced with ``torch.profiler``, captured and then
+   eager: device time per step by kernel, host launch calls, and the
+   device's busy share of a step;
+   then the rest of serving on the same model, each against an engine
+   without the feature (tokens equal at >= 0.5 of positions and at a
+   teacher-forced share >= 0.5, their first divergence printed: bf16
+   rounds the masked window path and the decode kernel differently): speculative decoding at k=4 with the n-gram
+   drafter (8 requests over repeated-segment prompts) and with the target
+   as its own draft model (4 requests; at least 0.8 (k + 1) tokens per
+   verify; the decode kernel launched exactly (decode steps - verify steps
+   + draft steps) x layers times); prefix sharing (8 requests over one
+   1024-token prefix: at least 7 shared joins and 7 x 64 pages saved);
+   chunked prefill (a 1900-token prompt in 8 windows of 256, a decode step
+   between any two, beside 7 decoding requests); the gateway (8 requests
+   from 4 client threads over a socket: the in-process engine's tokens,
+   HEALTH ready, METRICS with the serving and capture series, and no
+   thread left after drain and stop);
 7. the serving model is freed; a small fp32 training check, with the
    fused loss off and on: three steps of ``build_hybrid_train_step`` on
    the card (K2-K4, and K5-K7) equal the same steps on the CPU (the plain
@@ -79,10 +97,12 @@ fails:
    beside ``torch._foreach_norm`` and ``torch.optim.AdamW(fused=True)``
    (same math, other rounding) and their byte bounds.
 
-The last lines are ``{"decode_profile": ...}``, ``{"training": ...}``,
+The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
+``gateway:`` lines as they finish. The last lines are
+``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"kernels":
 [...]}`` (K1-K7, U1 and U2),
-``{"serving": ...}``, the card's
+``{"serving": ...}``, the total run time, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. The run uses one card: it shows torch
 only the first of ``CUDA_VISIBLE_DEVICES`` (default 0). ``--out`` also writes every
 number as JSON.
@@ -299,26 +319,12 @@ def phase_small_reference(torch, LlamaConfig, LlamaForCausalLM,
         f"through K2 ({8 * cfg.num_hidden_layers} launches each)")
 
 
-def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
-                RequestState, attn):
-    cfg = LlamaConfig.llama_7b()
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.bfloat16,
-                             seed=args.seed)
-    torch.cuda.synchronize()
-    log(f"llama_7b width: {cfg.num_hidden_layers} layers, hidden "
-        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, inter "
-        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, bf16; "
-        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
-        f"built in {time.perf_counter() - t0:.1f}s")
-    eng = ServingEngine(model, max_batch=8, max_seq_len=2048)
-    rng = np.random.default_rng(args.seed)
-    specs = []
-    for i in range(16):
-        plen = int(rng.integers(16, 1001))
-        specs.append(dict(prompt=rng.integers(0, cfg.vocab_size, plen),
-                          max_new=int(rng.integers(32, 129)),
-                          sampled=(i % 4 == 3)))
+def serve_traffic(torch, eng, specs, attn, RequestState, n_layers):
+    """The 16-request traffic through ``eng``: 12 requests, 4 more after two
+    engine steps, every 4th sampled. The decode kernel's count is set to 0
+    just before and read just after. Returns the requests and the run's
+    numbers (host clock; every engine step ends in a host sync)."""
+    reqs = []
 
     def submit(s):
         kw = dict(temperature=0.8, top_p=0.95, seed=1000 + len(reqs)) \
@@ -326,12 +332,9 @@ def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
         reqs.append(eng.submit(s["prompt"], max_new_tokens=s["max_new"],
                                **kw))
 
-    n_layers = cfg.num_hidden_layers
-    torch.cuda.reset_peak_memory_stats()
-    reqs = []
-    step_ms, decode_only_ms = [], []
+    decode_only_ms = []
     steps = 0
-    attn.launches = 0    # the main path's run starts here
+    attn.launches = 0
     t_serve = time.perf_counter()
     for s in specs[:12]:
         submit(s)
@@ -341,7 +344,6 @@ def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
         eng.step()
         dt = (time.perf_counter() - t0) * 1e3
         steps += 1
-        step_ms.append(dt)
         if eng.info()["prefills"] == prefills:
             decode_only_ms.append(dt)
         if steps == 2:
@@ -351,7 +353,6 @@ def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
     wall = time.perf_counter() - t_serve
     launches = attn.launches
     info = eng.info()
-
     for r, s in zip(reqs, specs):
         check(r.state is RequestState.FINISHED,
               f"request {r.rid} ended {r.state.name}")
@@ -366,24 +367,94 @@ def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
           f"want decode_steps x layers = {want}")
     check(info["sampled_tokens"] > 0, "no sampled token was drawn")
     ttft = [(r.token_times[0] - r.submit_time) * 1e3 for r in reqs]
-    serving = {
-        "requests": len(reqs), "max_batch": eng.max_batch,
-        "max_seq_len": eng.max_seq_len, "layers": n_layers,
-        "prompt_tokens": int(sum(s["prompt"].size for s in specs)),
-        "generated_tokens": info["tokens_generated"],
+    return reqs, {
         "decode_steps": info["decode_steps"], "engine_steps": steps,
+        "generated_tokens": info["tokens_generated"],
         "kernel_launches": launches,
         "decode_step_ms_p50": float(np.percentile(decode_only_ms, 50)),
         "decode_step_ms_p90": float(np.percentile(decode_only_ms, 90)),
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
         "ttft_ms_p90": float(np.percentile(ttft, 90)),
-        "tokens_per_s": info["tokens_generated"] / wall,
-        "wall_s": wall, "avg_occupancy": info["avg_occupancy"],
+        "tokens_per_s": info["tokens_generated"] / wall, "wall_s": wall,
+        "avg_occupancy": info["avg_occupancy"]}
+
+
+def check_no_bailouts(capture, label):
+    info = capture.capture_info()
+    check(info["bailouts"] == 0,
+          f"{label}: {info['bailouts']} captured signature(s) bailed out: "
+          f"{info['last_bailout']}")
+    return info
+
+
+def phase_serve(torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
+                RequestState, attn, capture):
+    """The serving traffic at llama_7b width twice on one model and seeds:
+    with step capture off (eager steps), then on (CUDA graphs). Greedy
+    tokens must be bitwise equal (the same kernels on the same shapes),
+    sampled ones too (equal logits, equal seeds), the decode kernel must
+    launch exactly decode_steps x layers times in each run, and no captured
+    signature may bail out."""
+    cfg = LlamaConfig.llama_7b()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.bfloat16,
+                             seed=args.seed)
+    torch.cuda.synchronize()
+    log(f"llama_7b width: {cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, inter "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, bf16; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(args.seed)
+    specs = []
+    for i in range(16):
+        plen = int(rng.integers(16, 1001))
+        specs.append(dict(prompt=rng.integers(0, cfg.vocab_size, plen),
+                          max_new=int(rng.integers(32, 129)),
+                          sampled=(i % 4 == 3)))
+    n_layers = cfg.num_hidden_layers
+
+    capture.set_step_capture_enabled(False)
+    eng = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    eager_reqs, eager = serve_traffic(torch, eng, specs, attn, RequestState,
+                                      n_layers)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    capture.set_step_capture_enabled(True)
+    capture.capture_clear()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    reqs, captured = serve_traffic(torch, eng, specs, attn, RequestState,
+                                   n_layers)
+    for a, b, s in zip(eager_reqs, reqs, specs):
+        check(np.array_equal(a.result(), b.result()),
+              f"request {b.rid} ({'sampled' if s['sampled'] else 'greedy'})"
+              f": captured tokens differ from the eager run's")
+    cinfo = check_no_bailouts(capture, "serving")
+    check(cinfo["lowerings"] > 0 and cinfo["hits"] > 0,
+          f"the captured run replayed no graph: {cinfo}")
+    serving = {
+        "requests": len(reqs), "max_batch": eng.max_batch,
+        "max_seq_len": eng.max_seq_len, "layers": n_layers,
+        "prompt_tokens": int(sum(s["prompt"].size for s in specs)),
+        **captured,
+        "eager": {k: eager[k] for k in (
+            "decode_step_ms_p50", "decode_step_ms_p90", "ttft_ms_p50",
+            "tokens_per_s", "wall_s", "kernel_launches", "decode_steps")},
+        "captured_equals_eager": True,
+        "capture": {k: cinfo[k] for k in (
+            "lowerings", "hits", "bailouts", "fallback_calls", "graphs")},
+        "graph_pool_mib": cinfo["pool_mib"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    log(f"served {len(reqs)} requests: {info['decode_steps']} decode steps, "
-        f"{launches} decode-kernel launches (= steps x {n_layers}), all "
-        f"FINISHED with prompt + max_new tokens")
+    log(f"served {len(reqs)} requests eager, then captured: "
+        f"{captured['decode_steps']} decode steps, {captured['kernel_launches']}"
+        f" decode-kernel launches (= steps x {n_layers}) in each run, tokens "
+        f"equal; capture {serving['capture']}, pool "
+        f"{serving['graph_pool_mib']} MiB; decode step p50 "
+        f"{eager['decode_step_ms_p50']:.2f} ms eager, "
+        f"{captured['decode_step_ms_p50']:.2f} ms captured")
     return model, eng, reqs, specs, serving
 
 
@@ -416,7 +487,7 @@ def phase_full_batch(torch, eng, vocab, seed):
     rng = np.random.default_rng(seed + 1)
     plens = sorted(int(n) for n in rng.integers(16, 1001, eng.max_batch))
     for n in plens:
-        eng.submit(rng.integers(0, vocab, n), max_new_tokens=64)
+        eng.submit(rng.integers(0, vocab, n), max_new_tokens=128)
     joined, _ = eng.scheduler.schedule()
     check(len(joined) == eng.max_batch,
           f"{len(joined)} of {eng.max_batch} requests joined an idle engine")
@@ -504,7 +575,12 @@ def phase_decode_profile(torch, eng, n_steps=20, n_traced=5):
     check(len(eng._active_slots()) == eng.max_batch,
           "a slot of the full batch finished during the profile")
     kernels = []
+    api = {}        # host-side launch calls a step, by runtime API name
     for ev in prof.key_averages():
+        if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx",
+                      "cudaGraphLaunch"):
+            api[ev.key] = ev.count / n_traced
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -523,9 +599,392 @@ def phase_decode_profile(torch, eng, n_steps=20, n_traced=5):
             k[1] for k in kernels if "ragged_decode" in k[0])
         if kernels else None,
         "kernel_launches_per_step": sum(k[2] for k in kernels),
+        "host_launch_calls_per_step": api,
         "top_kernels": [{"name": k[0][:90], "ms_per_step": k[1],
                          "calls_per_step": k[2]} for k in kernels[:12]],
     }
+
+
+# ---------------------------------------------------------------------------
+# the rest of serving: speculative decoding, prefix sharing, chunked
+# prefill, the gateway (llama_7b width, the serving model, capture on)
+# ---------------------------------------------------------------------------
+
+def run_engine(torch, eng, prompts, max_new, RequestState):
+    """Submit every prompt, step until idle; every request must finish
+    with its prompt and max_new tokens. Returns the outputs, the host ms
+    of each engine step with no prefill, the TTFT of each request (ms)
+    and the wall seconds."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, max_new)]
+    step_ms = []
+    while not eng.scheduler.idle:
+        prefills = eng.info()["prefills"]
+        ts = time.perf_counter()
+        eng.step()
+        if eng.info()["prefills"] == prefills:
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = []
+    for r, p, n in zip(reqs, prompts, max_new):
+        check(r.state is RequestState.FINISHED,
+              f"request {r.rid} ended {r.state.name}")
+        out = r.result()
+        check(out.size == p.size + n and np.array_equal(out[:p.size], p),
+              f"request {r.rid}: {out.size} tokens, want {p.size} + {n}")
+        outs.append(out)
+    ttft = [(r.token_times[0] - r.submit_time) * 1e3 for r in reqs]
+    return outs, step_ms, ttft, wall
+
+
+def teacher_forced_share(torch, model, prompts, outs):
+    """The share of generated positions whose token equals the argmax of
+    the cache-free forward (flash attention) over the same sequence: the
+    metric of phase_teacher_forced, for each of ``outs``."""
+    agree = total = 0
+    for p, out in zip(prompts, outs):
+        ids = torch.from_numpy(out[None, :-1]).to(DEVICE)
+        pred = torch.argmax(model(ids)[0, p.size - 1:], dim=-1).cpu().numpy()
+        agree += int((pred == out[p.size:]).sum())
+        total += out.size - p.size
+    return agree / total
+
+
+def divergence(prompts, want, got):
+    """Per request, the first generated position where ``got`` leaves
+    ``want`` (None when equal), and the share of positions equal."""
+    first, equal, total = [], 0, 0
+    for p, w, g in zip(prompts, want, got):
+        a, b = w[p.size:], g[p.size:]
+        diff = np.nonzero(a != b)[0]
+        first.append(int(diff[0]) if diff.size else None)
+        equal += int((a == b).sum())
+        total += a.size
+    return first, equal / total
+
+
+TEACHER_FORCED_MIN = 0.5   # phase_teacher_forced's threshold
+
+
+def check_agreement(torch, model, label, prompts, ref, outs):
+    """Tokens of a feature's run against the engine's without it: bf16
+    rounds the masked window path and the decode kernel differently, so
+    after a near-tie the two continue from different contexts. Both the
+    share of positions equal to the reference run and the teacher-forced
+    share of the feature's tokens must reach the threshold of
+    phase_teacher_forced; the first divergent positions are printed."""
+    first, equal = divergence(prompts, ref, outs)
+    tf = teacher_forced_share(torch, model, prompts, outs)
+    tf_ref = teacher_forced_share(torch, model, prompts, ref)
+    log(f"{label}: first divergence from the reference run per request "
+        f"{first}, {equal:.3f} of positions equal; teacher-forced "
+        f"agreement {tf:.3f} (reference run {tf_ref:.3f})")
+    check(equal >= TEACHER_FORCED_MIN,
+          f"{label}: tokens equal the engine's without the feature at only "
+          f"{equal:.3f} of positions")
+    check(tf >= TEACHER_FORCED_MIN,
+          f"{label}: tokens agree with the cache-free forward at only "
+          f"{tf:.3f} of positions")
+    return {"first_divergence": first, "equal_share": equal,
+            "teacher_forced": tf, "teacher_forced_reference": tf_ref}
+
+
+def release(torch):
+    """Return the memory of the engines the caller dropped to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_spec(torch, model, ServingEngine, RequestState, attn, capture,
+               seed, k=4):
+    """spec_k=4 at llama_7b width. The n-gram drafter on 8 requests whose
+    prompts repeat a random 64-token segment to 256-768 tokens (so the
+    drafter finds continuations), 64-128 new tokens each, against the
+    non-speculative captured engine on the same prompts; then the model
+    drafter with the target as its own draft on 4 requests of 126 new
+    tokens (125 after the prefill's first: 25 full windows of k + 1)."""
+    vocab = model.config.vocab_size
+    n_layers = model.config.num_hidden_layers
+    rng = np.random.default_rng(seed + 2)
+    prompts, max_new = [], []
+    for _ in range(8):
+        seg = rng.integers(0, vocab, 64)
+        n = int(rng.integers(256, 769))
+        prompts.append(np.tile(seg, -(-n // 64))[:n])
+        max_new.append(int(rng.integers(64, 129)))
+    base = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    ref, ref_ms, _, ref_wall = run_engine(torch, base, prompts, max_new,
+                                          RequestState)
+    ref_tps = base.info()["tokens_generated"] / ref_wall
+    base = None
+    release(torch)
+
+    eng = ServingEngine(model, max_batch=8, max_seq_len=2048, spec_k=k)
+    attn.launches = 0
+    outs, verify_ms, _, wall = run_engine(torch, eng, prompts, max_new,
+                                          RequestState)
+    info = eng.info()
+    want = (info["decode_steps"] - info["spec"]["verify_steps"]) * n_layers
+    check(attn.launches == want,
+          f"n-gram spec run: decode kernel launched {attn.launches} times, "
+          f"want (decode steps - verify steps) x layers = {want}")
+    agree = check_agreement(torch, model, "spec n-gram", prompts, ref, outs)
+    ngram = {
+        "requests": len(prompts), "k": k,
+        "acceptance_rate": info["spec"]["acceptance_rate"],
+        "tokens_per_verify": info["spec"]["tokens_per_verify"],
+        "tokens_per_verify_hist": info["spec"]["tokens_per_verify_hist"],
+        "verify_steps": info["spec"]["verify_steps"],
+        "verify_step_ms_p50": float(np.percentile(verify_ms, 50)),
+        "decode_step_ms_p50_nonspec": float(np.percentile(ref_ms, 50)),
+        "tokens_per_s": info["tokens_generated"] / wall,
+        "tokens_per_s_nonspec": ref_tps, "kernel_launches": attn.launches,
+        **agree}
+    eng = None
+    release(torch)
+
+    m_prompts, m_new = prompts[:4], [126] * 4
+    base = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    ref4, ref4_ms, _, ref4_wall = run_engine(torch, base, m_prompts, m_new,
+                                             RequestState)
+    ref4_tps = base.info()["tokens_generated"] / ref4_wall
+    base = None
+    release(torch)
+    eng = ServingEngine(model, max_batch=8, max_seq_len=2048, spec_k=k,
+                        drafter="model", draft_model=model)
+    attn.launches = 0
+    outs4, verify4_ms, _, wall4 = run_engine(torch, eng, m_prompts, m_new,
+                                             RequestState)
+    info = eng.info()
+    joins = info["prefills"]
+    draft_steps = info["spec"]["drafter"]["draft_calls"] - joins
+    want = (info["decode_steps"] - info["spec"]["verify_steps"]
+            + draft_steps) * n_layers
+    check(attn.launches == want,
+          f"model-drafter run: decode kernel launched {attn.launches} times,"
+          f" want (decode steps - verify steps + draft steps) x layers = "
+          f"{want}")
+    tpv = info["spec"]["tokens_per_verify"]
+    model_drafter = {
+        "requests": len(m_prompts), "k": k,
+        "acceptance_rate": info["spec"]["acceptance_rate"],
+        "tokens_per_verify": tpv,
+        "tokens_per_verify_hist": info["spec"]["tokens_per_verify_hist"],
+        "verify_steps": info["spec"]["verify_steps"],
+        "draft_steps": draft_steps,
+        "step_ms_p50": float(np.percentile(verify4_ms, 50)),
+        "decode_step_ms_p50_nonspec": float(np.percentile(ref4_ms, 50)),
+        "tokens_per_s": info["tokens_generated"] / wall4,
+        "tokens_per_s_nonspec": ref4_tps, "kernel_launches": attn.launches}
+    log("spec: " + json.dumps({"ngram": ngram, "model": model_drafter}))
+    model_drafter.update(check_agreement(torch, model, "spec model drafter",
+                                         m_prompts, ref4, outs4))
+    check(tpv >= 0.8 * (k + 1),
+          f"model drafter with the target as its own draft: {tpv:.3f} "
+          f"tokens per verify, want >= 0.8 x (k + 1) = {0.8 * (k + 1)}")
+    eng = None
+    release(torch)
+    check_no_bailouts(capture, "spec")
+    return {"ngram": ngram, "model": model_drafter}
+
+
+def phase_prefix(torch, model, ServingEngine, RequestState, capture, seed):
+    """prefix_sharing=True at llama_7b width: 8 requests over one
+    1024-token prefix with distinct 16-64-token tails, 32 new tokens each,
+    submitted together (the first prefills whole and commits; the others
+    find its 64 pages at join), against an engine without sharing. Each
+    engine serves a warm-up round over another prefix first, so the timed
+    round replays graphs (the first use of a window scratch records its
+    graph) and the tree holds the warm-up's pages beside the new ones."""
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(seed + 3)
+
+    def prompts():
+        common = rng.integers(0, vocab, 1024)
+        return [np.concatenate([common, rng.integers(
+            0, vocab, int(rng.integers(16, 65)))]) for _ in range(8)]
+
+    warm, timed, max_new = prompts(), prompts(), [32] * 8
+    base = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    run_engine(torch, base, warm, max_new, RequestState)
+    ref, _, ref_ttft, ref_wall = run_engine(torch, base, timed, max_new,
+                                            RequestState)
+    base = None
+    release(torch)
+    eng = ServingEngine(model, max_batch=8, max_seq_len=2048,
+                        prefix_sharing=True)
+    run_engine(torch, eng, warm, max_new, RequestState)
+    before = eng.info()
+    lowered = capture.capture_info()["lowerings"]
+    outs, _, ttft, wall = run_engine(torch, eng, timed, max_new,
+                                     RequestState)
+    lowered = capture.capture_info()["lowerings"] - lowered
+    info = eng.info()
+    joins = info["shared_prefix_joins"] - before["shared_prefix_joins"]
+    saved = info["prefill_pages_saved"] - before["prefill_pages_saved"]
+    page = eng.pool.page_size
+    check(joins >= 7, f"prefix: {joins} shared joins, want >= 7")
+    check(saved >= 7 * 1024 // page,
+          f"prefix: {saved} pages saved, want >= {7 * 1024 // page}")
+    agree = check_agreement(torch, model, "prefix sharing", timed, ref,
+                            outs)
+    out = {"requests": len(timed), "prefix_tokens": 1024, "page": page,
+           "shared_prefix_joins": joins, "prefill_pages_saved": saved,
+           "prefill_chunks": info["prefill_chunks"]
+           - before["prefill_chunks"],
+           "ttft_ms_p50_sharers": float(np.percentile(ttft[1:], 50)),
+           "ttft_ms_donor": ttft[0],
+           "ttft_ms_p50_no_sharing": float(np.percentile(ref_ttft, 50)),
+           "wall_s": wall, "wall_s_no_sharing": ref_wall,
+           "graphs_recorded_in_timed_round": lowered,
+           "tree": info["prefix"], **agree}
+    eng = None
+    release(torch)
+    check_no_bailouts(capture, "prefix")
+    log("prefix: " + json.dumps(out))
+    return out
+
+
+def phase_chunked(torch, model, ServingEngine, RequestState, capture, seed,
+                  chunk=256, long_len=1900):
+    """prefill_chunk=256 at llama_7b width: 7 requests decode, then one
+    1900-token prompt joins. The long prompt prefills in ceil(1900/256)
+    windows, one per engine step, each step also decoding the 7; the same
+    script on an engine without chunking gives the tokens to compare and
+    the longest host gap between decode steps (one 2048-bucket prefill).
+    Each engine runs the script once to warm its graphs, then again on
+    other prompts, timed."""
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(seed + 4)
+
+    def prompts():
+        return ([rng.integers(0, vocab, int(rng.integers(64, 257)))
+                 for _ in range(7)], rng.integers(0, vocab, long_len))
+
+    rounds = [prompts(), prompts()]
+
+    def script(eng, short, long_p):
+        before = eng.info()
+        reqs = [eng.submit(p, max_new_tokens=96) for p in short]
+        for _ in range(3):
+            eng.step()
+        big = eng.submit(long_p, max_new_tokens=64)
+        events, gaps = [], []
+        while not big.done and big.state is not RequestState.DECODING:
+            b = eng.info()
+            t0 = time.perf_counter()
+            eng.step()
+            gaps.append((time.perf_counter() - t0) * 1e3)
+            a = eng.info()
+            events += ["chunk"] * (a["prefill_chunks"] - b["prefill_chunks"])
+            events += ["decode"] * (a["decode_steps"] - b["decode_steps"])
+        eng.run()
+        torch.cuda.synchronize()
+        for r in reqs + [big]:
+            check(r.state is RequestState.FINISHED,
+                  f"chunked phase: request {r.rid} ended {r.state.name}")
+        chunks = eng.info()["prefill_chunks"] - before["prefill_chunks"]
+        return [r.result() for r in reqs + [big]], events, gaps, chunks
+
+    base = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    script(base, *rounds[0])
+    ref, _, ref_gaps, _ = script(base, *rounds[1])
+    base = None
+    release(torch)
+    eng = ServingEngine(model, max_batch=8, max_seq_len=2048,
+                        prefill_chunk=chunk)
+    script(eng, *rounds[0])
+    lowered = capture.capture_info()["lowerings"]
+    outs, events, gaps, chunks = script(eng, *rounds[1])
+    lowered = capture.capture_info()["lowerings"] - lowered
+    want_chunks = -(-long_len // chunk)
+    check(chunks == want_chunks,
+          f"chunked: {chunks} chunks, want {want_chunks}")
+    chunk_at = [i for i, e in enumerate(events) if e == "chunk"]
+    check(all("decode" in events[a:b]
+              for a, b in zip(chunk_at, chunk_at[1:])),
+          f"chunked: two chunks with no decode step between them: {events}")
+    short, long_p = rounds[1]
+    agree = check_agreement(torch, model, "chunked prefill", short + [long_p],
+                            ref, outs)
+    out = {"chunk": chunk, "long_prompt": long_len, "prefill_chunks": chunks,
+           "decode_steps_during_prefill": events.count("decode"),
+           "longest_step_gap_ms_chunked": max(gaps),
+           "longest_step_gap_ms_bucketed": max(ref_gaps),
+           "graphs_recorded_in_timed_round": lowered, **agree}
+    eng = None
+    release(torch)
+    check_no_bailouts(capture, "chunked")
+    log("chunked: " + json.dumps(out))
+    return out
+
+
+def phase_gateway(torch, model, ServingEngine, capture, seed):
+    """A ServingGateway on 127.0.0.1:0 over a captured engine: 8
+    GatewayClient.generate calls from 4 threads must give the in-process
+    engine's tokens; HEALTH says ready, METRICS carries the serving and
+    capture series, drain and stop leave no thread."""
+    import threading
+    from paddle_tpu_torch.inference.serving.gateway import (GatewayClient,
+                                                            ServingGateway)
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(seed + 5)
+    prompts = [rng.integers(0, vocab, int(rng.integers(32, 513)))
+               for _ in range(8)]
+    base = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    ref = base.generate(prompts, max_new_tokens=32)
+    base = None
+    release(torch)
+    eng = ServingEngine(model, max_batch=8, max_seq_len=2048)
+    gw = ServingGateway(eng)
+    got, errs = {}, []
+
+    def client(ids):
+        try:
+            cli = GatewayClient("127.0.0.1", gw.port)
+            for i in ids:
+                got[i] = cli.generate(prompts[i], max_new_tokens=32,
+                                      timeout=300.0)
+            cli.close()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=((2 * j, 2 * j + 1),))
+               for j in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    try:
+        check(not errs and len(got) == 8, f"gateway clients failed: {errs}")
+        mism = [i for i in range(8) if not np.array_equal(got[i], ref[i])]
+        check(not mism, f"gateway tokens differ from the in-process "
+                        f"engine's for requests {mism}")
+        cli = GatewayClient("127.0.0.1", gw.port)
+        health = cli.health()
+        text = cli.metrics()
+        cli.close()
+        check(health["ready"] and not health["draining"],
+              f"gateway HEALTH: {health}")
+        for series in ("pt_serving_tokens_generated", "pt_step_capture_hits",
+                       "pt_gateway_requests"):
+            check(series in text, f"METRICS lacks {series}")
+    finally:
+        drained = gw.stop(drain=True, timeout=60.0)
+    left = gw.threads()
+    check(drained and not left, f"gateway stop: drained={drained}, threads "
+                                f"left {left}")
+    out = {"requests": 8, "clients": 4, "wall_s": wall, "health": health,
+           "metrics_lines": len(text.splitlines()),
+           "status_counts": gw.info()["status_counts"]}
+    eng = gw = None
+    release(torch)
+    check_no_bailouts(capture, "gateway")
+    log("gateway: " + json.dumps(out))
+    return out
 
 
 # Training at llama_7b width, cut in depth: fp32 masters, grads and AdamW
@@ -1384,6 +1843,7 @@ def main(argv=None) -> int:
                     help="also write every number to this JSON file")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     card_id = use_one_card()
     import torch
     if not torch.cuda.is_available():
@@ -1392,6 +1852,7 @@ def main(argv=None) -> int:
         return 2
     from paddle_tpu_torch.inference.serving import (RequestState,
                                                     ServingEngine)
+    from paddle_tpu_torch.jit import capture
     from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                                build_hybrid_train_step)
     from paddle_tpu_torch.ops.kernels import _build
@@ -1426,7 +1887,7 @@ def main(argv=None) -> int:
                           ServingEngine, fa)
     model, eng, reqs, specs, serving = phase_serve(
         torch, args, LlamaConfig, LlamaForCausalLM, ServingEngine,
-        RequestState, attn)
+        RequestState, attn, capture)
     agree = phase_teacher_forced(torch, model, reqs, specs)
     prefill_ms, live_lengths = phase_full_batch(
         torch, eng, model.config.vocab_size, args.seed)
@@ -1436,11 +1897,30 @@ def main(argv=None) -> int:
         + json.dumps(full))
     profile = {"lengths": live_lengths.tolist(), "prefill_ms": prefill_ms,
                **phase_decode_profile(torch, eng)}
+    capture.set_step_capture_enabled(False)
+    profile["eager"] = phase_decode_profile(torch, eng)
+    capture.set_step_capture_enabled(True)
+    log("decode steps of the full batch, captured vs eager: " + json.dumps(
+        {k: (profile[k], profile["eager"][k]) for k in (
+            "decode_step_ms_p50", "device_kernel_ms_per_step",
+            "device_busy_share", "kernel_launches_per_step",
+            "host_launch_calls_per_step")}))
+    eng = reqs = None
+    release(torch)
+    t_phase = time.perf_counter()
+    spec = phase_spec(torch, model, ServingEngine, RequestState, attn,
+                      capture, args.seed)
+    prefix = phase_prefix(torch, model, ServingEngine, RequestState, capture,
+                          args.seed)
+    chunked = phase_chunked(torch, model, ServingEngine, RequestState,
+                            capture, args.seed)
+    gateway = phase_gateway(torch, model, ServingEngine, capture, args.seed)
+    serving["capture_totals"] = check_no_bailouts(capture, "serving phases")
+    serving["feature_phases_s"] = time.perf_counter() - t_phase
     heads = model.config.num_attention_heads
     head_dim = model.config.hidden_size // heads
-    del model, eng, reqs          # free the serving model for training
-    gc.collect()
-    torch.cuda.empty_cache()
+    model = None                  # free the serving model for training
+    release(torch)
 
     phase_small_train(torch, LlamaConfig, LlamaForCausalLM,
                       build_hybrid_train_step, AdamW)
@@ -1478,7 +1958,9 @@ def main(argv=None) -> int:
         "name": "ragged_decode_attention", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/decode_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/decode_attention.py:37",
-        "launches": serving["kernel_launches"], "max_abs_err": err,
+        "launches": serving["kernel_launches"],
+        "spec_launches": spec["model"]["kernel_launches"],
+        "max_abs_err": err,
         "ms": live["ms"], "plain_ms": live["plain_ms"],
         "bound_ms": live["bound_ms"], "bound_by": live["bound_by"],
         "library_ms": live["library_ms"], "full_ms": full["ms"],
@@ -1551,6 +2033,8 @@ def main(argv=None) -> int:
                        "kernel_live": live, "kernel_full": full,
                        "flash_timing": flash, "serving": serving,
                        "decode_profile": profile, "training": training,
+                       "spec": spec, "prefix": prefix, "chunked": chunked,
+                       "gateway": gateway,
                        **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
@@ -1558,6 +2042,7 @@ def main(argv=None) -> int:
     log(json.dumps({"trainstep": trainstep}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

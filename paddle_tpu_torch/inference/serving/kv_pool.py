@@ -16,7 +16,19 @@ from typing import List
 
 from ...observability import trace
 
-__all__ = ["PoolExhausted", "Page", "KVPagePool"]
+__all__ = ["PageUncommitted", "PoolExhausted", "Page", "KVPagePool"]
+
+
+class PageUncommitted(RuntimeError):
+    """Typed rejection of ``share()`` on a page whose KV rows an in-flight
+    prefill is still writing: only committed full pages may enter the
+    prefix tree, or a borrower would fork onto half-written rows."""
+
+    def __init__(self, page: "Page"):
+        self.page = page
+        super().__init__(
+            f"page {page.pid} is not committed (an in-flight prefill is "
+            f"still writing it) — only committed full pages are shareable")
 
 
 class PoolExhausted(RuntimeError):
@@ -41,16 +53,19 @@ class PoolExhausted(RuntimeError):
 
 class Page:
     """One fixed-size span of KV positions; identity is the unit of
-    accounting."""
+    accounting. ``committed`` is set once the prefill that filled its rows
+    has completed."""
 
-    __slots__ = ("pid", "refs")
+    __slots__ = ("pid", "refs", "committed")
 
     def __init__(self, pid: int):
         self.pid = pid
         self.refs = 0
+        self.committed = False
 
     def __repr__(self):
-        return f"Page({self.pid}, refs={self.refs})"
+        return (f"Page({self.pid}, refs={self.refs}"
+                f"{', committed' if self.committed else ''})")
 
 
 class KVPagePool:
@@ -65,6 +80,7 @@ class KVPagePool:
         self._lock = threading.Lock()
         self._allocs = 0
         self._releases = 0
+        self._shared = 0
         self._peak_active = 0
 
     def pages_for(self, n_tokens: int) -> int:
@@ -87,14 +103,47 @@ class KVPagePool:
             self._peak_active = max(self._peak_active, active)
             return pages
 
+    def retain(self, pages: List[Page]):
+        """Add a holder to already-allocated pages."""
+        with self._lock:
+            for p in pages:
+                if p.refs < 1:
+                    raise ValueError(f"retain of a free page: {p!r}")
+                p.refs += 1
+
+    def share(self, pages: List[Page]):
+        """``retain()`` restricted to committed pages, all or nothing: a
+        page an in-flight prefill still writes raises the typed
+        PageUncommitted and no ref is taken."""
+        with self._lock:
+            for p in pages:
+                if p.refs < 1:
+                    raise ValueError(f"share of a free page: {p!r}")
+                if not p.committed:
+                    raise PageUncommitted(p)
+            for p in pages:
+                p.refs += 1
+            self._shared += len(pages)
+
+    def commit(self, pages: List[Page]):
+        """Mark pages' KV rows complete (their prefill finished): from here
+        on ``share()`` accepts them. Idempotent."""
+        with self._lock:
+            for p in pages:
+                if p.refs < 1:
+                    raise ValueError(f"commit of a free page: {p!r}")
+                p.committed = True
+
     def release(self, pages: List[Page]):
-        """Drop one holder; pages return to the free list at refcount 0."""
+        """Drop one holder; pages return to the free list at refcount 0 and
+        lose their committed mark."""
         with self._lock:
             for p in pages:
                 if p.refs < 1:
                     raise ValueError(f"double release: {p!r}")
                 p.refs -= 1
                 if p.refs == 0:
+                    p.committed = False
                     self._free.append(p)
                     self._releases += 1
 
@@ -112,4 +161,5 @@ class KVPagePool:
                     "active_pages": self.total_pages - free,
                     "allocs": self._allocs,
                     "releases": self._releases,
+                    "shared": self._shared,
                     "peak_active": self._peak_active}

@@ -4,12 +4,14 @@ Counterpart of ``paddle_tpu/inference/serving/request.py``. A request moves
 QUEUED -> PREFILL -> DECODING -> {FINISHED, TIMED_OUT}. The
 scheduler performs every transition between decode steps. The per-request
 TTL rides ``utils.deadline.Deadline``; running out of it raises the typed
-``RequestTimeout`` from ``result()``.
+``RequestTimeout`` from ``result()``. ``wait()`` blocks a caller on another
+thread (the gateway's handlers) until the request is terminal.
 """
 from __future__ import annotations
 
 import enum
 import itertools
+import threading
 import time
 from typing import List, Optional
 
@@ -61,17 +63,30 @@ class Request:
         self.top_p = top_p
         self.seed = self.rid if seed is None else int(seed)
         self._rng = None
-        self.deadline = Deadline(ttl)
+        self.deadline = Deadline(ttl, what=f"serving request {self.rid}")
         self.state = RequestState.QUEUED
         self.output_tokens: List[int] = []
         self.finish_reason: Optional[str] = None  # "eos"|"length"|"ttl"
         self.error: Optional[BaseException] = None
         self.slot: Optional[int] = None
         self.pages: list = []           # KVPagePool pages reserved for us
+        # True while the reservation covers the speculative verify scratch
+        # (the ladder's shed_reserve_extra() clears it)
+        self.scratch_reserved = False
+        # prefix sharing (engine-owned): refs on a committed page chain
+        # taken at submit, their KV rows, and the prompt positions whose
+        # prefill they skip. Scratch prefill: prefill_pos positions already
+        # computed into the request's [1, S_max + W] scratch caches
+        self.shared_pages: list = []
+        self.shared_kv: list = []
+        self.shared_len = 0
+        self.prefill_pos = 0
+        self.scratch = None
         self.cache_len = 0              # valid KV positions in our slot
         self.next_token: Optional[int] = None   # sampled, not yet fed back
         self.submit_time = time.perf_counter()
         self.token_times: List[float] = []
+        self._done = threading.Event()
 
     def append_token(self, tok: int) -> bool:
         """Record one emitted token; True when the request is complete
@@ -92,6 +107,7 @@ class Request:
             self.error = RequestTimeout(
                 f"serving request {self.rid}", self.deadline.timeout,
                 detail=f"{len(self.output_tokens)} token(s) generated")
+        self._done.set()
 
     @property
     def is_sampling(self) -> bool:
@@ -106,6 +122,10 @@ class Request:
     @property
     def done(self) -> bool:
         return self.state in TERMINAL_STATES
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the request is terminal; False on timeout."""
+        return self._done.wait(timeout)
 
     def result(self) -> np.ndarray:
         """prompt + generated tokens as one int64 array. Raises the typed

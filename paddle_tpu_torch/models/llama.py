@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.errors import NotInThisSlice
+from ..jit.capture import capture_step
 from ..nn import functional as F
 from ..nn.clip import ClipGradByGlobalNorm
 from ..nn.layers import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
@@ -296,15 +297,42 @@ class LlamaForCausalLM(nn.Module):
         return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
                 for _ in range(cfg.num_hidden_layers)]
 
-    @torch.inference_mode()
+    def _captured(self, name: str, impl):
+        """The model's capture wrapper for one step kind, built once and
+        stashed on the model (llama.py:285-306 stashes ``_slot_step`` and
+        ``_verify_step``), so every engine and drafter over these weights
+        shares its graphs. A graph reads the parameters by address: when
+        one is replaced (``.to()``, a new ``.data``), the stash is
+        rebuilt."""
+        stash = self.__dict__.get(name)
+        if stash is None or any(p.data_ptr() != ptr
+                                for p, ptr in zip(*stash[:2])):
+            plist = list(self.parameters())
+            stash = (plist, [p.data_ptr() for p in plist],
+                     capture_step(impl, inplace=(1,), name=f"llama{name}"))
+            self.__dict__[name] = stash
+        return stash[2]
+
+    def captured_step(self, name: str):
+        """The capture wrapper of one step kind (``"_decode_step"``,
+        ``"_slot_step"``, ``"_slot_step_logits"``, ``"_verify_step"``), or
+        None before that step's first call."""
+        stash = self.__dict__.get(name)
+        return None if stash is None else stash[2]
+
     def cached_step(self, tok, caches: List[KVCache], off) -> torch.Tensor:
         """One prefill (``[B, P]``) or decode (``[B, 1]``) step at a scalar
         offset; returns the last position's logits ``[B, vocab]``
-        (llama.py:310-343)."""
+        (llama.py:310-343). Captured per signature (``jit.capture``): give
+        the offset as a tensor, a Python int makes one graph per value."""
+        return self._captured("_decode_step", self._cached_step)(
+            tok, caches, off)
+
+    @torch.inference_mode()
+    def _cached_step(self, tok, caches, off):
         logits, _ = self.forward(tok, caches=caches, position_offset=off)
         return logits[:, -1, :]
 
-    @torch.inference_mode()
     def slot_step(self, tok, caches: List[KVCache], off, last_pos,
                   return_logits: bool = False):
         """Batch-slot serving step (llama.py:345-391): ``off`` is a ``[B]``
@@ -313,14 +341,38 @@ class LlamaForCausalLM(nn.Module):
         right). Returns the greedy next token per slot, ``[B]`` int32 on
         the device (``torch.argmax`` takes the first maximum, as
         ``np.argmax`` does); with ``return_logits`` also the last-token
-        logits rows ``[B, vocab]`` for host-side sampling."""
+        logits rows ``[B, vocab]`` for host-side sampling. Captured per
+        signature: on the card a replay's outputs are the graph's buffers,
+        valid until the next call."""
+        if return_logits:
+            step = self._captured("_slot_step_logits", self._slot_last)
+        else:
+            step = self._captured("_slot_step", self._slot_greedy)
+        return step(tok, caches, off, last_pos)
+
+    @torch.inference_mode()
+    def _slot_last(self, tok, caches, off, last_pos):
         logits, _ = self.forward(tok, caches=caches, position_offset=off)
         last = logits[torch.arange(logits.shape[0], device=logits.device),
                       last_pos.to(torch.int64)]
-        nxt = torch.argmax(last, dim=-1).to(torch.int32)
-        if return_logits:
-            return nxt, last
-        return nxt
+        return torch.argmax(last, dim=-1).to(torch.int32), last
+
+    def _slot_greedy(self, tok, caches, off, last_pos):
+        return self._slot_last(tok, caches, off, last_pos)[0]
+
+    def verify_step(self, tok, caches: List[KVCache], off) -> torch.Tensor:
+        """Speculative-verify / prefill-window step (llama.py:393-437):
+        scores a ``[B, W]`` window per slot at the slot's write cursor
+        ``off`` ``[B]``; window position i attends positions
+        ``<= off[b] + i``, so its argmax is the token a sequential decode
+        would emit there. Returns the per-position greedy argmax ``[B, W]``
+        int32. Captured per signature, like ``slot_step``."""
+        return self._captured("_verify_step", self._verify)(tok, caches, off)
+
+    @torch.inference_mode()
+    def _verify(self, tok, caches, off):
+        logits, _ = self.forward(tok, caches=caches, position_offset=off)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 16,
@@ -356,14 +408,18 @@ class LlamaForCausalLM(nn.Module):
         if use_cache:
             b, p_len = ids.shape
             caches = self.init_kv_caches(b, p_len + max_new_tokens)
-            last = self.cached_step(ids, caches, 0)
+            # the offset rides a device tensor: one decode signature for
+            # every position (a Python int would be one per value)
+            off = torch.zeros((), dtype=torch.int64, device=self.device)
+            last = self.cached_step(ids, caches, off)
             for t in range(max_new_tokens):
                 nxt, done = mask_eos(self._sample(last, temperature,
                                                   generator))
                 ids = torch.cat([ids, nxt.to(ids.dtype)], dim=1)
                 if done or t == max_new_tokens - 1:
                     break
-                last = self.cached_step(nxt, caches, p_len + t)
+                off.fill_(p_len + t)
+                last = self.cached_step(nxt, caches, off)
             return ids
         for _ in range(max_new_tokens):
             logits = self.forward(ids)

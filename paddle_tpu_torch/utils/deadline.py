@@ -1,16 +1,33 @@
 """Deadlines and the typed no-hang errors the serving engine raises.
 
 Counterpart of ``paddle_tpu/utils/deadline.py``, cut to what the serving
-path uses: the ``Deadline`` budget a request carries as its TTL, the typed
-``RequestTimeout`` / ``EngineOverloaded`` errors, and the env-knob readers.
+path and its gateway use: the ``Deadline`` budget a request carries as its
+TTL and a socket exchange carries across its reads, the typed
+``RequestTimeout`` / ``EngineOverloaded`` errors, the exact socket read the
+gateway's framing is built on (``recv_exact``), the flight-recorder hook
+(``set_incident_hook``) and the env-knob readers.
 """
 from __future__ import annotations
 
 import os
+import socket
 import time
 
 __all__ = ["DeadlineExceeded", "RequestTimeout", "EngineOverloaded",
-           "Deadline", "env_timeout", "env_int"]
+           "Deadline", "set_incident_hook", "recv_exact", "env_timeout",
+           "env_int"]
+
+# flight-recorder hook (observability/__init__ installs trace's
+# record_incident): every DeadlineExceeded construction passes the new
+# error to it, so a typed timeout carries its own span timeline. An
+# injected callback, so this bottom-layer module never imports upward.
+_INCIDENT_HOOK = None
+
+
+def set_incident_hook(cb) -> None:
+    """Install (or clear, with None) the typed-deadline incident hook."""
+    global _INCIDENT_HOOK
+    _INCIDENT_HOOK = cb
 
 
 class DeadlineExceeded(TimeoutError):
@@ -30,6 +47,11 @@ class DeadlineExceeded(TimeoutError):
         if detail:
             msg += f" — {detail}"
         super().__init__(msg)
+        if _INCIDENT_HOOK is not None:
+            try:
+                _INCIDENT_HOOK(self)
+            except Exception:  # noqa: BLE001 — the recorder must never
+                pass           # mask the typed error being raised
 
 
 class RequestTimeout(DeadlineExceeded):
@@ -51,18 +73,49 @@ class EngineOverloaded(DeadlineExceeded):
 
 
 class Deadline:
-    """One time budget; ``Deadline(None)`` never expires."""
+    """One time budget shared across the steps of a blocking operation;
+    ``Deadline(None)`` never expires."""
 
-    __slots__ = ("timeout", "_expiry")
+    __slots__ = ("timeout", "what", "_expiry")
 
-    def __init__(self, timeout: float | None):
+    def __init__(self, timeout: float | None, what: str = ""):
         self.timeout = timeout
+        self.what = what
         self._expiry = None if timeout is None \
             else time.monotonic() + max(0.0, timeout)
 
     @property
     def expired(self) -> bool:
         return self._expiry is not None and time.monotonic() >= self._expiry
+
+    def remaining(self, floor: float = 0.0) -> float | None:
+        """Budget left (at least ``floor``), or None when unbounded. A
+        positive floor keeps socket timeouts from reaching zero; the
+        expiry itself is read from ``expired``."""
+        if self._expiry is None:
+            return None
+        return max(floor, self._expiry - time.monotonic())
+
+
+def recv_exact(sock, n: int, dl: Deadline | None = None,
+               closed_exc: type = ConnectionError,
+               what: str = "peer closed mid-message") -> bytes:
+    """Read exactly ``n`` bytes. With a Deadline every chunk re-arms the
+    socket timeout from the remaining budget and expiry is checked between
+    chunks, so a peer trickling one byte per poll cannot stretch one read
+    past it. Without one the read is unbounded (a server handler thread,
+    which owns its own teardown)."""
+    buf = b""
+    while len(buf) < n:
+        if dl is not None:
+            if dl.expired:
+                raise socket.timeout("read deadline exhausted")
+            sock.settimeout(dl.remaining(floor=0.01))
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise closed_exc(what)
+        buf += chunk
+    return buf
 
 
 def env_timeout(name: str, default: float) -> float:

@@ -804,3 +804,175 @@ def test_training_paths_reach_the_multi_tensor_kernels(cuda_device):
         for _ in range(2):
             hstep(batch)
         assert moved(c) == want
+
+
+# ---------------------------------------------------------------------------
+# step capture: the serving steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _capture_model(device, dtype=torch.float32, seed=4):
+    cfg = LlamaConfig.tiny(vocab=128, hidden=256, layers=2, heads=4,
+                           inter=512, seq=128)
+    cfg.num_key_value_heads = 2
+    return LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=seed)
+
+
+def _step_script(m, device, n=5, b=4, s_max=128, seed=0, caches=None):
+    """Decode steps ([b, 1], the decode kernel) and verify windows ([b, 3],
+    the masked path) on one set of caches; every output cloned at once
+    (a replay's outputs are the graph's buffers)."""
+    rng = np.random.default_rng(seed)
+    if caches is None:
+        caches = m.init_kv_caches(b, s_max)
+    outs = []
+    for i in range(n):
+        tok = torch.from_numpy(rng.integers(0, 128, (b, 1))).to(device)
+        off = torch.tensor([i, 3 * i, 10 + i, 40], dtype=torch.int32,
+                           device=device)
+        nxt, last = m.slot_step(tok, caches, off,
+                                torch.zeros(b, dtype=torch.int32,
+                                            device=device),
+                                return_logits=True)
+        outs += [nxt.clone(), last.clone()]
+        outs.append(m.slot_step(tok, caches, off, torch.zeros(
+            b, dtype=torch.int32, device=device)).clone())
+        win = torch.from_numpy(rng.integers(0, 128, (b, 3))).to(device)
+        outs.append(m.verify_step(win, caches, off + 1).clone())
+    torch.cuda.synchronize()
+    return outs, caches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_slot_and_verify_steps_equal_eager_bit_for_bit(
+        cuda_device, dtype):
+    from paddle_tpu_torch.jit import capture
+    m = _capture_model(cuda_device, dtype)
+    capture.set_step_capture_enabled(False)
+    try:
+        want, want_caches = _step_script(m, cuda_device)
+    finally:
+        capture.set_step_capture_enabled(True)
+    before = ragged_decode_attention.launches
+    got, got_caches = _step_script(m, cuda_device)
+    # 2 decode-kernel layers x 2 [b, 1] calls x 5 steps, replays included
+    assert ragged_decode_attention.launches - before == 2 * 2 * 5
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for (gk, gv), (wk, wv) in zip(got_caches, want_caches):
+        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    for name in ("_slot_step", "_slot_step_logits", "_verify_step"):
+        info = m.captured_step(name).cache_info()
+        assert info["lowerings"] == 1 and info["hits"] == 4, (name, info)
+        assert info["bailouts"] == 0
+    assert capture.capture_info()["graphs"] >= 3
+
+
+@pytest.mark.cuda
+def test_moved_cache_is_a_new_signature_on_card(cuda_device):
+    """Two live sets of caches (two addresses) are two signatures, and
+    each set's replays compute on its own caches."""
+    from paddle_tpu_torch.jit import capture
+    m = _capture_model(cuda_device)
+    first, second = m.init_kv_caches(4, 128), m.init_kv_caches(4, 128)
+    got = [_step_script(m, cuda_device, n=3, caches=c, seed=i)[0]
+           for i, c in enumerate((first, second, first))]
+    info = m.captured_step("_verify_step").cache_info()
+    assert info["lowerings"] == 2 and info["signatures"] == 2
+    capture.set_step_capture_enabled(False)
+    try:
+        fresh = [m.init_kv_caches(4, 128) for _ in range(2)]
+        want = [_step_script(m, cuda_device, n=3, caches=c, seed=i)[0]
+                for i, c in enumerate((fresh[0], fresh[1], fresh[0]))]
+    finally:
+        capture.set_step_capture_enabled(True)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["item", "python_offset"])
+def test_host_sync_in_a_step_bails_out_on_card(cuda_device, sync):
+    from paddle_tpu_torch.jit import capture
+    m = _capture_model(cuda_device)
+    caches = m.init_kv_caches(2, 64)
+    tok = torch.ones((2, 1), dtype=torch.int64, device=cuda_device)
+
+    if sync == "item":
+        def fn(t, c):
+            return t * int(t.sum().item())
+
+        step = capture.capture_step(fn, inplace=(1,))
+        args = [(tok, caches)] * 3
+    else:
+        # cached_step with a Python int offset copies it to the card
+        step = capture.capture_step(m._cached_step, inplace=(1,))
+        args = [(tok, caches, 5)] * 3
+    outs = [step(*a).clone() for a in args]
+    info = step.cache_info()
+    assert info["bailouts"] == 1 and info["fallback_calls"] >= 2
+    assert info["lowerings"] == 0
+    assert step.bailout_reason()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", ["spec_ngram", "spec_model", "prefix",
+                                     "chunked"])
+def test_feature_engines_on_card_finish_with_their_counters(cuda_device,
+                                                            feature):
+    m = _capture_model(cuda_device)
+    rng = np.random.default_rng(1)
+    common = rng.integers(0, 128, 40)
+    prompts = [np.concatenate([common, rng.integers(0, 128, n)])
+               for n in (3, 7, 12)]
+    base = ServingEngine(m, max_batch=4, max_seq_len=128,
+                         page_size=16).generate(prompts, max_new_tokens=8)
+    kw = {"spec_ngram": dict(spec_k=3),
+          "spec_model": dict(spec_k=3, drafter="model", draft_model=m),
+          "prefix": dict(prefix_sharing=True),
+          "chunked": dict(prefill_chunk=16)}[feature]
+    eng = ServingEngine(m, max_batch=4, max_seq_len=128, page_size=16, **kw)
+    outs = []
+    for p in prompts:                       # donors commit before borrowers
+        r = eng.submit(p, max_new_tokens=8)
+        eng.run()
+        outs.append(r.result())
+    for a, b in zip(outs, base):
+        np.testing.assert_array_equal(a, b)
+    info = eng.info()
+    assert info["finished"] == 3 and info["step"]["bailouts"] == 0
+    if feature.startswith("spec"):
+        assert info["spec"]["verify_steps"] > 0
+        assert info["spec"]["verify"]["bailouts"] == 0
+    elif feature == "prefix":
+        assert info["shared_prefix_joins"] == 2
+        assert info["prefill_pages_saved"] == 4
+    else:
+        assert info["chunked_prefills"] == 3 and info["prefill_chunks"] >= 9
+        assert info["window"]["bailouts"] == 0
+
+
+@pytest.mark.cuda
+def test_gateway_round_trip_on_card(cuda_device):
+    from paddle_tpu_torch.inference.serving.gateway import (GatewayClient,
+                                                            ServingGateway)
+    m = _capture_model(cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 128, n) for n in (4, 9, 17)]
+    want = ServingEngine(m, max_batch=4, max_seq_len=128).generate(
+        prompts, max_new_tokens=6)
+    gw = ServingGateway(ServingEngine(m, max_batch=4, max_seq_len=128))
+    try:
+        cli = GatewayClient("127.0.0.1", gw.port)
+        got = [cli.generate(p, max_new_tokens=6) for p in prompts]
+        assert cli.health()["ready"]
+        assert "pt_step_capture_hits" in cli.metrics()
+        cli.close()
+    finally:
+        assert gw.stop(drain=True, timeout=30.0)
+    assert gw.threads() == []
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -47,6 +47,11 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.optimizer.lbfgs\n"
         "import paddle_tpu_torch.ops.kernels.multi_tensor\n"
         "import paddle_tpu_torch.amp, paddle_tpu_torch.parallel\n"
+        "import paddle_tpu_torch.jit.capture\n"
+        "import paddle_tpu_torch.observability.metrics\n"
+        "import paddle_tpu_torch.inference.serving.prefix\n"
+        "import paddle_tpu_torch.inference.serving.speculative\n"
+        "import paddle_tpu_torch.inference.serving.gateway\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
         "             None and (m == 'paddle_tpu' or m.startswith(\n"
         "             'paddle_tpu.') or m.split('.')[0] == 'jax'))\n"

@@ -20,8 +20,8 @@ from paddle_tpu.inference.serving import ServingEngine as JaxEngine
 from paddle_tpu.models import LlamaConfig as JaxConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu_torch.inference.serving import (
-    KVPagePool, NotInThisSlice, PoolExhausted, RequestState,
-    SamplingUnsupported, ServingEngine)
+    KVPagePool, PoolExhausted, RequestState, SamplingUnsupported,
+    ServingEngine)
 from paddle_tpu_torch.models.llama import (
     LlamaConfig, LlamaForCausalLM, load_paddle_tpu_state)
 from paddle_tpu_torch.utils.deadline import (
@@ -141,22 +141,61 @@ def test_max_queue_overflow_raises_engine_overloaded():
     assert eng.info()["finished"] == 2
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"spec_k": 2}, {"prefix_sharing": True}, {"prefill_chunk": 8}])
-def test_later_slice_features_raise_not_implemented(kwargs):
-    with pytest.raises(NotImplementedError) as ei:
-        ServingEngine(_port(), max_batch=2, **kwargs)
-    assert isinstance(ei.value, NotInThisSlice)
-    assert "ROADMAP" in str(ei.value)
+FEATURES = {
+    # feature: (engine keyword, environment variable and value)
+    "spec": ({"spec_k": 2}, ("PT_SERVE_SPEC_K", "2")),
+    "prefix": ({"prefix_sharing": True}, ("PT_SERVE_PREFIX_SHARE", "1")),
+    "chunk": ({"prefill_chunk": 8}, ("PT_SERVE_PREFILL_CHUNK", "8")),
+}
+_COUNTERS = ("prefills", "decode_steps", "tokens_generated",
+             "prefill_chunks", "chunked_prefills", "shared_prefix_joins",
+             "prefill_pages_saved")
 
 
-@pytest.mark.parametrize("env", [
-    ("PT_SERVE_SPEC_K", "3"), ("PT_SERVE_PREFIX_SHARE", "1"),
-    ("PT_SERVE_PREFILL_CHUNK", "16")])
-def test_later_slice_env_knobs_raise_not_implemented(monkeypatch, env):
-    monkeypatch.setenv(*env)
-    with pytest.raises(NotInThisSlice):
-        ServingEngine(_port(), max_batch=2)
+def _feature_run(make_engine):
+    """Two prompts over a common 16-token prefix, then a late join of a
+    third: every feature has something to do (a verify window, a shared
+    page, a 20-token prompt cut into windows of 8)."""
+    common = _prompt(16, seed=9)
+    prompts = [np.concatenate([common, _prompt(n, seed=s)])
+               for n, s in ((4, 1), (7, 2))]
+    late = np.concatenate([common, _prompt(5, seed=3)])
+    eng, outs = _serve_with_late_join(make_engine, prompts, late, 6)
+    info = eng.info()
+    return outs, {k: info[k] for k in _COUNTERS}, info
+
+
+def _check_feature(feature, jax_kw, port_kw):
+    jm, pm = _pair()
+    want, want_c, _ = _feature_run(lambda: JaxEngine(
+        jm, max_batch=2, max_seq_len=64, page_size=8, **jax_kw))
+    got, got_c, info = _feature_run(lambda: ServingEngine(
+        pm, max_batch=2, max_seq_len=64, page_size=8, **port_kw))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert got_c == want_c
+    if feature == "spec":
+        assert info["spec"]["verify_steps"] > 0
+    elif feature == "prefix":
+        assert info["shared_prefix_joins"] > 0
+    else:
+        assert info["chunked_prefills"] > 0
+
+
+@pytest.mark.parametrize("feature", sorted(FEATURES))
+def test_feature_by_keyword_matches_jax_engine(feature):
+    """Each serving feature turned on by its engine keyword: tokens bitwise
+    the JAX engine's (fp32, CPU) and the counters equal."""
+    kw = FEATURES[feature][0]
+    _check_feature(feature, kw, kw)
+
+
+@pytest.mark.parametrize("feature", sorted(FEATURES))
+def test_feature_env_knob_matches_jax_engine(monkeypatch, feature):
+    """The same, each feature turned on by its environment variable, which
+    both engines read at construction."""
+    monkeypatch.setenv(*FEATURES[feature][1])
+    _check_feature(feature, {}, {})
 
 
 def test_sampled_request_reproducible_and_greedy_neighbour_unchanged():
