@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--out PATH]
+    python3 chip_smoke.py [--seed N] [--out PATH] [--mesh-backend gloo|nccl]
+                          [--mesh-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -95,13 +96,37 @@ fails:
 12. U1 and U2 over the 8-layer training model's 75 fp32 tensors (1.881e9
    elements), held against their plain versions, then timed the same way
    beside ``torch._foreach_norm`` and ``torch.optim.AdamW(fused=True)``
-   (same math, other rounding) and their byte bounds.
+   (same math, other rounding) and their byte bounds;
+13. phase_mesh, multi-GPU training part 1, on ranks that are processes
+   sharing the one card over **gloo** (NCCL refuses two ranks on one
+   device), spawned after the kernels are built (``_build.py``'s file lock
+   makes each rank load that build), each with a deadline: 4 ranks of
+   dp2 x mp2 run the small fp32 model of phase 7 for 3 steps (losses equal
+   to one rank's on the card at rtol 1e-5, parameters at AdamW epsilon
+   1e-3 within rtol 1e-4 / atol 1e-5), then 4 layers at llama_7b width
+   (S=2048, global batch 2, bf16 amp, remat, AdamW(1e-4), a global-norm
+   clip; 2 warm-up + 5 timed steps: losses finite and falling, equal on
+   every rank, per step and rank K2 2 x layers, K3 and K4 layers, U1 and
+   U2 once); then 2 ranks: sep2 ring and sep2 Ulysses at the same width
+   and depth (S=4096, 2048 a rank, batch 1; 1 warm-up + 1 timed step;
+   rank i of the ring launches K2 2 (i+1) x layers, K3 and K4 (i+1) x
+   layers a step, Ulysses 2 x layers and layers; the first losses equal at
+   one bf16 step), ``fused_linear_cross_entropy_tp`` at N=H=4096, V=32000
+   over mp2 against the unsharded K5-K7 on the rank (m, lse and loss per
+   row, dh per row, the dW shard per column; K5, K6 and K7 once each),
+   and the dp2 grad sync exact, int8 and fp8 (2 layers, S=1024, 3 steps:
+   wire / logical at most 0.27 for int8, losses within 1% of exact).
+   Times are the gloo path's, labelled so, with no bound claimed.
+   ``--mesh-backend nccl --mesh-only`` runs the same phase (and only it,
+   after the build) with one card a rank over NCCL, on a machine with 4
+   cards; with no arguments the script needs one card.
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
-``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"kernels":
-[...]}`` (K1-K7, U1 and U2),
+``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"mesh": ...}``,
+``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
+launches),
 ``{"serving": ...}``, the total run time, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. The run uses one card: it shows torch
 only the first of ``CUDA_VISIBLE_DEVICES`` (default 0). ``--out`` also writes every
@@ -1836,15 +1861,585 @@ def phase_multi_tensor_timing(torch, mt, shapes):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase_mesh: multi-GPU training, part 1, on ranks that share the card
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS, MESH_SEQ, MESH_BATCH = 4, 2048, 2
+MESH_WARMUP, MESH_STEPS = 2, 5
+SEP_SEQ, SEP_WARMUP, SEP_STEPS = 4096, 1, 1
+QUANT_LAYERS, QUANT_SEQ, QUANT_STEPS = 2, 1024, 3
+TP_N, TP_H, TP_V = 4096, 4096, 32000
+RANK_TIMEOUT_S = 600
+MESH_LABEL = {"gloo": "gloo, ranks share one card",
+              "nccl": "nccl, one card a rank"}
+INT8_WIRE_SHARE = 0.27       # (1 + 4/256) / 4 = 0.254, padding aside
+# the quantized dp2 losses against the exact run's, three steps: about
+# three times the largest gap read on an H100 (int8 9.5e-4, fp8 3.5e-5)
+QUANT_LOSS_RTOL = {"int8": 3e-3, "fp8": 3e-4}
+# synthetic grads for the direct grad-sync check: the largest grad of the
+# llama_7b layer (the MLP's [11008, 4096]) and one with an odd tail block
+QUANT_SYNC_SHAPES = ((11008, 4096), (4097 * 13,))
+
+
+def mesh_config(LlamaConfig, layers, seq, **knobs):
+    base = LlamaConfig.llama_7b()
+    return LlamaConfig(vocab_size=base.vocab_size,
+                       hidden_size=base.hidden_size,
+                       intermediate_size=base.intermediate_size,
+                       num_hidden_layers=layers,
+                       num_attention_heads=base.num_attention_heads,
+                       max_position_embeddings=seq, **knobs)
+
+
+def mesh_batch(torch, vocab, batch, seq, seed):
+    ids = np.random.RandomState(seed).randint(0, vocab, (batch, seq + 1))
+    return {"input_ids": torch.from_numpy(ids[:, :-1]).to(DEVICE),
+            "labels": torch.from_numpy(ids[:, 1:]).to(DEVICE)}
+
+
+def small_mesh_config(LlamaConfig):
+    """phase_small_train's fp32 model and batch (GQA, ignored labels)."""
+    cfg = LlamaConfig.tiny(vocab=64, hidden=256, layers=2, heads=4,
+                           inter=512, seq=64)
+    cfg.num_key_value_heads = 2
+    ids = np.random.RandomState(1).randint(0, 64, (2, 65))
+    labels = ids[:, 1:].copy()
+    labels[:, ::7] = -100
+    return cfg, {"input_ids": ids[:, :-1], "labels": labels}
+
+
+def small_mesh_run(torch, LlamaConfig, LlamaForCausalLM, build, AdamW,
+                   mesh=None):
+    """Three fp32 steps of the small model at AdamW epsilon 1e-3: losses
+    and the (gathered) parameters."""
+    from paddle_tpu_torch.models.llama import paddle_tpu_state
+    cfg, batch = small_mesh_config(LlamaConfig)
+    m = LlamaForCausalLM(cfg, device=DEVICE, seed=5, mesh=mesh)
+    opt = AdamW(learning_rate=1e-3, epsilon=1e-3, parameters=m.parameters())
+    step = build(m, opt, mesh=mesh, remat=True, amp=False)
+    losses = [float(step(batch)) for _ in range(3)]
+    return losses, paddle_tpu_state(m)
+
+
+def kernel_counters(fa, fce, mt):
+    return {"flash_fwd": fa.flash_attention_fwd,
+            "flash_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_ce_fwd": fce.fused_ce_fwd,
+            "fused_ce_bwd_dh": fce.fused_ce_bwd_dh,
+            "fused_ce_bwd_dw": fce.fused_ce_bwd_dw,
+            "multi_tensor_sumsq": mt.multi_tensor_sumsq_finite,
+            "multi_tensor_adam": mt.multi_tensor_adam}
+
+
+def comm_sites(comms, steps):
+    """Per-site comm of the timed steps, per step: count, host ms,
+    logical / wire / staged bytes."""
+    info = comms.comm_info()
+    return {site: {"count": s["count"] / steps, "ms": s["ms"] / steps,
+                   "bytes_logical": s["bytes_logical"] / steps,
+                   "bytes_wire": s["bytes_wire"] / steps,
+                   "bytes_staged": s["staged_bytes"] / steps,
+                   "quantized": s["quantized"]}
+            for site, s in info["sites"].items()}
+
+
+def mesh_train(torch, mods, cfg, mesh, batch, warmup, steps, clip=None,
+               seed=0, expect=None):
+    """Train ``warmup + steps`` steps of the hybrid step on ``mesh`` (bf16
+    amp, remat, AdamW(1e-4)); the kernel counters and the comm records
+    are zeroed after the warm-up and read after the timed steps."""
+    comms, counters = mods["comms"], mods["counters"]
+    model = mods["LlamaForCausalLM"](cfg, device=DEVICE, seed=seed,
+                                     mesh=mesh)
+    opt = mods["AdamW"](learning_rate=1e-4, parameters=model.parameters(),
+                        grad_clip=clip)
+    step = mods["build"](model, opt, mesh=mesh, remat=True, amp=True)
+    losses = [float(step(batch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comms.comm_clear()
+    for kern in counters.values():
+        kern.launches = 0        # the main path's run starts here
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = {k: kern.launches for k, kern in counters.items()}
+    out = {"losses": losses, "step_ms": step_ms,
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "comm": comm_sites(comms, steps),
+           "params_local": sum(p.numel() for p in model.parameters())}
+    del model, opt, step
+    release(torch)
+    return out
+
+
+def mesh_mods():
+    from paddle_tpu_torch.distributed import comms
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               build_hybrid_train_step)
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_ce as fce
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    from paddle_tpu_torch.optimizer import AdamW
+    return {"comms": comms, "LlamaConfig": LlamaConfig,
+            "LlamaForCausalLM": LlamaForCausalLM,
+            "build": build_hybrid_train_step, "AdamW": AdamW, "fa": fa,
+            "fce": fce, "mt": mt, "counters": kernel_counters(fa, fce, mt)}
+
+
+def job_dp_mp(torch, rank, seed):
+    """4 ranks, dp2 x mp2: the small fp32 equality run, then 4 layers at
+    llama_7b width."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mods = mesh_mods()
+    mesh = mesh_mod.init_mesh({"dp": 2, "mp": 2})
+    out = {"coords": dict(mesh.coords)}
+    losses, state = small_mesh_run(torch, mods["LlamaConfig"],
+                                   mods["LlamaForCausalLM"], mods["build"],
+                                   mods["AdamW"], mesh)
+    out["small"] = {"losses": losses, "state": state if rank == 0 else None}
+    cfg = mesh_config(mods["LlamaConfig"], MESH_LAYERS, MESH_SEQ)
+    batch = mesh_batch(torch, cfg.vocab_size, MESH_BATCH, MESH_SEQ, seed)
+    out["train"] = mesh_train(torch, mods, cfg, mesh, batch, MESH_WARMUP,
+                              MESH_STEPS, ClipGradByGlobalNorm(1.0), seed)
+    return out
+
+
+def tp_fused_ce(torch, mods, mesh):
+    """fused_linear_cross_entropy_tp on this rank's vocab half, held
+    against the unsharded K5-K7 on the same rank; m and lse merged over mp
+    by hand (what the entry point does inside) beside them."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_linear_cross_entropy_tp
+    fce, comms, counters = mods["fce"], mods["comms"], mods["counters"]
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    h = torch.randn(TP_N, TP_H, generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    w = (0.05 * torch.randn(TP_H, TP_V, generator=g, device=DEVICE)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, TP_V, (TP_N,), generator=g, device=DEVICE)
+    gr = torch.randn(TP_N, generator=g, device=DEVICE) / TP_N
+    n, r = mesh.shape["mp"], mesh.coords["mp"]
+    vl = TP_V // n
+    off = r * vl
+    w_shard = w[:, off:off + vl].contiguous()
+    # the unsharded reference on this rank (K5-K7 on the whole vocab)
+    m, l, z = fce.fused_ce_fwd(h, w, labels)
+    lse = (m + torch.log(l)).contiguous()
+    want_dh = fce.fused_ce_bwd_dh(h, w, labels, lse, gr)
+    want_dw = fce.fused_ce_bwd_dw(h, w, labels, lse, gr)[:, off:off + vl]
+    ms, ls, zs = fce.fused_ce_fwd(h, w_shard, labels, off)
+    M = comms.wire_all_reduce(ms, "mp", "max", exact=True, mesh=mesh)
+    L = comms.wire_all_reduce(ls * torch.exp(ms - M), "mp", "sum",
+                              exact=True, mesh=mesh)
+
+    def tp_call():
+        hh = h.detach().requires_grad_(True)
+        ww = w_shard.detach().requires_grad_(True)
+        loss = fused_linear_cross_entropy_tp(hh, ww, labels, "mp")
+        loss.backward(gr)
+        return loss.detach(), hh.grad, ww.grad
+
+    for kern in counters.values():
+        kern.launches = 0        # the entry point's own launches
+    loss, dh, dw = tp_call()
+    torch.cuda.synchronize()
+    launches = {k: counters[k].launches for k in
+                ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")}
+    errs, shares, bad = {}, {}, []
+    for name, got, want in (("m", M, m), ("lse", M + torch.log(L), lse),
+                            ("loss", loss, lse - z)):
+        errs[name] = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=1e-4, rtol=1e-5):
+            bad.append(name)
+    for name, got, want in (("dh", dh, want_dh), ("dW", dw.t(),
+                                                   want_dw.t())):
+        ok, errs[name], shares[name] = flash_close(got, want, "bfloat16",
+                                                   2.0)
+        if not ok:
+            bad.append(name)
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times[1:]))
+
+    def unsharded():
+        hh = h.detach().requires_grad_(True)
+        ww = w.detach().requires_grad_(True)
+        fce.fused_linear_cross_entropy(hh, ww, labels).backward(gr)
+
+    return {"bad": bad, "max_abs_err": errs, "tol_share": shares,
+            "launches": launches, "tp_ms": host_ms(tp_call),
+            "unsharded_ms": host_ms(unsharded), "vocab_local": vl}
+
+
+def ring_check(torch, mods, mesh, cfg):
+    """ring_attention at one sep layer's shapes (bf16, causal; this rank's
+    chunk of SEP_SEQ): its output and its q/k/v grads against
+    flash_attention on the whole sequence, sliced to this rank's rows. The
+    ring rounds each block's O to bf16 before the fp32 merge and sums the
+    grads of the blocks it meets in bf16: two steps of the row's max|want|
+    for O, two per block met (n) for the grads."""
+    from paddle_tpu_torch.parallel.context_parallel import ring_attention
+    fa = mods["fa"]
+    n, i = mesh.shape["sep"], mesh.coords["sep"]
+    H = cfg.num_attention_heads
+    D = cfg.hidden_size // H
+    q, k, v, do = flash_inputs(torch, 1, SEP_SEQ, SEP_SEQ, H, H, D,
+                               torch.bfloat16, 7)     # the same on each rank
+    rows = slice(i * SEP_SEQ // n, (i + 1) * SEP_SEQ // n)
+    full = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = fa.flash_attention(*full, causal=True)
+    o.backward(do)
+    want = [o.detach()[:, rows]] + [t.grad[:, rows] for t in full]
+    loc = [t[:, rows].detach().clone().requires_grad_(True)
+           for t in (q, k, v)]
+    o = ring_attention(*loc, group="sep", causal=True, mesh=mesh)
+    o.backward(do[:, rows].contiguous())
+    torch.cuda.synchronize()
+    errs, shares, bad = {}, {}, []
+    for name, got, w, mult in zip(("O", "dq", "dk", "dv"),
+                                  [o.detach()] + [t.grad for t in loc],
+                                  want, (2.0, 2.0 * n, 2.0 * n, 2.0 * n)):
+        ok, errs[name], shares[name] = flash_close(got, w, "bfloat16", mult)
+        if not ok:
+            bad.append(name)
+    return {"bad": bad, "max_abs_err": errs, "tol_share": shares}
+
+
+def quant_sync_check(torch, mods, mesh):
+    """The quantized dp grad sync on synthetic grads (QUANT_SYNC_SHAPES),
+    held element by element against their exact mean, which every rank
+    makes itself from every rank's seed. Bounds, for n ranks whose grads
+    have absmax a_r: int8 rounds each rank's grad and the reduced sum
+    once, each within half a step of absmax / 127, so the mean is within
+    sum(a_r) / (127 n); fp8 e4m3 rounds each rank's value within 2^-4 of
+    it and the reduced sum within 2^-4 of that sum (which may have grown
+    by 2^-4), plus half its smallest subnormal (absmax 2^-10 / 448) each
+    time. 1% slack covers the fp32 scales."""
+    comms = mods["comms"]
+    n, r = mesh.shape["dp"], mesh.coords["dp"]
+    out = {}
+    for wire in ("int8", "fp8"):
+        errs, shares = [], []
+        for j, shape in enumerate(QUANT_SYNC_SHAPES):
+            gs = [(1.0 + q) * torch.randn(
+                shape, device=DEVICE, generator=torch.Generator(
+                    device=DEVICE).manual_seed(100 * j + q))
+                for q in range(n)]
+            want = sum(gs) / n
+            with comms.quantized(wire):
+                got = comms.grad_sync([gs[r]], mesh, "dp", op="avg",
+                                      owner="smoke.quant_sync")[0]
+            amax = sum(float(g.abs().max()) for g in gs)
+            if wire == "int8":
+                bound = amax / (127 * n)
+            else:
+                bound = (2.0 ** -4 * (2 + 2.0 ** -4)
+                         * sum(g.abs() for g in gs)
+                         + 3 * 2.0 ** -10 / 448 * amax) / n
+            diff = (got - want).abs()
+            errs.append(float(diff.max()))
+            shares.append(float((diff / (1.01 * bound)).max()))
+        out[wire] = {"max_abs_err": max(errs), "tol_share": max(shares)}
+    return out
+
+
+def job_sep_tp_quant(torch, rank, seed):
+    """2 ranks: sep2 ring then Ulysses at llama_7b width, the TP fused
+    loss, the quantized dp grad sync."""
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mods = mesh_mods()
+    out = {}
+    LlamaConfig = mods["LlamaConfig"]
+    mesh = mesh_mod.init_mesh({"sep": 2})
+    for mode in ("ring", "ulysses"):
+        cfg = mesh_config(LlamaConfig, MESH_LAYERS, SEP_SEQ,
+                          context_parallel=mode)
+        batch = mesh_batch(torch, cfg.vocab_size, 1, SEP_SEQ, seed + 1)
+        out[mode] = mesh_train(torch, mods, cfg, mesh, batch, SEP_WARMUP,
+                               SEP_STEPS, seed=seed)
+    out["sep_rank"] = mesh.coords["sep"]
+    out["ring_check"] = ring_check(torch, mods, mesh, cfg)
+    release(torch)
+    mesh = mesh_mod.init_mesh({"mp": 2})
+    out["tp"] = tp_fused_ce(torch, mods, mesh)
+    release(torch)
+    mesh = mesh_mod.init_mesh({"dp": 2})
+    cfg = mesh_config(LlamaConfig, QUANT_LAYERS, QUANT_SEQ)
+    batch = mesh_batch(torch, cfg.vocab_size, 2, QUANT_SEQ, seed + 2)
+    comms = mods["comms"]
+    out["sync_check"] = quant_sync_check(torch, mods, mesh)
+    release(torch)
+    for wire in (None, "int8", "fp8"):
+        if wire is None:
+            out["exact"] = mesh_train(torch, mods, cfg, mesh, batch, 0,
+                                      QUANT_STEPS, seed=seed)
+            continue
+        with comms.quantized(wire):
+            out[wire] = mesh_train(torch, mods, cfg, mesh, batch, 0,
+                                   QUANT_STEPS, seed=seed)
+    return out
+
+
+MESH_JOBS = {"dp_mp": job_dp_mp, "sep_tp_quant": job_sep_tp_quant}
+
+
+def mesh_rank(rank, world, root, job, seed, backend):
+    """One rank: join the group (``backend`` named: gloo with every rank on
+    card 0, or nccl with rank r on card r) through a FileStore in
+    ``root``, run the job, pickle its result; a failure writes its
+    traceback."""
+    import pickle
+    import traceback
+    import torch
+    try:
+        import torch.distributed as dist
+        from paddle_tpu_torch.distributed import init_parallel_env
+        torch.set_num_threads(2)           # 8 cores, up to 4 ranks
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = 0 if backend == "gloo" else rank
+        torch.cuda.set_device(card)
+        init_parallel_env(backend=backend, device=f"cuda:{card}",
+                          store=dist.FileStore(os.path.join(root, "store"),
+                                               world),
+                          rank=rank, world_size=world,
+                          timeout=RANK_TIMEOUT_S)
+        out = MESH_JOBS[job](torch, rank, seed)
+        with open(os.path.join(root, f"out{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — the parent reports it and fails
+        with open(os.path.join(root, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+    # skip the interpreter's teardown, where a gloo rank's native threads
+    # can abort a process whose result is already written
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def run_ranks(job, world, root, seed, backend):
+    """Spawn ``world`` ranks of ``job``; fail if any is late or fails."""
+    import torch.multiprocessing as mp
+    import pickle
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, root, job, seed, backend))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errs = []
+    for r in range(world):
+        path = os.path.join(root, f"err{r}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                errs.append(f"--- rank {r} ---\n{f.read()}")
+    check(not late and not errs and all(p.exitcode == 0 for p in procs),
+          f"mesh job {job}: late ranks {late}, exit codes "
+          f"{[p.exitcode for p in procs]}\n" + "\n".join(errs))
+    out = []
+    for r in range(world):
+        with open(os.path.join(root, f"out{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
+    """Multi-GPU training, part 1, on ranks that are processes: by default
+    sharing the one card over gloo (NCCL refuses two ranks on one device);
+    with ``--mesh-backend nccl`` one card a rank over NCCL (4 cards). The
+    kernels are built before the ranks start (the file lock in _build.py
+    makes a rank load that build); each rank has a deadline. Returns the
+    mesh line's dict."""
+    backend = args.mesh_backend
+    if backend == "nccl":
+        check(torch.cuda.device_count() >= 4,
+              f"--mesh-backend nccl needs 4 cards, found "
+              f"{torch.cuda.device_count()}")
+    root = os.path.join(args.mesh_dir, "ranks")
+    t0 = time.perf_counter()
+    release(torch)
+    want_losses, want_state = small_mesh_run(
+        torch, LlamaConfig, LlamaForCausalLM, build, AdamW)
+    release(torch)
+    dp_mp = run_ranks("dp_mp", 4, root, args.seed, backend)
+    small = dp_mp[0]["small"]
+    for res in dp_mp:
+        check(np.allclose(res["small"]["losses"], want_losses, rtol=1e-5),
+              f"dp2 x mp2 fp32 losses {res['small']['losses']} vs one rank "
+              f"{want_losses}")
+    apart = {n: int((~np.isclose(small["state"][n], want, rtol=1e-4,
+                                 atol=1e-5)).sum())
+             for n, want in want_state.items()}
+    check(sum(apart.values()) == 0,
+          "dp2 x mp2 fp32 parameters differ from one rank's: "
+          + str({n: c for n, c in apart.items() if c}))
+    log(f"mesh dp2 x mp2 fp32 (small): losses {small['losses']} = one "
+        f"rank's {want_losses} (rtol 1e-5), parameters at rtol 1e-4 / atol "
+        f"1e-5 after 3 steps")
+    trains = [res["train"] for res in dp_mp]
+    for r, tr in enumerate(trains):
+        check(all(np.isfinite(tr["losses"])), f"rank {r}: non-finite loss "
+              f"{tr['losses']}")
+        check(tr["losses"][-1] < tr["losses"][0],
+              f"rank {r}: loss did not fall: {tr['losses']}")
+        L = MESH_LAYERS
+        want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "multi_tensor_sumsq": 1, "multi_tensor_adam": 1}
+        got = {k: tr["launches"][k] / MESH_STEPS for k in want}
+        check(got == want, f"dp2 x mp2 rank {r}: launches a step {got}, "
+              f"want {want}")
+    # every rank (so every rank of each dp group) reports the same loss
+    check(all(t["losses"] == trains[0]["losses"] for t in trains),
+          "ranks report different losses")
+    sep_tp = run_ranks("sep_tp_quant", 2, root, args.seed, backend)
+    L = MESH_LAYERS
+    for res in sep_tp:
+        i = res["sep_rank"]
+        for mode, blocks in (("ring", i + 1), ("ulysses", 1)):
+            tr = res[mode]
+            check(all(np.isfinite(tr["losses"])),
+                  f"sep2 {mode}: non-finite loss {tr['losses']}")
+            want = {"flash_fwd": 2 * L * blocks, "flash_bwd_dq": L * blocks,
+                    "flash_bwd_dkv": L * blocks}
+            got = {k: tr["launches"][k] / SEP_STEPS for k in want}
+            check(got == want, f"sep2 {mode} rank {i}: launches a step "
+                  f"{got}, want {want} (rank i meets i + 1 ring blocks)")
+        rc = res["ring_check"]
+        check(not rc["bad"], f"sep2 rank {i}: ring attention disagrees with "
+              f"flash attention on the whole sequence: {rc['bad']} "
+              f"{rc['max_abs_err']} ({rc['tol_share']} of tol)")
+        ring0, uly0 = res["ring"]["losses"][0], res["ulysses"]["losses"][0]
+        check(abs(ring0 - uly0) <= 2.0 ** -7 * abs(uly0),
+              f"sep2 first loss: ring {ring0} vs ulysses {uly0}")
+        tp = res["tp"]
+        check(not tp["bad"], f"TP fused CE disagrees with the unsharded "
+              f"kernels: {tp['bad']} {tp['max_abs_err']}")
+        check(tp["launches"] == {"fused_ce_fwd": 1, "fused_ce_bwd_dh": 1,
+                                 "fused_ce_bwd_dw": 1},
+              f"TP fused CE launches {tp['launches']}")
+        exact = res["exact"]["losses"]
+        for wire in ("int8", "fp8"):
+            q = res[wire]
+            check(np.allclose(q["losses"], exact,
+                              rtol=QUANT_LOSS_RTOL[wire]),
+                  f"{wire} grad sync losses {q['losses']} vs exact {exact}")
+            sc = res["sync_check"][wire]
+            check(sc["tol_share"] <= 1.0, f"{wire} grad sync of synthetic "
+                  f"grads off their exact mean: {sc}")
+            sync = [s for k, s in q["comm"].items()
+                    if k.startswith("trainer.grad_sync/all_reduce")
+                    and s["quantized"] == wire]
+            check(sync, f"{wire}: no quantized grad-sync record")
+            share = sum(s["bytes_wire"] for s in sync) / sum(
+                s["bytes_logical"] for s in sync)
+            q["wire_share"] = share
+            if wire == "int8":
+                check(share <= INT8_WIRE_SHARE,
+                      f"int8 wire / logical {share:.4f} > "
+                      f"{INT8_WIRE_SHARE}")
+    r0 = sep_tp[0]
+    mesh = {
+        "backend": MESH_LABEL[backend], "claim": "none: a smoke run "
+        "(gloo carries every collective through the host); times "
+        "labelled, no bound claimed",
+        "dp2_mp2": {
+            "layers": MESH_LAYERS, "seq": MESH_SEQ, "batch": MESH_BATCH,
+            "steps": MESH_STEPS, "losses": trains[0]["losses"],
+            "step_ms_p50_rank0": trains[0]["step_ms_p50"],
+            "peak_mem_gib": [t["peak_mem_gib"] for t in trains],
+            "params_local": trains[0]["params_local"],
+            "launches_per_step": {k: v / MESH_STEPS for k, v in
+                                  trains[0]["launches"].items()},
+            "comm_rank0": trains[0]["comm"],
+            "small_fp32_losses": small["losses"]},
+        "sep2": {mode: {
+            "seq": SEP_SEQ, "warmup_steps": SEP_WARMUP, "steps": SEP_STEPS,
+            "losses": [res[mode]["losses"] for res in sep_tp],
+            "step_ms_p50": [res[mode]["step_ms_p50"] for res in sep_tp],
+            "peak_mem_gib": [res[mode]["peak_mem_gib"] for res in sep_tp],
+            "launches_per_step": [{k: v / SEP_STEPS for k, v in
+                                   res[mode]["launches"].items()
+                                   if k.startswith("flash")}
+                                  for res in sep_tp],
+            "comm_rank0": r0[mode]["comm"]} for mode in ("ring", "ulysses")},
+        "ring_check": {k: [res["ring_check"][k] for res in sep_tp]
+                       for k in ("max_abs_err", "tol_share")},
+        "tp_fused_ce": {"N": TP_N, "H": TP_H, "V": TP_V,
+                        **{k: [res["tp"][k] for res in sep_tp] for k in
+                           ("max_abs_err", "tol_share", "tp_ms",
+                            "unsharded_ms", "launches")}},
+        "quantized_dp2": {
+            "layers": QUANT_LAYERS, "seq": QUANT_SEQ, "steps": QUANT_STEPS,
+            "exact_losses": r0["exact"]["losses"],
+            "loss_rtol": QUANT_LOSS_RTOL,
+            "sync_check": [res["sync_check"] for res in sep_tp],
+            **{w: {"losses": r0[w]["losses"],
+                   "wire_share": r0[w]["wire_share"],
+                   "step_ms_p50": r0[w]["step_ms_p50"],
+                   "comm_rank0": r0[w]["comm"]} for w in ("int8", "fp8")},
+            "exact_step_ms_p50": r0["exact"]["step_ms_p50"]},
+        "phase_s": time.perf_counter() - t0,
+    }
+    log(f"mesh ({MESH_LABEL[backend]}): dp2 x mp2 step p50 "
+        f"{mesh['dp2_mp2']['step_ms_p50_rank0']:.0f} ms (rank 0), losses "
+        f"{trains[0]['losses']}; sep2 ring / ulysses first loss "
+        f"{r0['ring']['losses'][0]:.4f} / {r0['ulysses']['losses'][0]:.4f}; "
+        f"TP fused CE {[res['tp']['tp_ms'] for res in sep_tp]} ms vs "
+        f"unsharded {[res['tp']['unsharded_ms'] for res in sep_tp]}; int8 "
+        f"wire share {r0['int8']['wire_share']:.4f}, fp8 "
+        f"{r0['fp8']['wire_share']:.4f}; {mesh['phase_s']:.1f}s")
+    return mesh
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every number to this JSON file")
+    ap.add_argument("--mesh-backend", choices=("gloo", "nccl"),
+                    default="gloo",
+                    help="the mesh phase's backend: gloo, every rank on "
+                         "the one card (the default), or nccl, one card a "
+                         "rank (needs 4 cards)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels and run the mesh phase alone")
     args = ap.parse_args(argv)
+    # the mesh phase's ranks meet (FileStore) and leave their results here
+    args.mesh_dir = os.path.join(os.path.dirname(args.out), "mesh") \
+        if args.out else os.path.join("build", "chip_smoke_mesh")
 
     t_start = time.perf_counter()
-    card_id = use_one_card()
+    card_id = use_one_card() if args.mesh_backend == "gloo" else "0"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -1878,6 +2473,21 @@ def main(argv=None) -> int:
     _build.library()
     log(f"built {', '.join(_build.SOURCES)} -> {_build.LIB_PATH} with nvcc "
         f"(sm_90a, one process per source) in {build_s:.1f}s")
+    if args.mesh_only:
+        mesh = phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM,
+                          build_hybrid_train_step, AdamW)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump({"card": card, "kind": kind, "build_s": build_s,
+                           "mesh": mesh}, f, indent=1)
+        log(json.dumps({"mesh": mesh}))
+        log(f"chip_smoke --mesh-only total "
+            f"{time.perf_counter() - t_start:.1f}s")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     case_errs = phase_kernel_cases(torch, attn, ragged_decode_attention_ref)
     flash_cases = phase_flash_cases(torch, fa)
@@ -1940,6 +2550,8 @@ def main(argv=None) -> int:
                                 ClipGradByGlobalNorm, AdamW)
     gc.collect()
     torch.cuda.empty_cache()
+    mesh = phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM,
+                      build_hybrid_train_step, AdamW)
     flash = phase_flash_timing(torch, fa, heads, head_dim)
     log(f"flash kernels at B={TRAIN_BATCH} S={TRAIN_SEQ} H={heads} "
         f"D={head_dim} bf16 causal: " + json.dumps(flash))
@@ -1975,6 +2587,15 @@ def main(argv=None) -> int:
             "replaces": f"{pallas}:{line}",
             "launches": per_step[name.replace("attention_", "")]
             * training["steps"],
+            "mesh_launches_per_step": {
+                "dp2_mp2_each_rank": mesh["dp2_mp2"]["launches_per_step"][
+                    name.replace("attention_", "")],
+                **{f"sep2_{mode}_by_rank": [
+                    r_[name.replace("attention_", "")] for r_ in
+                    mesh["sep2"][mode]["launches_per_step"]]
+                   for mode in ("ring", "ulysses")}},
+            "entry_points": "flash_attention (sdpa), flash_attention_lse "
+                            "(ring attention)",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -1988,6 +2609,10 @@ def main(argv=None) -> int:
             "source": "paddle_tpu_torch/csrc/fused_ce.cu",
             "replaces": f"paddle_tpu/ops/pallas/fused_ce.py:{line}",
             "launches": fused_steps[name] * training_fused["steps"],
+            "tp_launches_by_rank": [t[name] for t in
+                                    mesh["tp_fused_ce"]["launches"]],
+            "entry_points": "fused_linear_cross_entropy, "
+                            "fused_linear_cross_entropy_tp (vocab shard)",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2013,6 +2638,8 @@ def main(argv=None) -> int:
             "launches": trainstep["launches"][name.replace("_finite", "")],
             "train_launches": per_step[name.replace("_finite", "")]
             * training["steps"],
+            "mesh_launches_per_step": mesh["dp2_mp2"]["launches_per_step"][
+                name.replace("_finite", "")],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2034,12 +2661,13 @@ def main(argv=None) -> int:
                        "flash_timing": flash, "serving": serving,
                        "decode_profile": profile, "training": training,
                        "spec": spec, "prefix": prefix, "chunked": chunked,
-                       "gateway": gateway,
+                       "gateway": gateway, "mesh": mesh,
                        **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_fused": training_fused}))
     log(json.dumps({"trainstep": trainstep}))
+    log(json.dumps({"mesh": mesh}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")

@@ -4,9 +4,9 @@ Counterpart of ``paddle_tpu/models/llama.py`` (:42-977): the config, the
 interleaved-pair RoPE, attention with and without a KV cache, the SwiGLU
 MLP, the decoder stack, the lm head, the KV-cache steps the serving engine
 drives, greedy/temperature ``generate``, ``compute_loss`` and the
-single-device leg of ``build_hybrid_train_step``. Layer and parameter
+dp, mp and sep legs of ``build_hybrid_train_step``. Layer and parameter
 names match the JAX model's, so ``load_paddle_tpu_state`` carries its
-weights across unchanged.
+weights across (sliced per rank for a tensor-parallel model).
 
 Attention dispatch follows the JAX model's own conditions: a single-token
 cached step (``s == 1``) in float32/bfloat16/float16 goes through
@@ -28,13 +28,22 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.errors import NotInThisSlice
+from ..distributed import comms
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    AllGatherOp, ColumnParallelLinear, ParallelCrossEntropy, ReduceScatterOp,
+    RowParallelLinear, ScatterOp, VocabParallelEmbedding, copy_to_mp,
+    gather_from_mp, mark_as_sequence_parallel_parameter, mp_degree,
+    reduce_from_mp)
 from ..jit.capture import capture_step
 from ..nn import functional as F
 from ..nn.clip import ClipGradByGlobalNorm
-from ..nn.layers import (ColumnParallelLinear, RMSNorm, RowParallelLinear,
-                         VocabParallelEmbedding)
+from ..nn.layers import RMSNorm
 from ..ops.kernels.decode_attention import ragged_decode_attention
 from ..ops.kernels.fused_ce import fused_linear_cross_entropy
+from ..ops.kernels.multi_tensor import multi_tensor_sumsq_finite
+from ..parallel import mesh as mesh_mod
+from ..parallel.context_parallel import sdpa_context_parallel
+from ..parallel.trainer import LossSum, mp_global_sumsq
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "load_paddle_tpu_state",
@@ -58,8 +67,8 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     use_flash_attention: bool = True
     sequence_parallel: bool = False
-    # long-context attention over a mesh axis ("ring" or "ulysses"); with
-    # sequence_parallel it waits for the multi-GPU slice (ROADMAP.md)
+    # long-context attention over the mesh's 'sep' axis: "ring" or
+    # "ulysses" (parallel/context_parallel.py)
     context_parallel: Optional[str] = None
     recompute: bool = False
 
@@ -110,32 +119,70 @@ def _rope(q, k, theta: float, position_offset=0):
     return rot(q), rot(k)
 
 
+def _mp_in(x, sp: bool, mesh):
+    """A block's input for its column-parallel projections: gathered along
+    the sequence under sequence parallelism (grad reduce-scattered), else
+    copied to mp (grad all-reduced)."""
+    return AllGatherOp.apply(x, 1, mesh) if sp else copy_to_mp(x, mesh)
+
+
+def _mp_out(y, sp: bool, mesh):
+    """A row-parallel projection's partial product, reduce-scattered along
+    the sequence under sequence parallelism, else all-reduced."""
+    return ReduceScatterOp.apply(y, 1, mesh) if sp else \
+        reduce_from_mp(y, mesh)
+
+
 class LlamaAttention(nn.Module):
+    """q/k/v column-parallel and o row-parallel over the mesh's mp axis:
+    each rank holds ``H / mp`` query and ``Hkv / mp`` kv heads (JAX
+    llama.py:100-113); ``num_key_value_heads`` must divide by mp."""
+
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 generator=None):
+                 generator=None, mesh=None):
         super().__init__()
         self.config = config
+        self.mesh = mesh
+        mp, _ = mp_degree(mesh)
         h = config.hidden_size
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
-        self.head_dim = h // self.num_heads
-        kv_out = self.num_kv_heads * self.head_dim
-        kw = dict(device=device, dtype=dtype, generator=generator)
-        self.q_proj = ColumnParallelLinear(h, h, **kw)
-        self.k_proj = ColumnParallelLinear(h, kv_out, **kw)
-        self.v_proj = ColumnParallelLinear(h, kv_out, **kw)
-        self.o_proj = RowParallelLinear(h, h, **kw)
+        H, Hkv = config.num_attention_heads, config.num_key_value_heads
+        if H % mp or Hkv % mp:
+            raise ValueError(f"{H} query and {Hkv} kv heads do not split "
+                             f"over mp={mp}")
+        self.num_heads = H // mp
+        self.num_kv_heads = Hkv // mp
+        self.head_dim = h // H
+        self.sp = bool(config.sequence_parallel) and mp > 1
+        kv_out = Hkv * self.head_dim
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  has_bias=False, mesh=mesh)
+        self.q_proj = ColumnParallelLinear(h, h, gather_output=False, **kw)
+        self.k_proj = ColumnParallelLinear(h, kv_out, gather_output=False,
+                                           **kw)
+        self.v_proj = ColumnParallelLinear(h, kv_out, gather_output=False,
+                                           **kw)
+        self.o_proj = RowParallelLinear(h, h, input_is_parallel=True, **kw)
 
     def forward(self, x, position_offset=0,
                 kv_cache: Optional[KVCache] = None):
+        x = _mp_in(x, self.sp, self.mesh)
         b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        q = self.q_proj.local(x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj.local(x).reshape(b, s, self.num_kv_heads,
+                                         self.head_dim)
+        v = self.v_proj.local(x).reshape(b, s, self.num_kv_heads,
+                                         self.head_dim)
         q, k = _rope(q, k, self.config.rope_theta, position_offset)
         if kv_cache is None:
-            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-            return self.o_proj(attn.reshape(b, s, -1))
+            cp = self.config.context_parallel
+            if cp:
+                attn = sdpa_context_parallel(q, k, v, mesh=self.mesh,
+                                             mode=cp, is_causal=True)
+            else:
+                attn = F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+            return _mp_out(self.o_proj.local(attn.reshape(b, s, -1)),
+                           self.sp, self.mesh)
         k_cache, v_cache = kv_cache
         s_max = k_cache.shape[1]
         off = _offsets(position_offset, b, x.device)
@@ -159,33 +206,45 @@ class LlamaAttention(nn.Module):
                 + off.reshape(-1, 1, 1)
             mask = torch.where(j <= i, 0.0, -1e30)[:, None]  # [B,1,S,S_max]
             attn = F.sdpa_ref(q, k_cache, v_cache, mask=mask)
-        return self.o_proj(attn.reshape(b, s, -1))
+        return _mp_out(self.o_proj.local(attn.reshape(b, s, -1)), self.sp,
+                       self.mesh)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 generator=None):
+                 generator=None, mesh=None):
         super().__init__()
+        self.mesh = mesh
+        self.sp = bool(config.sequence_parallel) and mp_degree(mesh)[0] > 1
         h, m = config.hidden_size, config.intermediate_size
-        kw = dict(device=device, dtype=dtype, generator=generator)
-        self.gate_proj = ColumnParallelLinear(h, m, **kw)
-        self.up_proj = ColumnParallelLinear(h, m, **kw)
-        self.down_proj = RowParallelLinear(m, h, **kw)
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  has_bias=False, mesh=mesh)
+        self.gate_proj = ColumnParallelLinear(h, m, gather_output=False, **kw)
+        self.up_proj = ColumnParallelLinear(h, m, gather_output=False, **kw)
+        self.down_proj = RowParallelLinear(m, h, input_is_parallel=True,
+                                           **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        x = _mp_in(x, self.sp, self.mesh)
+        y = F.silu(self.gate_proj.local(x)) * self.up_proj.local(x)
+        return _mp_out(self.down_proj.local(y), self.sp, self.mesh)
 
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 generator=None):
+                 generator=None, mesh=None):
         super().__init__()
         eps = config.rms_norm_eps
         self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
-        self.self_attn = LlamaAttention(config, device, dtype, generator)
+        self.self_attn = LlamaAttention(config, device, dtype, generator,
+                                        mesh)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
                                                 device, dtype)
-        self.mlp = LlamaMLP(config, device, dtype, generator)
+        self.mlp = LlamaMLP(config, device, dtype, generator, mesh)
+        if self.self_attn.sp:
+            mark_as_sequence_parallel_parameter(self.input_layernorm.weight)
+            mark_as_sequence_parallel_parameter(
+                self.post_attention_layernorm.weight)
 
     def forward(self, x, position_offset=0,
                 kv_cache: Optional[KVCache] = None):
@@ -198,34 +257,52 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     """The decoder stack. ``config.recompute`` checkpoints each layer of the
     cache-free forward (``torch.utils.checkpoint``, as the reference's
-    ``recompute``, llama.py:272-274); ``sequence_parallel`` and
-    ``context_parallel`` shard over a mesh and raise ``NotInThisSlice``."""
+    ``recompute``, llama.py:272-274). Over a mesh: the layers are
+    tensor-parallel over mp; ``sequence_parallel`` keeps the activations
+    between blocks split along the sequence over mp (Megatron-SP, JAX
+    llama.py:232-244); ``context_parallel`` ("ring" or "ulysses") runs
+    attention over the sequence chunks of the mesh's sep axis, each rank
+    feeding its own chunk of ``input_ids`` at its RoPE positions."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 generator=None):
+                 generator=None, mesh=None):
         super().__init__()
-        for knob in ("sequence_parallel", "context_parallel"):
-            if getattr(config, knob):
-                raise NotInThisSlice("sequence/context-parallel LLaMA",
-                                     f"{knob}={getattr(config, knob)!r}")
         self.config = config
+        self.mesh = mesh
+        self.sp = bool(config.sequence_parallel) and mp_degree(mesh)[0] > 1
+        if config.context_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(f"unknown context_parallel "
+                             f"{config.context_parallel!r}")
         self.embed_tokens = VocabParallelEmbedding(
-            config.vocab_size, config.hidden_size, device, dtype, generator)
+            config.vocab_size, config.hidden_size, device, dtype, generator,
+            mesh=mesh)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device, dtype, generator)
+            [LlamaDecoderLayer(config, device, dtype, generator, mesh)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device,
                             dtype)
+        if self.sp:
+            mark_as_sequence_parallel_parameter(self.norm.weight)
+
+    def cp_offset(self, local_len: int) -> int:
+        """RoPE position of this rank's first token under context
+        parallelism (its sep coordinate times the chunk length)."""
+        if not self.config.context_parallel:
+            return 0
+        return mesh_mod.axis_index("sep", self.mesh) * int(local_len)
 
     def forward(self, input_ids, caches: Optional[List[KVCache]] = None,
                 position_offset=0):
         x = self.embed_tokens(input_ids)
+        if self.sp:
+            x = ScatterOp.apply(x, 1, self.mesh)
         if caches is None:
+            off = self.cp_offset(input_ids.shape[1])
             for layer in self.layers:
                 if self.config.recompute and torch.is_grad_enabled():
-                    x = checkpoint(layer, x, use_reentrant=False)
+                    x = checkpoint(layer, x, off, use_reentrant=False)
                 else:
-                    x = layer(x)
+                    x = layer(x, off)
         else:
             for layer, cache in zip(self.layers, caches):
                 x = layer(x, position_offset=position_offset, kv_cache=cache)
@@ -233,7 +310,8 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """``LlamaForCausalLM(cfg, device=None, dtype=torch.float32, seed=0)``.
+    """``LlamaForCausalLM(cfg, device=None, dtype=torch.float32, seed=0,
+    mesh=None)``.
 
     With no device it runs on ``cuda`` and raises when CUDA is absent;
     ``device="cpu"`` runs on the CPU. Weights are drawn from an explicit
@@ -243,18 +321,26 @@ class LlamaForCausalLM(nn.Module):
     (``forward``, the cached and slot steps, ``generate``) run under
     ``torch.inference_mode()``; ``logits`` and ``compute_loss`` build an
     autograd graph for training.
+
+    ``mesh`` (default: the installed one, ``parallel.mesh.get_mesh()``)
+    makes the model tensor-parallel over its mp axis: every rank holds its
+    shard of each projection, of the embedding and of the head, drawn as
+    slices of the weights the mp=1 model draws from the same seed.
     """
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
-                 dtype: torch.dtype = torch.float32, seed: int = 0):
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 mesh=None):
         super().__init__()
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
+        mesh = mesh if mesh is not None else mesh_mod.get_mesh()
         self.config = config
-        self.llama = LlamaModel(config, dev, dtype, gen)
+        self.mesh = mesh
+        self.llama = LlamaModel(config, dev, dtype, gen, mesh)
         self.lm_head = ColumnParallelLinear(
             config.hidden_size, config.vocab_size, device=dev, dtype=dtype,
-            generator=gen)
+            generator=gen, has_bias=False, gather_output=True, mesh=mesh)
 
     @property
     def device(self) -> torch.device:
@@ -272,27 +358,56 @@ class LlamaForCausalLM(nn.Module):
         if caches is not None:
             h = self.llama(input_ids, caches=caches,
                            position_offset=position_offset)
-            return self.lm_head(h), caches
+            return self._head(h, gather=True), caches
         return self.logits(input_ids)
+
+    def _head(self, h, gather: bool):
+        """The lm head on the final hidden states: this rank's vocab shard
+        of the logits, or (``gather``) all of them."""
+        out = self.lm_head.local(_mp_in(h, self.llama.sp, self.mesh))
+        return gather_from_mp(out, -1, self.mesh) if gather else out
 
     def logits(self, input_ids) -> torch.Tensor:
         """Logits ``[B, S, vocab]`` of the cache-free forward, building an
         autograd graph (``forward`` runs under inference mode)."""
-        return self.lm_head(self.llama(input_ids))
+        return self._head(self.llama(input_ids), gather=True)
 
     def compute_loss(self, input_ids, labels) -> torch.Tensor:
         """Mean cross entropy of the logits against ``labels``
-        (llama.py:296-299); labels of -100 are ignored."""
-        return F.cross_entropy(self.logits(input_ids), labels,
-                               reduction="mean")
+        (llama.py:296-299) over this rank's tokens; labels of -100 are
+        ignored. Over mp the vocab-sharded logits go through
+        ``ParallelCrossEntropy`` without being gathered."""
+        if mp_degree(self.mesh)[0] == 1:
+            return F.cross_entropy(self.logits(input_ids), labels,
+                                   reduction="mean")
+        rows = ParallelCrossEntropy(self.mesh)(
+            self._head(self.llama(input_ids), gather=False), labels)
+        valid = (labels != -100).sum().clamp_min(1)
+        return rows.sum() / valid
+
+    def loss_sum(self, input_ids, labels) -> LossSum:
+        """``compute_loss`` as its two parts: the cross entropy summed over
+        this rank's tokens and the count of labels that are not -100. A
+        ``TrainStep`` over dp divides the sum by the count summed over the
+        dp ranks: the mean over the global batch's valid tokens."""
+        valid = (labels != -100).sum()
+        if mp_degree(self.mesh)[0] == 1:
+            total = F.cross_entropy(self.logits(input_ids), labels,
+                                    reduction="sum")
+        else:
+            total = ParallelCrossEntropy(self.mesh)(
+                self._head(self.llama(input_ids), gather=False),
+                labels).sum()
+        return LossSum(total, valid)
 
     @torch.inference_mode()
     def init_kv_caches(self, batch_size: int, max_len: int,
                        dtype: Optional[torch.dtype] = None) -> List[KVCache]:
-        """Per-layer (k, v) caches ``[B, S_max, H_kv, D]``, zeroed."""
+        """Per-layer (k, v) caches ``[B, S_max, H_kv / mp, D]``, zeroed."""
         cfg = self.config
         d = cfg.hidden_size // cfg.num_attention_heads
-        shape = (batch_size, max_len, cfg.num_key_value_heads, d)
+        shape = (batch_size, max_len,
+                 cfg.num_key_value_heads // mp_degree(self.mesh)[0], d)
         kw = dict(dtype=dtype or self.dtype, device=self.device)
         return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
                 for _ in range(cfg.num_hidden_layers)]
@@ -443,8 +558,9 @@ def load_paddle_tpu_state(model: nn.Module,
     """Copy ``{name: np.ndarray}`` (as ``{n: np.asarray(p._value) for n, p
     in jax_model.named_parameters()}`` gives it) into the port model, onto
     its device and dtype. Names and ``[in, out]`` shapes match by
-    construction; a missing key, an unexpected key or a shape mismatch
-    raises."""
+    construction; a tensor-parallel parameter (``split_axis`` set) takes
+    this rank's slice of the full array. A missing key, an unexpected key
+    or a shape mismatch raises."""
     own = dict(model.named_parameters())
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
@@ -453,22 +569,43 @@ def load_paddle_tpu_state(model: nn.Module,
                        f"unexpected {unexpected}")
     for name, p in own.items():
         arr = np.asarray(state[name])
+        split = getattr(p, "split_axis", None)
+        if split is not None:
+            n, r = mp_degree(getattr(model, "mesh", None))
+            if arr.ndim <= split or arr.shape[split] != p.shape[split] * n:
+                raise ValueError(f"{name}: state shape {tuple(arr.shape)} "
+                                 f"does not split into {tuple(p.shape)} over "
+                                 f"mp={n}")
+            arr = np.split(arr, n, axis=split)[r]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: state shape {tuple(arr.shape)} != "
                              f"model shape {tuple(p.shape)}")
         if arr.dtype.name == "bfloat16":   # ml_dtypes: no torch.from_numpy
             arr = arr.astype(np.float32)
         with torch.no_grad():
-            p.copy_(torch.tensor(arr, device=p.device, dtype=p.dtype))
+            p.copy_(torch.tensor(np.ascontiguousarray(arr), device=p.device,
+                                 dtype=p.dtype))
     return model
 
 
 def paddle_tpu_state(model: nn.Module) -> Dict[str, np.ndarray]:
     """The other direction of ``load_paddle_tpu_state``: the model's
     parameters as ``{name: np.ndarray}`` in float32, keyed as the JAX
-    model's ``named_parameters()``."""
-    return {n: p.detach().float().cpu().numpy()
-            for n, p in model.named_parameters()}
+    model's ``named_parameters()``. A tensor-parallel parameter is
+    all-gathered over mp first, so every rank of the mp group must call
+    this."""
+    out = {}
+    mesh = getattr(model, "mesh", None)
+    for n, p in model.named_parameters():
+        t = p.detach()
+        split = getattr(p, "split_axis", None)
+        if split is not None:
+            parts = comms.wire_all_gather(t.contiguous(), "mp", exact=True,
+                                          mesh=mesh,
+                                          owner="llama.paddle_tpu_state")
+            t = torch.cat(parts.unbind(0), dim=split)
+        out[n] = t.float().cpu().numpy()
+    return out
 
 
 def _mesh_axes(mesh) -> Dict[str, int]:
@@ -478,135 +615,213 @@ def _mesh_axes(mesh) -> Dict[str, int]:
     return {str(k): int(v) for k, v in dict(shape).items()}
 
 
+def _check_mesh(mesh, optimizer) -> Dict[str, int]:
+    """The axes above 1 of a mesh the step runs on; pipeline and ZeRO axes
+    raise NotInThisSlice."""
+    big = {k: v for k, v in _mesh_axes(mesh).items() if v > 1}
+    later = {k: v for k, v in big.items() if k not in ("dp", "mp", "sep")}
+    if later:
+        raise NotInThisSlice("pipeline parallelism and ZeRO (multi-GPU "
+                             "training, part 2)", f"mesh={later}")
+    if int(getattr(optimizer, "_shard_stage", 0) or 0) >= 1:
+        raise NotInThisSlice("ZeRO optimizer-state sharding (multi-GPU "
+                             "training, part 2)",
+                             f"stage={optimizer._shard_stage}")
+    if big and not isinstance(mesh, mesh_mod.DeviceMesh):
+        raise TypeError(f"a mesh with axes above 1 ({big}) must be a "
+                        "DeviceMesh (parallel.init_mesh)")
+    return big
+
+
 def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                             n_microbatches: int = 1, remat: bool = True,
                             amp: bool = False, schedule: str = "1f1b",
                             n_virtual: int = 1,
                             accumulate_steps: Optional[int] = None,
                             fused_loss: bool = False):
-    """The single-device leg of ``build_hybrid_train_step``
-    (llama.py:534-977): ``step(batch_dict) -> loss`` over
-    ``{"input_ids": [B, S], "labels": [B, S]}`` (numpy or tensors).
+    """The dp, mp and sep legs of ``build_hybrid_train_step``
+    (llama.py:534-977): ``step(batch_dict) -> loss`` over the GLOBAL batch
+    ``{"input_ids": [B, S], "labels": [B, S]}`` (numpy or tensors), which
+    every rank passes; each keeps its rows of the dp axis and its sequence
+    chunk of the sep axis.
 
     Per step: embedding, the decoder blocks (each under
     ``torch.utils.checkpoint`` when ``remat``, as ``jax.checkpoint`` wraps
-    the scanned block), the final norm, the lm head and the mean cross
-    entropy (``_head_ce``, :587-608; logits in fp32 under amp); then
-    backward. With ``amp`` every floating parameter is cast to bfloat16
-    inside the step by a differentiable cast (``_amp_cast``, :666-671) and
-    the embedding output is bfloat16, so grads land on the fp32 masters;
+    the scanned block), the final norm, the lm head and the cross entropy
+    (``_head_ce``, :587-608; logits in fp32 under amp); then backward. With
+    ``amp`` every floating parameter is cast to bfloat16 inside the step
+    by a differentiable cast (``_amp_cast``, :666-671) and the embedding
+    output is bfloat16, so grads land on the fp32 masters;
     ``torch.autocast`` is not used (its cast lists differ).
     ``fused_loss=True`` replaces the lm head and the loss by
-    ``fused_linear_cross_entropy`` (:584-603: kernels K5-K7; the logits
-    stay unrounded fp32 sums, where the unfused leg rounds them to bf16
-    under amp), over the rows whose label is not -100.
-    ``accumulate_steps > 1`` splits the batch into micro-steps and takes the
-    mean loss and mean grads (:857-880). A ``ClipGradByGlobalNorm`` grad
-    clip is honoured, any other is not (:888-897): its norm is one pass
-    over every grad (kernel U1 on the card) and its scale stays on the
-    device. Then the optimizer's ``_multi_update`` updates every parameter
-    in place (for Adam and AdamW one kernel launch on the card, U2),
-    weight decay included on norms and embeddings, with the step counted
-    from 1 and the lr read by ``get_lr()`` every step, so an
-    ``LRScheduler`` works here (:898-926).
+    ``fused_linear_cross_entropy`` (:584-603: kernels K5-K7) over the rows
+    whose label is not -100; as in the JAX step it is off when mp > 1.
+    ``accumulate_steps > 1`` splits the global batch into micro-batches
+    (then each over dp) and takes the mean loss and the mean grads
+    (:857-880), syncing the grads once per step.
+
+    Over a mesh (``mesh``, default the installed one; the model must have
+    been built on it): the model's layers are tensor-parallel over mp (the
+    head's loss is ``ParallelCrossEntropy`` on the vocab-sharded logits);
+    the loss is the mean over the global batch's valid tokens, as the JAX
+    step's: each rank divides its tokens' loss sum by the valid count
+    all-reduced over dp and sep, and the grads are SUMMED over dp and sep
+    (``comms.grad_sync``: one exact all-reduce per dtype, or the quantized
+    two-shot per grad inside ``comms.quantized()``, read at every call);
+    under sequence parallelism the norms' grads (computed on sequence
+    shards) are summed over mp. A ``ClipGradByGlobalNorm`` clip takes the
+    global norm over the synced grads: one U1 launch gives every grad's
+    sum of squares, the sharded ones' are all-reduced over mp and the
+    replicated ones (the norms) counted once (:888-897; any other clip is
+    not honoured, as there). Then the optimizer's ``_multi_update``
+    updates every local shard in place (for Adam and AdamW one kernel
+    launch on the card, U2), weight decay included on norms and
+    embeddings, with the step counted from 1 and the lr read by
+    ``get_lr()`` every step (:898-926).
 
     The step trains the model's own parameters in place, so they are the
     fp32 masters and ``step.write_back()`` has nothing to copy (the JAX
     step holds donated copies and needs it); ``step.state`` holds
     ``params`` (name -> parameter), ``opt`` (name -> moments) and
-    ``step``. A mesh with an axis above 1 (hybrid parallelism, pipeline
-    schedules, the vocab-parallel fused loss) waits for a later slice and
-    raises ``NotInThisSlice``.
+    ``step``. A mesh with a pipeline or ZeRO axis above 1, or a ZeRO
+    optimizer, waits for part 2 of the multi-GPU slice and raises
+    ``NotInThisSlice``; the pipeline arguments (``n_microbatches``,
+    ``schedule``, ``n_virtual``) have nothing to schedule without one.
     """
     if schedule not in ("gpipe", "1f1b", "1f1b_fused", "1f1b_compact",
                         "vpp"):
         raise ValueError(f"unknown pipeline schedule {schedule!r} "
                          "(gpipe | 1f1b | 1f1b_compact | vpp)")
-    big = {k: v for k, v in _mesh_axes(mesh).items() if v > 1}
-    if big:
-        raise NotInThisSlice("hybrid-parallel train step (mesh axes > 1, "
-                             "pipeline schedules)", f"mesh={big}")
+    mesh = mesh if mesh is not None else mesh_mod.get_mesh()
+    big = _check_mesh(mesh, optimizer)
+    mp = big.get("mp", 1)
+    if big and getattr(model, "mesh", None) is not mesh:
+        raise ValueError("the model was not built on this mesh: build it "
+                         "with LlamaForCausalLM(..., mesh=mesh)")
+    if big.get("sep", 1) > 1 and not model.config.context_parallel:
+        raise ValueError("a sep axis above 1 needs "
+                         "LlamaConfig.context_parallel ('ring' or "
+                         "'ulysses')")
+    data_axes = tuple(a for a in ("dp", "sep") if a in big)
     if accumulate_steps is None:
         accumulate_steps = int(getattr(optimizer, "_accumulate_steps", 1)
                                or 1)
+    use_fused_loss = fused_loss and mp <= 1
     from torch.func import functional_call
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+
+    from ..distributed.parallel import shard_batch
 
     params = dict(model.named_parameters())
+    plist = list(params.values())
     layers = list(model.llama.layers)
     layer_names = [[n for n, _ in layer.named_parameters()]
                    for layer in layers]
+    sp_params = [i for i, p in enumerate(plist)
+                 if getattr(p, "sequence_parallel", False)]
+    sharded = [getattr(p, "split_axis", None) is not None for p in plist]
     state = {"params": params,
              "opt": {n: optimizer._init_state(p) for n, p in params.items()},
              "step": 0}
+    pce = ParallelCrossEntropy(mesh)
 
     def cast(p):
         return p.to(torch.bfloat16) if amp and p.is_floating_point() else p
 
-    def block(i, x, *vals):
+    def block(i, x, off, *vals):
         return functional_call(layers[i], dict(zip(layer_names[i], vals)),
-                               (x,))
+                               (x, off))
 
-    def loss_fn(ids, labels):
+    def loss_sum(ids, labels):
+        """This rank's tokens' summed loss (ignored labels add 0)."""
         vals = {n: cast(p) for n, p in params.items()}
-        x = F.embedding(ids, vals["llama.embed_tokens.weight"])
+        x = model.llama.embed_tokens(ids,
+                                     vals["llama.embed_tokens.weight"])
         if amp:
             x = x.to(torch.bfloat16)
+        if model.llama.sp:
+            x = ScatterOp.apply(x, 1, mesh)
+        off = model.llama.cp_offset(ids.shape[1])
         for i in range(len(layers)):
             lv = [vals[f"llama.layers.{i}.{n}"] for n in layer_names[i]]
             if remat:
-                x = checkpoint(block, i, x, *lv, use_reentrant=False)
+                x = checkpoint(block, i, x, off, *lv, use_reentrant=False)
             else:
-                x = block(i, x, *lv)
+                x = block(i, x, off, *lv)
         h = F.rms_norm(x, vals["llama.norm.weight"], model.llama.norm.epsilon)
-        if fused_loss:
-            # ignore_index (-100) rows add nothing; the mean divides by the
-            # valid count only (F.cross_entropy's semantics)
+        if use_fused_loss:
             flat = labels.reshape(-1)
             valid = flat != -100
             losses = fused_linear_cross_entropy(
                 h.reshape(-1, h.shape[-1]), vals["lm_head.weight"],
                 torch.where(valid, flat, 0))
-            vf = valid.to(losses.dtype)
-            return (losses * vf).sum() / vf.sum().clamp_min(1.0)
-        logits = F.linear(h, vals["lm_head.weight"])
+            return (losses * valid.to(losses.dtype)).sum()
+        logits = model.lm_head.local(_mp_in(h, model.llama.sp, mesh),
+                                     vals["lm_head.weight"])
         if amp:       # softmax / CE in fp32 for numeric stability
             logits = logits.float()
-        return F.cross_entropy(logits, labels, reduction="mean")
+        if mp > 1:
+            return pce(logits, labels).sum()
+        return F.cross_entropy(logits, labels, reduction="sum")
 
     def as_ids(x):
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
             np.asarray(x))
         return t.to(device=model.device, dtype=torch.int64)
 
+    def local(t):
+        t = shard_batch(t, "dp", 0, mesh)
+        return shard_batch(t, "sep", 1, mesh)
+
     def step(batch):
         ids, labels = as_ids(batch["input_ids"]), as_ids(batch["labels"])
         state["step"] += 1
         lr = optimizer.get_lr()
-        for p in params.values():
+        for p in plist:
             p.grad = None
         k = accumulate_steps
-        if k > 1:
-            total = torch.zeros((), device=model.device)
-            for mi, ml in zip(ids.chunk(k), labels.chunk(k)):
-                loss = loss_fn(mi, ml)
+        micro = [(local(a), local(b)) for a, b in zip(ids.chunk(k),
+                                                      labels.chunk(k))]
+        counts = torch.stack([(lab != -100).sum() for _, lab in micro])
+        counts = comms.wire_all_reduce(counts, data_axes or None, "sum",
+                                       exact=True, mesh=mesh,
+                                       owner="llama.valid_tokens") \
+            if data_axes else counts
+        counts = counts.to(torch.float32).clamp_min(1.0)
+        total = torch.zeros((), device=model.device)
+        with set_checkpoint_early_stop(not big):
+            for (mi, ml), cnt in zip(micro, counts):
+                loss = loss_sum(mi, ml) / cnt
                 loss.backward()
                 total = total + loss.detach()
-            loss = total / k
-            for p in params.values():
-                p.grad.div_(k)
-        else:
-            loss = loss_fn(ids, labels)
-            loss.backward()
-        grads = [p.grad for p in params.values()]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in plist]
+        if k > 1:
+            total = total / k
+            grads = [g / k for g in grads]
+        if data_axes:
+            total = comms.wire_all_reduce(total, data_axes, "sum",
+                                          exact=True, mesh=mesh,
+                                          owner="llama.loss")
+            grads = comms.grad_sync(grads, mesh, data_axes, op="sum")
+        if sp_params:
+            red = comms.grad_sync([grads[i] for i in sp_params], mesh, "mp",
+                                  op="sum", exact=True,
+                                  owner="llama.sequence_parallel.grad")
+            for i, g in zip(sp_params, red):
+                grads[i] = g
         clip = getattr(optimizer, "_grad_clip", None)
-        scale = clip.scale(grads) \
-            if isinstance(clip, ClipGradByGlobalNorm) else None
-        optimizer._multi_update(list(params.values()), grads,
-                                list(state["opt"].values()), lr,
-                                state["step"], clip_scale=scale)
-        for p in params.values():
+        scale = None
+        if isinstance(clip, ClipGradByGlobalNorm):
+            sums, sumsq, _ = multi_tensor_sumsq_finite(grads)
+            if mp > 1:
+                sumsq = mp_global_sumsq(sums, sharded, mesh)
+            scale = clip.scale_from_sumsq(sumsq)
+        optimizer._multi_update(plist, grads, list(state["opt"].values()),
+                                lr, state["step"], clip_scale=scale)
+        for p in plist:
             p.grad = None
-        return loss.detach()
+        return total
 
     step.state = state
     step.write_back = lambda: model

@@ -1,9 +1,9 @@
-"""The layers LLaMA is built from, in their single-device (mp=1) forms.
+"""``RMSNorm`` and the parameter helpers the layers share.
 
-Counterparts of ``paddle_tpu/nn/layer/norm.py::RMSNorm`` and
-``paddle_tpu/distributed/fleet/meta_parallel/mp_layers.py``'s
-``VocabParallelEmbedding``, ``ColumnParallelLinear`` and
-``RowParallelLinear``. Weights keep Paddle's ``[in, out]`` layout and the
+Counterpart of ``paddle_tpu/nn/layer/norm.py::RMSNorm``. The embedding and
+the projections LLaMA is built from are the tensor-parallel layers of
+``distributed/fleet/meta_parallel/mp_layers.py`` (at mp=1 plain
+single-device layers). Weights keep Paddle's ``[in, out]`` layout and the
 parameter name ``weight``, so a JAX state dict loads without transposes.
 Initialisation follows the JAX package: XavierNormal
 (``std = sqrt(2 / (fan_in + fan_out))``, fans from the ``[in, out]``
@@ -20,8 +20,7 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["RMSNorm", "VocabParallelEmbedding", "ColumnParallelLinear",
-           "RowParallelLinear", "xavier_normal_"]
+__all__ = ["RMSNorm", "xavier_normal_"]
 
 
 def xavier_normal_(w: torch.Tensor,
@@ -53,39 +52,3 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)
-
-
-class VocabParallelEmbedding(nn.Module):
-    def __init__(self, num_embeddings: int, embedding_dim: int, device=None,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
-        self.num_embeddings = num_embeddings
-        self.embedding_dim = embedding_dim
-        self.weight = _param([num_embeddings, embedding_dim], device, dtype)
-        xavier_normal_(self.weight, generator)
-
-    def forward(self, x):
-        return F.embedding(x, self.weight)
-
-
-class _Linear(nn.Module):
-    """A bias-free ``[in, out]`` projection, ``y = x @ W``."""
-
-    def __init__(self, in_features: int, out_features: int, device=None,
-                 dtype=torch.float32, generator=None):
-        super().__init__()
-        self.in_features = in_features
-        self.out_features = out_features
-        self.weight = _param([in_features, out_features], device, dtype)
-        xavier_normal_(self.weight, generator)
-
-    def forward(self, x):
-        return F.linear(x, self.weight)
-
-
-class ColumnParallelLinear(_Linear):
-    """mp=1 form: the whole projection on one device (nothing to gather)."""
-
-
-class RowParallelLinear(_Linear):
-    """mp=1 form: the whole projection on one device (no all-reduce)."""

@@ -12,7 +12,11 @@ nvcc per source, all started together, then one link:
 
 A stamp file beside the library records a hash of the sources and the
 headers they include, so an edited source is rebuilt and an unchanged one
-is loaded as it is. Nothing here runs at import time: this module is
+is loaded as it is. The stamp check and the build run under an exclusive
+``fcntl`` lock on ``libpt_kernels.lock`` beside the library, so processes
+that reach the build together (the ranks of a job) build once and the
+others load what it left; the kernel drops the lock when a process dies,
+so a leftover lock file blocks nothing. Nothing here runs at import time: this module is
 imported on machines without nvcc, and only a launch on a CUDA tensor
 calls ``library()``.
 
@@ -28,6 +32,7 @@ HGMMA.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -77,13 +82,23 @@ def _source_hash() -> str:
 
 def build(force: bool = False) -> float:
     """Compile the sources into LIB_PATH unless an up-to-date build is
-    there. Returns the seconds nvcc took (0.0 when nothing was built)."""
+    there. Returns the seconds nvcc took (0.0 when nothing was built).
+    Holds the build directory's file lock throughout."""
+    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    with open(LIB_PATH.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked(force)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked(force: bool) -> float:
     stamp = LIB_PATH.with_suffix(".sha256")
     digest = _source_hash()
     if not force and LIB_PATH.is_file() and stamp.is_file() \
             and stamp.read_text().strip() == digest:
         return 0.0
-    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
     nvcc = _nvcc()

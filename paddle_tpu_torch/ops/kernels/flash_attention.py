@@ -30,9 +30,10 @@ Each wrapper takes its plain version (``*_ref``: the same math over the
 full ``[Sq, Sk]`` matrices) for tensors on the CPU, and launches its kernel
 for tensors on the card, or raises: there is no fallback from the card to
 the plain version. ``<wrapper>.launches`` counts kernel launches.
-``flash_attention`` is the differentiable entry point: its forward and
-backward both go through the wrappers, never through autograd of the
-plain forward.
+``flash_attention`` and ``flash_attention_lse`` (:350, which also returns
+the LSE, for ring attention) are the differentiable entry points: their
+forward and backward both go through the wrappers, never through autograd
+of the plain forward.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
+__all__ = ["flash_attention", "flash_attention_lse", "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_fwd_ref",
            "flash_attention_bwd_dq_ref", "flash_attention_bwd_dkv_ref"]
 
@@ -272,6 +273,24 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
 
+def _flash_bwd(ctx, do, g_lse=None):
+    """K3 + K4 for the saved (q, k, v, O, LSE) with ``delta = rowsum(dO *
+    O)`` in fp32; an LSE cotangent folds in as ``delta - g_lse``
+    (``_flash_bwd_core``, :263-286: d lse / d s = p, so it joins
+    ``dS = P * (dP - delta)``)."""
+    q, k, v, o, lse = ctx.saved_tensors
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    delta = delta.contiguous()                          # [B, H, Sq]
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
+                                ctx.scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
+                                     ctx.scale)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """``jax.custom_vjp`` of flash_attention.py:219-346: K2 forward, saving
     (q, k, v, O, LSE); K3 + K4 backward with ``delta`` in fp32."""
@@ -285,15 +304,24 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
-        delta = delta.contiguous()                      # [B, H, Sq]
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
-                                    ctx.scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
-                                         ctx.scale)
-        return dq, dk, dv, None, None
+        return _flash_bwd(ctx, do) + (None, None)
+
+
+class _FlashAttentionLSE(torch.autograd.Function):
+    """``jax.custom_vjp`` of flash_attention.py:349-376: two outputs, O and
+    the fp32 LSE; the backward takes a cotangent for each (a missing one
+    arrives as zeros)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        return _flash_bwd(ctx, do, g_lse) + (None, None)
 
 
 def flash_attention(q, k, v, causal: bool = False,
@@ -301,3 +329,14 @@ def flash_attention(q, k, v, causal: bool = False,
     """Differentiable flash attention on ``[B, S, H, D]``: forward through
     K2, backward through K3 and K4 (their plain versions on the CPU)."""
     return _FlashAttention.apply(q, k, v, bool(causal), scale)
+
+
+def flash_attention_lse(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` that also returns the per-row logsumexp
+    ``[B, H, Sq]`` (fp32): the state that merges partial attentions over
+    key blocks (ring attention). Differentiable in both outputs: K2
+    forward, K3 and K4 backward with the LSE's cotangent folded into
+    ``delta`` (their plain versions on the CPU)."""
+    return _FlashAttentionLSE.apply(q, k, v, bool(causal), scale)

@@ -27,9 +27,13 @@ float16 with H and V multiples of 8 (the training path) all three are
 Hopper kernels (wgmma, TMA, a warp-specialised pipeline); float32 and
 unaligned widths take the mma.sync kernels. ``set_block_sizes`` (:49) is
 a knob of the TPU's VMEM tiling and has no counterpart: the CUDA tiles are
-fixed by the card's shared memory. The vocab-parallel variant
-(``fused_linear_cross_entropy_tp``, :291-340) waits for the hybrid-parallel
-slice (ROADMAP.md).
+fixed by the card's shared memory.
+
+``fused_linear_cross_entropy_tp`` (:291-340) is the vocab-parallel form:
+each rank of the group holds the lm-head shard ``[H, V/mp]``, runs K5 on
+it at ``vocab_offset = rank * V/mp``, and the rows' (m, l, z) merge over
+the group (all-reduce MAX of m, then SUM of ``l exp(m - M)`` and z); the
+backward runs K6 and K7 on the shard and all-reduces dh.
 
 Each wrapper takes its plain version (``*_ref``: the same math over the
 full ``[N, V]`` logits in fp32) for tensors on the CPU, and launches its
@@ -44,7 +48,8 @@ import torch
 
 from .flash_attention import _DTYPE_CODE, _device_gate, _launch
 
-__all__ = ["fused_linear_cross_entropy", "fused_linear_ce_partials",
+__all__ = ["fused_linear_cross_entropy", "fused_linear_cross_entropy_tp",
+           "fused_linear_ce_partials",
            "fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw",
            "fused_ce_fwd_ref", "fused_ce_bwd_dh_ref", "fused_ce_bwd_dw_ref"]
 
@@ -250,3 +255,57 @@ def fused_linear_cross_entropy(h, w, labels) -> torch.Tensor:
     fp32 ``[N]`` (fused_ce.py:257-263): forward through K5, backward
     through K6 and K7 (their plain versions on the CPU)."""
     return _FusedLinearCE.apply(h, w, labels)
+
+
+class _FusedLinearCETP(torch.autograd.Function):
+    """fused_ce.py:291-340 over a process group. The JAX backward leans on
+    shard_map's transpose (a replicated output's cotangent arrives split by
+    the group size, and the transpose psums dh); in torch autograd the
+    cotangent arrives whole, so g is used as it is and dh, each rank's
+    partial ``dl W_shard^T``, is all-reduced here (in fp32)."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, group, offset, mesh):
+        from ...distributed import comms
+        m, l, z = fused_ce_fwd(h, w, labels, offset)
+        M = comms.wire_all_reduce(m, group, "max", exact=True, mesh=mesh,
+                                  owner="fused_ce_tp.max")
+        S = comms.wire_all_reduce(torch.stack([l * torch.exp(m - M), z]),
+                                  group, "sum", exact=True, mesh=mesh,
+                                  owner="fused_ce_tp.sum")
+        lse = M + torch.log(S[0])
+        ctx.save_for_backward(h, w, labels, lse)
+        ctx.group, ctx.offset, ctx.mesh = group, offset, mesh
+        return lse - S[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...distributed import comms
+        h, w, labels, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            part = fused_ce_bwd_dh(h, w, labels, lse, g, ctx.offset)
+            dh = comms.wire_all_reduce(part.float(), ctx.group, "sum",
+                                       exact=True, mesh=ctx.mesh,
+                                       owner="fused_ce_tp.dh").to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = fused_ce_bwd_dw(h, w, labels, lse, g, ctx.offset)
+        return dh, dw, None, None, None, None
+
+
+def fused_linear_cross_entropy_tp(h, w_shard, labels, axis="mp",
+                                  vocab_offset=None, mesh=None
+                                  ) -> torch.Tensor:
+    """Vocab-parallel fused cross-entropy: this rank holds ``w_shard``
+    ``[H, V/n]`` (ColumnParallelLinear's layout) and the whole ``h``
+    ``[N, H]`` and global ``labels`` ``[N]``; returns every row's loss,
+    fp32 ``[N]``, the same on every rank of ``axis`` (a mesh axis or a
+    ``collective.Group``). ``vocab_offset`` defaults to ``rank * V/n``.
+    K5 forward and K6/K7 backward on the shard (plain versions on the
+    CPU)."""
+    from ...distributed import comms
+    lk = comms.link(axis, mesh)
+    offset = lk.rank * w_shard.shape[1] if vocab_offset is None \
+        else int(vocab_offset)
+    return _FusedLinearCETP.apply(h, w_shard, labels, axis, offset, mesh)

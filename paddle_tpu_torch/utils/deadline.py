@@ -1,9 +1,11 @@
-"""Deadlines and the typed no-hang errors the serving engine raises.
+"""Deadlines and the typed no-hang errors the serving engine and the
+comms layer raise.
 
 Counterpart of ``paddle_tpu/utils/deadline.py``, cut to what the serving
-path and its gateway use: the ``Deadline`` budget a request carries as its
-TTL and a socket exchange carries across its reads, the typed
-``RequestTimeout`` / ``EngineOverloaded`` errors, the exact socket read the
+path, its gateway and the comms layer use: the ``Deadline`` budget a
+request carries as its TTL, a socket exchange across its reads and a
+collective across its phases, the typed ``RequestTimeout`` /
+``EngineOverloaded`` / ``CommTimeout`` errors, the exact socket read the
 gateway's framing is built on (``recv_exact``), the flight-recorder hook
 (``set_incident_hook``) and the env-knob readers.
 """
@@ -14,7 +16,7 @@ import socket
 import time
 
 __all__ = ["DeadlineExceeded", "RequestTimeout", "EngineOverloaded",
-           "Deadline", "set_incident_hook", "recv_exact", "env_timeout",
+           "CommTimeout", "Deadline", "set_incident_hook", "recv_exact", "env_timeout",
            "env_int"]
 
 # flight-recorder hook (observability/__init__ installs trace's
@@ -72,6 +74,12 @@ class EngineOverloaded(DeadlineExceeded):
         super().__init__(what, timeout, detail)
 
 
+class CommTimeout(DeadlineExceeded):
+    """A collective of the comms layer (its quantize, wire or dequantize
+    phase) ran out of its PT_COMM_DEADLINE budget: a peer stalled
+    mid-collective. The message names the owner and the site."""
+
+
 class Deadline:
     """One time budget shared across the steps of a blocking operation;
     ``Deadline(None)`` never expires."""
@@ -95,6 +103,14 @@ class Deadline:
         if self._expiry is None:
             return None
         return max(floor, self._expiry - time.monotonic())
+
+    def check(self, what: str = "", exc: type = DeadlineExceeded,
+              detail: str = "") -> None:
+        """Raise ``exc`` (a DeadlineExceeded subclass) if the budget is
+        gone."""
+        if self.expired:
+            raise exc(what or self.what or "blocking operation",
+                      self.timeout, detail)
 
 
 def recv_exact(sock, n: int, dl: Deadline | None = None,

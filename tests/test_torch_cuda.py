@@ -976,3 +976,146 @@ def test_gateway_round_trip_on_card(cuda_device):
     assert gw.threads() == []
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- multi-GPU training, part 1: the entry points the mesh paths add ----
+
+LSE_CASES = [
+    # (B, S, H, Hkv, D, causal): a ring block of the llama_7b sep run, a
+    # GQA block, a ragged non-causal block
+    (1, 2048, 32, 32, 128, True),
+    (2, 200, 8, 2, 64, True),
+    (1, 129, 4, 4, 128, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,H,hkv,D,causal", LSE_CASES)
+def test_flash_attention_lse_matches_plain_version(cuda_device, dtype, B, S,
+                                                   H, hkv, D, causal):
+    """O and LSE, and the grads of a loss on both (the LSE cotangent folds
+    into delta as ``delta - g_lse``) through K2, K3 and K4, against the
+    plain versions on the same inputs; one launch of each."""
+    q, k, v, do = flash_inputs(B, S, S, H, hkv, D, dtype, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    g_lse = torch.randn(B, H, S, generator=g, device=cuda_device)
+    n = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+         fa.flash_attention_bwd_dkv.launches)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o, lse = fa.flash_attention_lse(*leaves, causal)
+    torch.autograd.backward([o, lse], [do, g_lse])
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq
+            .launches, fa.flash_attention_bwd_dkv.launches) == tuple(
+                x + 1 for x in n)
+    want_o, want_lse = fa.flash_attention_fwd_ref(q, k, v, causal)
+    rtol, step = FLASH_STEP[dtype]
+    _close(o, want_o, rtol, step)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    delta = ((do.float() * want_o.float()).sum(-1).transpose(1, 2)
+             - g_lse).contiguous()
+    want_dq = fa.flash_attention_bwd_dq_ref(q, k, v, do, want_lse, delta,
+                                            causal)
+    want_dk, want_dv = fa.flash_attention_bwd_dkv_ref(q, k, v, do, want_lse,
+                                                      delta, causal)
+    for leaf, want in zip(leaves, (want_dq, want_dk, want_dv)):
+        assert leaf.grad.dtype == dtype
+        _close(leaf.grad, want, rtol, step, mult=2.0)
+
+
+_TP_WORLD1 = r"""
+import sys
+import torch
+import torch.distributed as dist
+from paddle_tpu_torch.distributed import init_parallel_env
+from paddle_tpu_torch.ops.kernels import fused_ce as fce
+from paddle_tpu_torch.parallel import mesh as mesh_mod
+init_parallel_env(backend="gloo", device="cuda", store=dist.HashStore(),
+                  rank=0, world_size=1, mesh_shape={"mp": 1})
+assert dist.get_backend() == "gloo" and mesh_mod.get_mesh().size == 1
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+g = torch.Generator(device=dev).manual_seed(3)
+N, H, V, off = 300, 256, 2056, 2056       # as rank 1 of a 4112-wide vocab
+h = torch.randn(N, H, generator=g, device=dev).to(torch.bfloat16)
+w = (0.05 * torch.randn(H, V, generator=g, device=dev)).to(torch.bfloat16)
+labels = torch.randint(0, 2 * V, (N,), generator=g, device=dev)
+gr = torch.randn(N, generator=g, device=dev)
+n = (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
+     fce.fused_ce_bwd_dw.launches)
+th, tw = (x.detach().requires_grad_() for x in (h, w))
+loss = fce.fused_linear_cross_entropy_tp(th, tw, labels, "mp",
+                                         vocab_offset=off)
+loss.backward(gr)
+torch.cuda.synchronize()
+assert (fce.fused_ce_fwd.launches, fce.fused_ce_bwd_dh.launches,
+        fce.fused_ce_bwd_dw.launches) == tuple(x + 1 for x in n)
+wm, wl, wz = fce.fused_ce_fwd_ref(h, w, labels, off)
+lse = (wm + torch.log(wl)).contiguous()
+torch.testing.assert_close(loss, lse - wz, atol=1e-4, rtol=1e-5)
+assert not wz[(labels < off)].any()
+for got, want, dim in (
+        (th.grad, fce.fused_ce_bwd_dh_ref(h, w, labels, lse, gr, off), -1),
+        (tw.grad, fce.fused_ce_bwd_dw_ref(h, w, labels, lse, gr, off), 0)):
+    got, want = got.float(), want.float()
+    atol = (2 * 2.0 ** -7 * want.abs().amax(dim, keepdim=True)).clamp_min(
+        1e-6)
+    ok = (got - want).abs() <= atol + 2.0 ** -7 * want.abs()
+    assert ok.all(), float((got - want).abs().max())
+print("TP_OK")
+"""
+
+
+@pytest.mark.cuda
+def test_fused_linear_cross_entropy_tp_world1_with_offset(cuda_device):
+    """The vocab-parallel entry point on a world-1 gloo group (its own
+    process), holding the vocab half at offset V as rank 1 would: K5, K6
+    and K7 once each, the loss, dh and dW against the plain versions."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _TP_WORLD1], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "TP_OK" in res.stdout, res.stderr[-3000:]
+
+
+_BUILD_ONCE = r"""
+import json, time
+from paddle_tpu_torch.ops.kernels import _build
+t0 = time.time()
+took = _build.build()
+print(json.dumps({"took": took, "start": t0, "end": time.time()}))
+"""
+
+
+@pytest.mark.cuda
+def test_build_file_lock_builds_once_for_two_processes(cuda_device):
+    """Two processes that reach the build together (the ranks of a job)
+    build once: the first holds the file lock and builds, the second
+    waits, finds the stamp and loads; one library, one stamp, no
+    temporary left."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    from paddle_tpu_torch.ops.kernels import _build
+    root = Path(__file__).resolve().parents[1]
+    _build.LIB_PATH.with_suffix(".sha256").unlink(missing_ok=True)
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_ONCE], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=900)
+        assert p.returncode == 0, err[-3000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    tooks = sorted(o["took"] for o in outs)
+    assert tooks[0] == 0.0 and tooks[1] > 0.0, tooks
+    assert _build.LIB_PATH.is_file()
+    stamp = _build.LIB_PATH.with_suffix(".sha256")
+    assert stamp.read_text().strip() == _build._source_hash()
+    left = [p.name for p in _build.LIB_PATH.parent.iterdir()
+            if ".tmp" in p.name]
+    assert not left, left

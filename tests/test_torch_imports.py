@@ -3,8 +3,8 @@
 - With ``jax`` blocked, the port's packages import and load no
   ``paddle_tpu`` module (a subprocess: conftest has already imported
   ``paddle_tpu`` in this process).
-- No file of the port, and not ``chip_smoke.py``, imports ``jax`` or a
-  ``paddle_tpu`` module.
+- No file of the port, and not ``chip_smoke.py`` or the ranks' helper
+  ``tests/torch_dist.py``, imports ``jax`` or a ``paddle_tpu`` module.
 - The entry points run on the card by default and raise without CUDA
   rather than carry on quietly on the CPU; ``chip_smoke.py`` fails
   without a card and prints no result.
@@ -52,6 +52,13 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.inference.serving.prefix\n"
         "import paddle_tpu_torch.inference.serving.speculative\n"
         "import paddle_tpu_torch.inference.serving.gateway\n"
+        "import paddle_tpu_torch.distributed\n"
+        "import paddle_tpu_torch.distributed.comms\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel\n"
+        "import paddle_tpu_torch.parallel.mesh\n"
+        "import paddle_tpu_torch.parallel.context_parallel\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dist\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
         "             None and (m == 'paddle_tpu' or m.startswith(\n"
         "             'paddle_tpu.') or m.split('.')[0] == 'jax'))\n"
@@ -69,7 +76,7 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "fce_variants.py"]))
+    + ["chip_smoke.py", "fce_variants.py", "tests/torch_dist.py"]))
 def test_source_imports_neither_jax_nor_paddle_tpu(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path
@@ -91,6 +98,21 @@ def test_no_device_means_cuda_and_raises_without_it():
         LlamaForCausalLM(cfg, device="cuda")
     assert LlamaForCausalLM(cfg, device="cpu").device.type == "cpu"
     assert seed(0, "cpu").device.type == "cpu"
+
+
+def test_parallel_env_defaults_to_cuda_and_nccl_and_never_switches():
+    """``init_parallel_env`` runs on the card by default (raising without
+    one) and chooses nccl there, gloo only on the CPU; nccl on the CPU is
+    refused rather than swapped for gloo."""
+    from paddle_tpu_torch.distributed import env
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            env.init_parallel_env()
+        with pytest.raises(RuntimeError):
+            env.init_parallel_env(backend="gloo")
+    with pytest.raises(ValueError, match="nccl"):
+        env.init_parallel_env(backend="nccl", device="cpu")
+    assert not env.is_initialized()
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():

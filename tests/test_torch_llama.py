@@ -235,9 +235,19 @@ def test_config_takes_the_reference_fields_with_its_defaults(field, value):
                                   {"context_parallel": "ring"},
                                   {"context_parallel": "ulysses"}])
 def test_sequence_and_context_parallel_raise_not_in_this_slice(knob):
-    from paddle_tpu_torch.core.errors import NotInThisSlice
+    """Both knobs are ported now (tests/test_torch_hybrid.py runs them on
+    meshes); with no mesh, sequence parallelism is the plain model and
+    context parallelism raises for want of a sep axis, as the JAX
+    function does."""
     cfg = LlamaConfig(**{**vars(LlamaConfig.tiny(**TINY)), **knob})
     for k, v in knob.items():
         assert getattr(cfg, k) == v           # stored as the reference
-    with pytest.raises(NotInThisSlice):
-        LlamaForCausalLM(cfg, device="cpu")
+    pm = LlamaForCausalLM(cfg, device="cpu")
+    plain = LlamaForCausalLM(LlamaConfig.tiny(**TINY), device="cpu")
+    ids = torch.arange(8).reshape(1, 8)
+    if "context_parallel" in knob:
+        with pytest.raises(ValueError, match="sep"):
+            pm.logits(ids)
+    else:
+        torch.testing.assert_close(pm.logits(ids), plain.logits(ids),
+                                   rtol=0, atol=0)

@@ -296,16 +296,19 @@ def test_fused_loss_equals_the_unfused_loss_in_fp32():
 
 
 def test_fused_loss_and_a_mesh_raise_not_in_this_slice():
-    """A mesh with an axis above 1 raises, with or without the fused loss
-    (its vocab-parallel form waits with the hybrid-parallel slice);
+    """A pipeline or ZeRO axis above 1 raises (they wait for part 2 of the
+    multi-GPU slice), with or without the fused loss; the dp/mp/sep legs
+    need a real DeviceMesh (tests/test_torch_hybrid.py drives them);
     ``fused_loss=True`` alone builds."""
     _, pm = _pair(2)
     opt = AdamW(parameters=pm.parameters())
     build_hybrid_train_step(pm, opt, fused_loss=True)
     with pytest.raises(NotInThisSlice):
         build_hybrid_train_step(pm, opt, fused_loss=True,
-                                mesh={"dp": 1, "mp": 2})
+                                mesh={"dp": 1, "pp": 2})
     with pytest.raises(NotInThisSlice):
+        build_hybrid_train_step(pm, opt, mesh={"dp": 2, "sharding": 2})
+    with pytest.raises(TypeError):
         build_hybrid_train_step(pm, opt, mesh={"dp": 2, "mp": 1})
     with pytest.raises(ValueError):
         build_hybrid_train_step(pm, opt, schedule="zigzag")

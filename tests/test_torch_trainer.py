@@ -120,6 +120,8 @@ def test_train_step_legs_of_later_slices_raise():
     _, pm = _llamas()
     opt = popt.SGD(parameters=pm.parameters())
     with pytest.raises(NotInThisSlice):
+        compile_train_step(pm, _llama_loss, opt, mesh={"dp": 2, "pp": 2})
+    with pytest.raises(TypeError):          # dp/mp need a DeviceMesh
         compile_train_step(pm, _llama_loss, opt, mesh={"dp": 2})
     step = compile_train_step(pm, _llama_loss, opt, mesh={"dp": 1})
     assert isinstance(step, TrainStep) and step.captured_program is None
