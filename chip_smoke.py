@@ -116,6 +116,18 @@ fails:
    row, dh per row, the dW shard per column; K5, K6 and K7 once each),
    and the dp2 grad sync exact, int8 and fp8 (2 layers, S=1024, 3 steps:
    wire / logical at most 0.27 for int8, losses within 1% of exact).
+   Then multi-GPU training part 2 (``phase_mesh_pp``): 4 ranks of
+   dp2 x pp2 run the small fp32 model as gpipe and 1f1b_compact with
+   ``DygraphShardingOptimizer`` (ZeRO stage 1 over dp; losses and
+   parameters equal to one unpipelined rank, each rank holding half its
+   Adam state), then 1f1b and vpp (n_virtual=2) at llama_7b width cut to
+   4 layers (S=2048, B=8, M=4, bf16 amp, remat, the fused loss, a clip,
+   ZeRO stage 1; 1 warm-up + 2 timed steps: losses finite, falling and
+   equal on every rank, K2-K7, U1 and U2 launched exactly as each stage
+   must, every state tensor sharded); then (gloo only) 16 ranks of
+   dp2 x pp2 x sharding2 x mp2 run the vpp step of a tiny model with
+   sequence parallelism and ZeRO over the sharding axis, equal to one
+   unpipelined rank.
    Times are the gloo path's, labelled so, with no bound claimed.
    ``--mesh-backend nccl --mesh-only`` runs the same phase (and only it,
    after the build) with one card a rank over NCCL, on a machine with 4
@@ -1946,16 +1958,25 @@ def comm_sites(comms, steps):
 
 
 def mesh_train(torch, mods, cfg, mesh, batch, warmup, steps, clip=None,
-               seed=0, expect=None):
+               seed=0, zero=False, **build_kw):
     """Train ``warmup + steps`` steps of the hybrid step on ``mesh`` (bf16
-    amp, remat, AdamW(1e-4)); the kernel counters and the comm records
-    are zeroed after the warm-up and read after the timed steps."""
+    amp, remat, AdamW(1e-4), ``DygraphShardingOptimizer`` around it when
+    ``zero``; ``build_kw`` to the step); the kernel counters and the comm
+    records are zeroed after the warm-up and read after the timed steps.
+    A pipelined step adds its clock (ticks, busy ticks, the stash's peak,
+    hand-off bytes), a ZeRO step each rank's share of the Adam state."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        DygraphShardingOptimizer
     comms, counters = mods["comms"], mods["counters"]
     model = mods["LlamaForCausalLM"](cfg, device=DEVICE, seed=seed,
                                      mesh=mesh)
+    n_params = sum(p.numel() for p in model.parameters())
     opt = mods["AdamW"](learning_rate=1e-4, parameters=model.parameters(),
                         grad_clip=clip)
-    step = mods["build"](model, opt, mesh=mesh, remat=True, amp=True)
+    if zero:
+        opt = DygraphShardingOptimizer(opt)
+    step = mods["build"](model, opt, mesh=mesh, remat=True, amp=True,
+                         **build_kw)
     losses = [float(step(batch)) for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1969,16 +1990,45 @@ def mesh_train(torch, mods, cfg, mesh, batch, warmup, steps, clip=None,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    launches = {k: kern.launches for k, kern in counters.items()}
+    comm = comm_sites(comms, steps)
     out = {"losses": losses, "step_ms": step_ms,
            "step_ms_p50": float(np.percentile(step_ms, 50)),
-           "launches": launches,
+           "launches": {k: kern.launches for k, kern in counters.items()},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "comm": comm_sites(comms, steps),
-           "params_local": sum(p.numel() for p in model.parameters())}
+           "comm": comm, "params_model": n_params,
+           "params_local": sum(t.numel()
+                               for t in step.state["params"].values())}
+    info = step.state["pipeline"]
+    if info:
+        out.update(
+            stage=mesh.coords["pp"], ticks=info["ticks"],
+            busy_ticks=info["busy"],
+            idle_share=1.0 - info["busy"] / info["ticks"],
+            stash_peak=info["stash_peak"],
+            handoff_bytes_sent=info["bytes_sent"],
+            handoff_bytes_staged=sum(
+                c["bytes_staged"] for k, c in comm.items()
+                if k.startswith("pipeline.handoff")),
+            bytes_staged_all=sum(c["bytes_staged"] for c in comm.values()))
+    zs = step.state["zero"]
+    if zs is not None:
+        out.update(zero_axis=zs.axis,
+                   zero_sharded=sum(d is not None for d in zs.dims),
+                   zero_tensors=len(zs.dims), state_share=state_share(step))
     del model, opt, step
     release(torch)
     return out
+
+
+def state_share(step) -> float:
+    """This rank's Adam moments (fp32) over what it would hold without
+    ZeRO: 1.0 with no ZeRO."""
+    zs = step.state["zero"]
+    if zs is None:
+        return 1.0
+    full = sum(2 * 4 * int(np.prod(zs.full_shape(k)))
+               for k in range(len(zs.tensors)))
+    return zs.state_bytes(list(step.state["opt"].values())) / full
 
 
 def mesh_mods():
@@ -2107,14 +2157,16 @@ def ring_check(torch, mods, mesh, cfg):
     o = fa.flash_attention(*full, causal=True)
     o.backward(do)
     want = [o.detach()[:, rows]] + [t.grad[:, rows] for t in full]
-    loc = [t[:, rows].detach().clone().requires_grad_(True)
+    # the JAX function's per-rank layout, [B, H, S_loc, D]
+    loc = [t[:, rows].transpose(1, 2).detach().clone().requires_grad_(True)
            for t in (q, k, v)]
-    o = ring_attention(*loc, group="sep", causal=True, mesh=mesh)
-    o.backward(do[:, rows].contiguous())
+    o = ring_attention(*loc, "sep", True, mesh=mesh)
+    o.backward(do[:, rows].transpose(1, 2).contiguous())
     torch.cuda.synchronize()
     errs, shares, bad = {}, {}, []
     for name, got, w, mult in zip(("O", "dq", "dk", "dv"),
-                                  [o.detach()] + [t.grad for t in loc],
+                                  [o.detach().transpose(1, 2)]
+                                  + [t.grad.transpose(1, 2) for t in loc],
                                   want, (2.0, 2.0 * n, 2.0 * n, 2.0 * n)):
         ok, errs[name], shares[name] = flash_close(got, w, "bfloat16", mult)
         if not ok:
@@ -2197,7 +2249,92 @@ def job_sep_tp_quant(torch, rank, seed):
     return out
 
 
-MESH_JOBS = {"dp_mp": job_dp_mp, "sep_tp_quant": job_sep_tp_quant}
+# multi-GPU training, part 2: pp2 x dp2 at llama_7b width (M=4, each dp
+# rank one row of each microbatch), the small fp32 pipelines and the
+# 4-axis tiny step; steps are cut to 1 warm-up + 2 timed to keep the run
+# inside its time limit
+PP_LAYERS, PP_SEQ, PP_BATCH, PP_MICRO = 4, 2048, 8, 4
+PP_WARMUP, PP_STEPS = 1, 2
+AXIS4 = {"dp": 2, "pp": 2, "sharding": 2, "mp": 2}
+
+
+def small_pp_config(LlamaConfig, layers=2, sp=False):
+    """A small fp32 model (GQA) and a 4-row batch with ignored labels at the
+    same positions of every row (so every microbatch has as many)."""
+    cfg = LlamaConfig.tiny(vocab=64, hidden=256, layers=layers, heads=4,
+                           inter=512, seq=64)
+    cfg.num_key_value_heads = 2
+    cfg.sequence_parallel = sp
+    ids = np.random.RandomState(2).randint(0, 64, (8, 33))
+    labels = ids[:, 1:].copy()
+    labels[:, ::7] = -100
+    return cfg, {"input_ids": ids[:, :-1], "labels": labels}
+
+
+def small_pp_run(torch, mods, mesh, schedule="gpipe", micro=1, virtual=1,
+                 zero=False, layers=2, sp=False):
+    """Three fp32 steps of the small model (AdamW epsilon 1e-3; ZeRO stage
+    1 when ``zero``): losses, the gathered parameters and each rank's
+    share of the Adam moments."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        DygraphShardingOptimizer
+    from paddle_tpu_torch.models.llama import paddle_tpu_state
+    cfg, batch = small_pp_config(mods["LlamaConfig"], layers, sp)
+    m = mods["LlamaForCausalLM"](cfg, device=DEVICE, seed=5, mesh=mesh)
+    opt = mods["AdamW"](learning_rate=1e-3, epsilon=1e-3,
+                        parameters=m.parameters())
+    if zero:
+        opt = DygraphShardingOptimizer(opt)
+    step = mods["build"](m, opt, mesh=mesh, remat=True, amp=False,
+                         n_microbatches=micro, schedule=schedule,
+                         n_virtual=virtual)
+    losses = [float(step(batch)) for _ in range(3)]
+    share = state_share(step)
+    step.write_back()
+    return losses, paddle_tpu_state(m), share
+
+
+def job_pp_dp(torch, rank, seed):
+    """4 ranks, dp2 x pp2: gpipe and 1f1b_compact on the small fp32 model
+    with ZeRO stage 1 (held against one unpipelined rank by the parent),
+    then 1f1b and vpp (n_virtual=2) at llama_7b width."""
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mods = mesh_mods()
+    mesh = mesh_mod.init_mesh({"dp": 2, "pp": 2})
+    out = {"coords": dict(mesh.coords), "small": {}}
+    for sched in ("gpipe", "1f1b_compact"):
+        losses, state, share = small_pp_run(torch, mods, mesh, sched, 2,
+                                            zero=True)
+        out["small"][sched] = {"losses": losses, "state_share": share,
+                               "state": state if rank == 0 else None}
+    release(torch)
+    cfg = mesh_config(mods["LlamaConfig"], PP_LAYERS, PP_SEQ)
+    batch = mesh_batch(torch, cfg.vocab_size, PP_BATCH, PP_SEQ, seed + 3)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    for sched, v in (("1f1b", 1), ("vpp", 2)):
+        out[sched] = mesh_train(
+            torch, mods, cfg, mesh, batch, PP_WARMUP, PP_STEPS,
+            ClipGradByGlobalNorm(1.0), seed, zero=True, fused_loss=True,
+            n_microbatches=PP_MICRO, schedule=sched, n_virtual=v)
+        out[sched]["n_virtual"] = v
+    return out
+
+
+def job_axis4(torch, rank, seed):
+    """16 ranks, dp2 x pp2 x sharding2 x mp2: the vpp step (n_virtual=2) of
+    a tiny fp32 model with sequence parallelism and ZeRO over the explicit
+    sharding axis."""
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mods = mesh_mods()
+    mesh = mesh_mod.init_mesh(dict(AXIS4))
+    losses, state, share = small_pp_run(torch, mods, mesh, "vpp", 4, 2,
+                                        zero=True, layers=4, sp=True)
+    return {"coords": dict(mesh.coords), "losses": losses,
+            "state_share": share, "state": state if rank == 0 else None}
+
+
+MESH_JOBS = {"dp_mp": job_dp_mp, "sep_tp_quant": job_sep_tp_quant,
+             "pp_dp": job_pp_dp, "axis4": job_axis4}
 
 
 def mesh_rank(rank, world, root, job, seed, backend):
@@ -2211,7 +2348,7 @@ def mesh_rank(rank, world, root, job, seed, backend):
     try:
         import torch.distributed as dist
         from paddle_tpu_torch.distributed import init_parallel_env
-        torch.set_num_threads(2)           # 8 cores, up to 4 ranks
+        torch.set_num_threads(2 if world <= 4 else 1)   # 8 cores
         torch.backends.cuda.matmul.allow_tf32 = False
         card = 0 if backend == "gloo" else rank
         torch.cuda.set_device(card)
@@ -2271,6 +2408,117 @@ def run_ranks(job, world, root, seed, backend):
         with open(os.path.join(root, f"out{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def pp_launches_want(sched, stage, L, M, v):
+    """K2-K7, U1, U2 a step on pp stage ``stage`` of two (remat: a stage's
+    forward runs under checkpoint, its backward recomputes the stage and
+    the checkpoint recomputes each block). 1f1b: stage 0's forward units
+    (M x L/2 K2), every backward unit 2 x L/2 K2 and L/2 K3, K4; the last
+    stage skips the forward unit whose output goes nowhere and runs the
+    fused loss (K5-K7) once a microbatch. vpp: every unit of L/(2 v)
+    layers runs forward once and is recomputed twice in the backward; the
+    last stage runs the fused loss once over the reassembled batch."""
+    last = stage == 1
+    if sched == "1f1b":
+        lp = L // 2
+        k2 = (2 if last else 3) * lp * M
+        k3 = lp * M
+        fce = M if last else 0
+    else:
+        lc = L // (2 * v)
+        k2 = 3 * lc * M * v
+        k3 = lc * M * v
+        fce = 1 if last else 0
+    return {"flash_fwd": k2, "flash_bwd_dq": k3, "flash_bwd_dkv": k3,
+            "fused_ce_fwd": fce, "fused_ce_bwd_dh": fce,
+            "fused_ce_bwd_dw": fce, "multi_tensor_sumsq": 1,
+            "multi_tensor_adam": 1}
+
+
+def small_equal(label, got_losses, got_state, want_losses, want_state):
+    check(np.allclose(got_losses, want_losses, rtol=1e-5),
+          f"{label} fp32 losses {got_losses} vs one rank {want_losses}")
+    if got_state is None:
+        return
+    apart = {n: int((~np.isclose(got_state[n], want, rtol=1e-4,
+                                 atol=1e-5)).sum())
+             for n, want in want_state.items()}
+    check(sum(apart.values()) == 0, f"{label} fp32 parameters differ from "
+          "one rank's: " + str({n: c for n, c in apart.items() if c}))
+
+
+def phase_mesh_pp(torch, args, root, backend):
+    """Multi-GPU training, part 2: dp2 x pp2 on 4 ranks (the small fp32
+    gpipe and 1f1b_compact pipelines with ZeRO stage 1 equal to one
+    unpipelined rank; 1f1b and vpp at llama_7b width with the fused loss,
+    a global-norm clip and ZeRO stage 1), then (gloo) the 16-rank
+    dp2 x pp2 x sharding2 x mp2 vpp step of a tiny model with ZeRO over
+    the sharding axis, equal to one unpipelined rank."""
+    mods = mesh_mods()
+    release(torch)
+    want2 = small_pp_run(torch, mods, None, layers=2)
+    want4 = small_pp_run(torch, mods, None, layers=4)
+    release(torch)
+    pp_res = run_ranks("pp_dp", 4, root, args.seed, backend)
+    for sched in ("gpipe", "1f1b_compact"):
+        for res in pp_res:
+            sm = res["small"][sched]
+            small_equal(f"dp2 x pp2 {sched}", sm["losses"], sm["state"],
+                        want2[0], want2[1])
+            check(sm["state_share"] == 0.5, f"dp2 x pp2 {sched}: a rank "
+                  f"holds {sm['state_share']} of its Adam state, want 1/2")
+    log(f"mesh dp2 x pp2 fp32 (small): gpipe and 1f1b_compact losses "
+        f"{pp_res[0]['small']['gpipe']['losses']} = one unpipelined rank's "
+        f"{want2[0]} (rtol 1e-5), parameters at rtol 1e-4 / atol 1e-5; "
+        f"each rank holds 1/2 of its Adam state")
+    for sched, v in (("1f1b", 1), ("vpp", 2)):
+        legs = [res[sched] for res in pp_res]
+        for r, tr in enumerate(legs):
+            check(all(np.isfinite(tr["losses"])),
+                  f"pp {sched} rank {r}: non-finite loss {tr['losses']}")
+            check(tr["losses"][-1] < tr["losses"][0],
+                  f"pp {sched} rank {r}: loss did not fall: {tr['losses']}")
+            want = pp_launches_want(sched, tr["stage"], PP_LAYERS, PP_MICRO,
+                                    v)
+            got = {k: tr["launches"][k] / PP_STEPS for k in want}
+            check(got == want, f"pp {sched} rank {r} (stage {tr['stage']}):"
+                  f" launches a step {got}, want {want}")
+            check(tr["zero_sharded"] == tr["zero_tensors"]
+                  and tr["state_share"] == 0.5,
+                  f"pp {sched} rank {r}: {tr['zero_sharded']} of "
+                  f"{tr['zero_tensors']} state tensors sharded, a share of "
+                  f"{tr['state_share']}, want all and 1/2")
+        check(all(t["losses"] == legs[0]["losses"] for t in legs),
+              f"pp {sched}: ranks report different losses")
+        log(f"mesh dp2 x pp2 {sched} at llama_7b width ({PP_LAYERS} layers,"
+            f" S={PP_SEQ}, B={PP_BATCH}, M={PP_MICRO}, fused loss, ZeRO-1): "
+            f"step p50 {[round(t['step_ms_p50']) for t in legs]} ms, peak "
+            f"{[round(t['peak_mem_gib'], 2) for t in legs]} GiB, idle "
+            f"{[round(t['idle_share'], 3) for t in legs]}, losses "
+            f"{legs[0]['losses']}")
+    axis4 = {"skipped": "16 ranks need gloo on the one card"}
+    if backend == "gloo":
+        res16 = run_ranks("axis4", 16, root, args.seed, backend)
+        for res in res16:
+            small_equal("dp2 x pp2 x sharding2 x mp2 vpp", res["losses"],
+                        res["state"], want4[0], want4[1])
+            check(res["state_share"] == 0.5, f"4-axis: a rank holds "
+                  f"{res['state_share']} of its Adam state, want 1/2")
+        axis4 = {"mesh": AXIS4, "schedule": "vpp", "n_virtual": 2,
+                 "losses": res16[0]["losses"], "one_rank_losses": want4[0],
+                 "state_share": [res["state_share"] for res in res16]}
+        log(f"mesh dp2 x pp2 x sharding2 x mp2 vpp (16 ranks, tiny fp32, "
+            f"ZeRO over sharding): losses {res16[0]['losses']} = one "
+            f"unpipelined rank's {want4[0]}")
+    return pp_res, axis4
+
+
+def pp_launches(mesh, key):
+    """One kernel's launches a step by rank on the dp2 x pp2 legs."""
+    return {f"pp2_dp2_{sched}_by_rank": [
+        r[key] for r in mesh["pp2_dp2"][sched]["launches_per_step"]]
+        for sched in ("1f1b", "vpp")}
 
 
 def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
@@ -2367,6 +2615,7 @@ def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
                 check(share <= INT8_WIRE_SHARE,
                       f"int8 wire / logical {share:.4f} > "
                       f"{INT8_WIRE_SHARE}")
+    pp_res, axis4 = phase_mesh_pp(torch, args, root, backend)
     r0 = sep_tp[0]
     mesh = {
         "backend": MESH_LABEL[backend], "claim": "none: a smoke run "
@@ -2408,6 +2657,28 @@ def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
                    "step_ms_p50": r0[w]["step_ms_p50"],
                    "comm_rank0": r0[w]["comm"]} for w in ("int8", "fp8")},
             "exact_step_ms_p50": r0["exact"]["step_ms_p50"]},
+        "pp2_dp2": {sched: {
+            "layers": PP_LAYERS, "seq": PP_SEQ, "batch": PP_BATCH,
+            "n_microbatches": PP_MICRO, "n_virtual": pp_res[0][sched][
+                "n_virtual"], "warmup_steps": PP_WARMUP,
+            "steps": PP_STEPS, "losses": pp_res[0][sched]["losses"],
+            **{k: [res[sched][k] for res in pp_res] for k in (
+                "stage", "step_ms_p50", "peak_mem_gib", "params_model",
+                "params_local", "ticks", "busy_ticks", "idle_share",
+                "stash_peak", "handoff_bytes_sent", "handoff_bytes_staged",
+                "bytes_staged_all", "zero_axis", "zero_sharded",
+                "zero_tensors", "state_share")},
+            "launches_per_step": [{k: v / PP_STEPS for k, v in
+                                   res[sched]["launches"].items()}
+                                  for res in pp_res],
+            "comm_rank0": pp_res[0][sched]["comm"]}
+            for sched in ("1f1b", "vpp")},
+        "pp_small_fp32": {sched: {
+            "losses": pp_res[0]["small"][sched]["losses"],
+            "state_share": [res["small"][sched]["state_share"]
+                            for res in pp_res]}
+            for sched in ("gpipe", "1f1b_compact")},
+        "axis4": axis4,
         "phase_s": time.perf_counter() - t0,
     }
     log(f"mesh ({MESH_LABEL[backend]}): dp2 x mp2 step p50 "
@@ -2593,7 +2864,8 @@ def main(argv=None) -> int:
                 **{f"sep2_{mode}_by_rank": [
                     r_[name.replace("attention_", "")] for r_ in
                     mesh["sep2"][mode]["launches_per_step"]]
-                   for mode in ("ring", "ulysses")}},
+                   for mode in ("ring", "ulysses")},
+                **pp_launches(mesh, name.replace("attention_", ""))},
             "entry_points": "flash_attention (sdpa), flash_attention_lse "
                             "(ring attention)",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2611,6 +2883,7 @@ def main(argv=None) -> int:
             "launches": fused_steps[name] * training_fused["steps"],
             "tp_launches_by_rank": [t[name] for t in
                                     mesh["tp_fused_ce"]["launches"]],
+            "mesh_launches_per_step": pp_launches(mesh, name),
             "entry_points": "fused_linear_cross_entropy, "
                             "fused_linear_cross_entropy_tp (vocab shard)",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2638,8 +2911,10 @@ def main(argv=None) -> int:
             "launches": trainstep["launches"][name.replace("_finite", "")],
             "train_launches": per_step[name.replace("_finite", "")]
             * training["steps"],
-            "mesh_launches_per_step": mesh["dp2_mp2"]["launches_per_step"][
-                name.replace("_finite", "")],
+            "mesh_launches_per_step": {
+                "dp2_mp2_each_rank": mesh["dp2_mp2"]["launches_per_step"][
+                    name.replace("_finite", "")],
+                **pp_launches(mesh, name.replace("_finite", ""))},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

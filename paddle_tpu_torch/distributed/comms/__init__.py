@@ -10,7 +10,7 @@ from .api import (  # noqa: F401
     GLOO_CUDA_NATIVE, comm_deadline, comms_cache_key, grad_sync, link,
     quant_state, quantized, quantized_all_reduce, wire_all_gather,
     wire_all_reduce, wire_all_to_all, wire_broadcast, wire_exchange,
-    wire_reduce_scatter, wire_sendrecv,
+    wire_p2p, wire_reduce_scatter,
 )
 from .quantize import (  # noqa: F401
     DEFAULT_BLOCK, dequantize_blockwise, logical_bytes, quantize_blockwise,

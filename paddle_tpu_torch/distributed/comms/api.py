@@ -64,7 +64,7 @@ __all__ = [
     "quantized", "quant_state", "comms_cache_key", "comm_deadline",
     "grad_sync", "quantized_all_reduce", "wire_all_reduce",
     "wire_all_gather", "wire_all_to_all", "wire_exchange", "wire_broadcast",
-    "wire_reduce_scatter", "wire_sendrecv", "Link", "link",
+    "wire_reduce_scatter", "wire_p2p", "Link", "link",
     "GLOO_CUDA_NATIVE",
 ]
 
@@ -248,20 +248,6 @@ def _t_broadcast(t: torch.Tensor, lk: Link, src: int, st: _Stager):
     return st.back(x, t)
 
 
-def _t_sendrecv(t: torch.Tensor, dst: int, src: int, lk: Link,
-                st: _Stager) -> torch.Tensor:
-    """Send ``t`` to group rank ``dst`` and receive a tensor like it from
-    group rank ``src`` (one batched exchange, so a ring cannot
-    deadlock)."""
-    x = st.out(t.contiguous())
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, _global(lk, dst), lk.pg),
-           dist.P2POp(dist.irecv, out, _global(lk, src), lk.pg)]
-    for w in dist.batch_isend_irecv(ops):
-        w.wait()
-    return st.back(out, t)
-
-
 def _wire_view(q: torch.Tensor) -> torch.Tensor:
     """A wire payload as bytes (gloo and NCCL carry no float8)."""
     return q.view(torch.uint8)
@@ -358,14 +344,14 @@ def _two_shot(v: torch.Tensor, lk: Link, op: str, qs,
 # the recorded collectives
 # ---------------------------------------------------------------------------
 
-def wire_all_reduce(v: torch.Tensor, group=None, op: str = "sum", *,
+def wire_all_reduce(v: torch.Tensor, axis=None, op: str = "sum", *,
                     owner: str = "collective", exact: bool = False,
                     budget: Optional[float] = None, mesh=None
                     ) -> torch.Tensor:
     """The reduction (sum, avg, max, min, prod) of each rank's ``v`` over
-    the group, as a new tensor. Quantized (sum and avg of floats) when the
+    the axis, as a new tensor. Quantized (sum and avg of floats) when the
     context is on and not ``exact``. Always recorded."""
-    lk = link(group, mesh)
+    lk = link(axis, mesh)
     dl = _deadline(owner, budget)
     t0 = time.perf_counter()
     if lk.n == 1:
@@ -390,13 +376,13 @@ def wire_all_reduce(v: torch.Tensor, group=None, op: str = "sum", *,
     return out
 
 
-def wire_all_gather(v: torch.Tensor, group=None, *,
+def wire_all_gather(v: torch.Tensor, axis=None, *,
                     owner: str = "collective", exact: bool = False,
                     budget: Optional[float] = None, mesh=None
                     ) -> torch.Tensor:
-    """``[n, *v.shape]``: every rank's ``v`` in group order. Quantized when
+    """``[n, *v.shape]``: every rank's ``v`` in axis order. Quantized when
     the context is on and not ``exact``."""
-    lk = link(group, mesh)
+    lk = link(axis, mesh)
     dl = _deadline(owner, budget)
     t0 = time.perf_counter()
     if lk.n == 1:
@@ -425,7 +411,7 @@ def wire_all_gather(v: torch.Tensor, group=None, *,
     return out
 
 
-def wire_all_to_all(v: torch.Tensor, group=None, *,
+def wire_all_to_all(v: torch.Tensor, axis=None, *,
                     owner: str = "collective", exact: bool = False,
                     budget: Optional[float] = None, mesh=None
                     ) -> torch.Tensor:
@@ -433,12 +419,12 @@ def wire_all_to_all(v: torch.Tensor, group=None, *,
     the result stacks at dim 0 the block every rank addressed here. A
     floating payload rides int8/fp8 (one quantize per destination block)
     when the context is on and not ``exact``."""
-    lk = link(group, mesh)
+    lk = link(axis, mesh)
     dl = _deadline(owner, budget)
     t0 = time.perf_counter()
     if v.shape[0] != lk.n:
         raise ValueError(f"wire_all_to_all: leading dim {v.shape[0]} must "
-                         f"equal the group size {lk.n}")
+                         f"equal the axis size {lk.n}")
     vol = (lk.n - 1) / lk.n if lk.n > 1 else 0.0
     if lk.n == 1:
         _phase(SITE_COLLECTIVE, dl, owner)
@@ -468,7 +454,7 @@ def wire_all_to_all(v: torch.Tensor, group=None, *,
     return out
 
 
-def wire_reduce_scatter(v: torch.Tensor, group=None, op: str = "sum", *,
+def wire_reduce_scatter(v: torch.Tensor, axis=None, op: str = "sum", *,
                         owner: str = "collective",
                         budget: Optional[float] = None, mesh=None
                         ) -> torch.Tensor:
@@ -476,13 +462,13 @@ def wire_reduce_scatter(v: torch.Tensor, group=None, op: str = "sum", *,
     rank, rank j gets the reduction of rows ``[j m, (j + 1) m)``. Carried
     as an all-to-all and a local reduction in fp32 (the same bytes as a
     ring reduce-scatter, and one path for gloo and NCCL)."""
-    lk = link(group, mesh)
+    lk = link(axis, mesh)
     dl = _deadline(owner, budget)
     t0 = time.perf_counter()
     n = lk.n
     if v.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim 0 ({v.shape[0]}) not "
-                         f"divisible by the group size {n}")
+                         f"divisible by the axis size {n}")
     _phase(SITE_COLLECTIVE, dl, owner)
     if n == 1:
         _record(owner, "reduce_scatter", lk, v, 0, None, dl, _state.block,
@@ -508,11 +494,11 @@ def wire_reduce_scatter(v: torch.Tensor, group=None, op: str = "sum", *,
     return out.to(v.dtype)
 
 
-def wire_broadcast(v: torch.Tensor, src: int = 0, group=None, *,
+def wire_broadcast(v: torch.Tensor, src: int = 0, axis=None, *,
                    owner: str = "collective", budget: Optional[float] = None,
                    mesh=None) -> torch.Tensor:
     """Group rank ``src``'s ``v`` on every rank (exact)."""
-    lk = link(group, mesh)
+    lk = link(axis, mesh)
     dl = _deadline(owner, budget)
     t0 = time.perf_counter()
     _phase(SITE_COLLECTIVE, dl, owner)
@@ -526,23 +512,45 @@ def wire_broadcast(v: torch.Tensor, src: int = 0, group=None, *,
     return out
 
 
-def wire_sendrecv(v: torch.Tensor, dst: int, src: int, group=None, *,
-                  owner: str = "collective", budget: Optional[float] = None,
-                  mesh=None) -> torch.Tensor:
-    """Send ``v`` to group rank ``dst``, receive from group rank ``src``
-    (exact; the ring hand-off and the pipeline edge)."""
-    lk = link(group, mesh)
+def wire_p2p(sends, recvs, axis=None, *, owner: str = "collective",
+             budget: Optional[float] = None, mesh=None) -> list:
+    """One batched exchange of point-to-point messages over the axis (the
+    ring's and the pipeline's hand-offs): ``sends`` is ``[(tensor, dst)]``, ``recvs``
+    ``[(like, src)]`` with peers as axis indices; returns a tensor like
+    each ``like``, in order. Every send and receive of the call goes into
+    one ``batch_isend_irecv``, so two neighbours that both send and both
+    receive in one tick cannot deadlock. Exact; staged through the host
+    for CUDA tensors on gloo. Recorded as one ``sendrecv`` whose logical
+    bytes are the bytes sent."""
+    lk = link(axis, mesh)
     dl = _deadline(owner, budget)
     t0 = time.perf_counter()
     _phase(SITE_COLLECTIVE, dl, owner)
+    if not sends and not recvs:
+        return []
     if lk.n == 1:
-        _record(owner, "sendrecv", lk, v, 0, None, dl, _state.block, t0=t0)
-        return v
-    st = _Stager(lk, "sendrecv", v)
-    out = _t_sendrecv(v, int(dst) % lk.n, int(src) % lk.n, lk, st)
-    _record(owner, "sendrecv", lk, v, 1, None, dl, _state.block,
-            staged=st.bytes, t0=t0)
-    return out
+        raise ValueError("wire_p2p: an axis of one rank has no peer")
+    ref = (sends or recvs)[0][0]
+    st = _Stager(lk, "sendrecv", ref)
+    ops, outs = [], []
+    for t, dst in sends:
+        x = st.out(t.contiguous())
+        ops.append(dist.P2POp(dist.isend, x, _global(lk, int(dst) % lk.n),
+                              lk.pg))
+    for like, src in recvs:
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if st.on else like.device)
+        outs.append((buf, like))
+        ops.append(dist.P2POp(dist.irecv, buf, _global(lk, int(src) % lk.n),
+                              lk.pg))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    got = [st.back(b, like) for b, like in outs]
+    sent = sum(t.numel() * t.element_size() for t, _ in sends)
+    unit = ref.numel() * ref.element_size()
+    _record(owner, "sendrecv", lk, ref, sent / unit if unit else 0, None, dl,
+            _state.block, staged=st.bytes, t0=t0)
+    return got
 
 
 class _Exchange(torch.autograd.Function):
@@ -563,12 +571,12 @@ class _Exchange(torch.autograd.Function):
                 None, None, None, None)
 
 
-def wire_exchange(v: torch.Tensor, group=None, owner: str = "collective",
+def wire_exchange(v: torch.Tensor, axis=None, owner: str = "collective",
                   exact: bool = False, mesh=None) -> torch.Tensor:
     """Differentiable ``wire_all_to_all``: the backward exchanges the
     cotangent blocks over the same wire (quantized when the context is on
     and not ``exact``, straight through the rounding)."""
-    return _Exchange.apply(v, group, owner, exact, mesh)
+    return _Exchange.apply(v, axis, owner, exact, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -610,7 +618,7 @@ BUCKET_BYTES = 256 << 20
 
 
 def grad_sync(grads: List[torch.Tensor], mesh=None, axis="dp",
-              op: str = "avg", owner: str = "trainer.grad_sync",
+              owner: str = "trainer.grad_sync", *, op: str = "avg",
               exact: bool = False) -> List[torch.Tensor]:
     """The data-parallel gradient sync over ``axis`` (a name or a tuple of
     names): a new list. Context off: exact all-reduces over the grads

@@ -28,7 +28,8 @@ from ..core.device import resolve_device
 from ..utils.deadline import env_timeout
 
 __all__ = ["ParallelEnv", "init_parallel_env", "is_initialized", "get_rank",
-           "get_world_size", "current_device", "get_backend"]
+           "get_world_size", "current_device", "get_backend",
+           "parallel_device_count"]
 
 _env = {"device": None, "backend": None}
 
@@ -69,8 +70,8 @@ class ParallelEnv:
         return self.local_rank
 
 
-def init_parallel_env(backend: Optional[str] = None,
-                      mesh_shape: Optional[dict] = None, *, device=None,
+def init_parallel_env(mesh_shape: Optional[dict] = None, *,
+                      backend: Optional[str] = None, device=None,
                       store=None, rank: Optional[int] = None,
                       world_size: Optional[int] = None,
                       timeout: Optional[float] = None) -> ParallelEnv:
@@ -123,7 +124,7 @@ def init_parallel_env(backend: Optional[str] = None,
     _env["device"], _env["backend"] = dev, dist.get_backend()
     if mesh_mod.get_mesh() is None or mesh_shape is not None:
         mesh_mod.init_mesh(mesh_shape or {"dp": dist.get_world_size()},
-                           device=dev, backend=_env["backend"])
+                           devices=dev, backend=_env["backend"])
     return ParallelEnv()
 
 
@@ -158,3 +159,12 @@ def get_world_size(group=None) -> int:
     if group is not None:
         return group.nranks
     return dist.get_world_size() if is_initialized() else 1
+
+
+def parallel_device_count() -> int:
+    """The cards this process sees (``torch.cuda.device_count()``), 1
+    without CUDA: what ``distributed.spawn`` starts one process each for
+    (the JAX function counts the program's devices, env.py:99)."""
+    if torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return 1

@@ -21,10 +21,15 @@ op                                forward          backward
 ``ReduceScatterOp`` (seq dim)     reduce-scatter   all-gather
 ================================  ===============  ===============
 
-Constructor defaults are the JAX layers' (a bias; a row-parallel input
-sliced unless ``input_is_parallel``); the arguments after the two sizes
-are the port's (``device``, ``dtype``, ``generator``, then the flags and
-``mesh``). Weights keep Paddle's ``[in, out]`` layout. ``ColumnParallelLinear``
+Constructors take the JAX layers' arguments in their order and defaults
+(``weight_attr``, ``has_bias``, ``gather_output`` / ``input_is_parallel``,
+``fuse_matmul_bias``, ``mp_group``, ``name``); the port's own knobs
+(``device``, ``dtype``, ``generator``, ``mesh``) are keyword-only after
+them. ``weight_attr`` may carry an ``initializer`` (applied to the full
+weight before it is sliced) and ``trainable``; ``mp_group`` is a
+``collective.Group`` of the mesh's mp axis (or None for that axis);
+``fuse_matmul_bias`` adds the bias in the GEMM (``torch.addmm``).
+Weights keep Paddle's ``[in, out]`` layout. ``ColumnParallelLinear``
 holds output columns ``[r out/mp, (r+1) out/mp)`` of rank r,
 ``RowParallelLinear`` input rows, ``VocabParallelEmbedding`` vocab rows.
 Each sharded parameter carries ``split_axis`` (the dim split over mp) and
@@ -236,10 +241,33 @@ class ReduceScatterOp:
 # layers
 # ---------------------------------------------------------------------------
 
+def _mp_mesh(mp_group, mesh):
+    """The mesh whose mp axis the layer spans: ``mp_group`` must be a
+    group of that axis (its ranks this rank's mp slice)."""
+    mesh = mesh if mesh is not None else mesh_mod.get_mesh()
+    if mp_group is None:
+        return mesh
+    ranks = list(getattr(mp_group, "ranks", []))
+    want = mesh.axis_ranks(MP_AXIS) if mesh is not None \
+        and MP_AXIS in mesh.shape else [0]
+    if getattr(mp_group, "axis", None) != MP_AXIS and ranks != want:
+        raise ValueError(f"mp_group {mp_group!r} is not the mesh's "
+                         f"{MP_AXIS!r} axis (ranks {want})")
+    return mesh
+
+
+def _initializer(attr):
+    """The weight initializer a ``weight_attr`` carries, or None."""
+    init = getattr(attr, "initializer", None)
+    return init if init is not None else (attr if callable(attr) else None)
+
+
 def _shard_param(full_shape, split: Optional[int], n: int, r: int, device,
-                 dtype, generator, init: str = "xavier") -> nn.Parameter:
+                 dtype, generator, init: str = "xavier",
+                 attr=None) -> nn.Parameter:
     """A parameter holding rank r's slice (along ``split``) of a full
-    weight drawn as the mp=1 layer draws it."""
+    weight drawn as the mp=1 layer draws it (by ``attr``'s initializer,
+    when it has one)."""
     if split is not None and full_shape[split] % n:
         raise ValueError(f"dim {split} of {tuple(full_shape)} does not "
                          f"split over mp={n}")
@@ -247,9 +275,16 @@ def _shard_param(full_shape, split: Optional[int], n: int, r: int, device,
     if split is not None:
         shape[split] //= n
     p = _param(shape, device, dtype)
+    custom = _initializer(attr)
     with torch.no_grad():
         if init == "zeros":
             p.zero_()
+        elif custom is not None:
+            full = torch.empty(full_shape, device=p.device,
+                               dtype=torch.float32)
+            custom(full)
+            p.copy_(full.chunk(n, dim=split)[r] if split is not None
+                    else full)
         elif n == 1 or split is None:
             xavier_normal_(p, generator)
         else:
@@ -257,26 +292,41 @@ def _shard_param(full_shape, split: Optional[int], n: int, r: int, device,
                                               dtype=torch.float32),
                                   generator)
             p.copy_(full.chunk(n, dim=split)[r])
+    if attr is not None and getattr(attr, "trainable", True) is False:
+        p.requires_grad_(False)
     p.split_axis = split if n > 1 else None
     p.is_distributed = split is not None and n > 1
     return p
+
+
+def _matmul(x, w, b, fuse: bool):
+    """``x W (+ b)``; ``fuse`` adds the bias in the GEMM's epilogue."""
+    if b is None:
+        return F.linear(x, w)
+    if fuse:
+        out = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return F.linear(x, w, b)
 
 
 class VocabParallelEmbedding(nn.Module):
     """Embedding with the vocab rows split over mp; ids outside the rank's
     range look up zeros, and the rows are all-reduced."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, device=None,
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 weight_attr=None, mp_group=None, name=None, *, device=None,
                  dtype=torch.float32, generator=None, mesh=None):
         super().__init__()
-        self.mesh = mesh
+        self.mesh = mesh = _mp_mesh(mp_group, mesh)
+        self._name = name
         n, r = mp_degree(mesh)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.per_rank = num_embeddings // n
         self.vocab_start = r * self.per_rank
         self.weight = _shard_param([num_embeddings, embedding_dim], 0, n, r,
-                                   device, dtype, generator)
+                                   device, dtype, generator,
+                                   attr=weight_attr)
 
     def forward(self, x, weight=None):
         w = self.weight if weight is None else weight
@@ -296,25 +346,29 @@ class ColumnParallelLinear(nn.Module):
     is copied to mp (its grad all-reduced); with ``gather_output`` the
     output columns are all-gathered, else each rank keeps its own."""
 
-    def __init__(self, in_features: int, out_features: int, device=None,
-                 dtype=torch.float32, generator=None, has_bias: bool = True,
-                 gather_output: bool = True, mesh=None):
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, has_bias: bool = True,
+                 gather_output: bool = True, fuse_matmul_bias: bool = False,
+                 mp_group=None, name=None, *, device=None,
+                 dtype=torch.float32, generator=None, mesh=None):
         super().__init__()
-        self.mesh = mesh
+        self.mesh = mesh = _mp_mesh(mp_group, mesh)
+        self._name = name
         n, r = mp_degree(mesh)
         self.in_features = in_features
         self.out_features = out_features
         self.gather_output = gather_output
+        self.fuse_matmul_bias = fuse_matmul_bias
         self.weight = _shard_param([in_features, out_features], 1, n, r,
-                                   device, dtype, generator)
+                                   device, dtype, generator,
+                                   attr=weight_attr)
         self.bias = _shard_param([out_features], 0, n, r, device, dtype,
                                  None, init="zeros") if has_bias else None
 
     def local(self, x, weight=None):
         """This rank's columns, no collective (the caller copied x)."""
         w = self.weight if weight is None else weight
-        out = F.linear(x, w)
-        return out if self.bias is None else out + self.bias
+        return _matmul(x, w, self.bias, self.fuse_matmul_bias)
 
     def forward(self, x):
         out = self.local(copy_to_mp(x, self.mesh))
@@ -328,17 +382,23 @@ class RowParallelLinear(nn.Module):
     ``input_is_parallel=False`` the input is first sliced along its last
     dim."""
 
-    def __init__(self, in_features: int, out_features: int, device=None,
-                 dtype=torch.float32, generator=None, has_bias: bool = True,
-                 input_is_parallel: bool = False, mesh=None):
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, has_bias: bool = True,
+                 input_is_parallel: bool = False,
+                 fuse_matmul_bias: bool = False, mp_group=None, name=None, *,
+                 device=None, dtype=torch.float32, generator=None,
+                 mesh=None):
         super().__init__()
-        self.mesh = mesh
+        self.mesh = mesh = _mp_mesh(mp_group, mesh)
+        self._name = name
         n, r = mp_degree(mesh)
         self.in_features = in_features
         self.out_features = out_features
         self.input_is_parallel = input_is_parallel
+        self.fuse_matmul_bias = fuse_matmul_bias
         self.weight = _shard_param([in_features, out_features], 0, n, r,
-                                   device, dtype, generator)
+                                   device, dtype, generator,
+                                   attr=weight_attr)
         self.bias = _shard_param([out_features], None, n, r, device, dtype,
                                  None, init="zeros") if has_bias else None
 
@@ -353,6 +413,8 @@ class RowParallelLinear(nn.Module):
     def forward(self, x):
         if not self.input_is_parallel and mp_degree(self.mesh)[0] > 1:
             x = ScatterOp.apply(x, -1, self.mesh)
+        if mp_degree(self.mesh)[0] == 1:     # no reduction between them
+            return _matmul(x, self.weight, self.bias, self.fuse_matmul_bias)
         return self._finish(reduce_from_mp(self.local(x), self.mesh))
 
 
@@ -401,9 +463,11 @@ class ParallelCrossEntropy(nn.Module):
     """Per-row CE over mp-sharded logits (``reduction='none'``); rows whose
     label is ``ignore_index`` give 0."""
 
-    def __init__(self, mesh=None, ignore_index: int = -100):
+    def __init__(self, mp_group=None, name=None, ignore_index: int = -100,
+                 *, mesh=None):
         super().__init__()
-        self.mesh = mesh
+        self.mesh = _mp_mesh(mp_group, mesh)
+        self._name = name
         self.ignore_index = ignore_index
 
     def forward(self, input, label):
@@ -454,11 +518,14 @@ class ColumnSequenceParallelLinear(ColumnParallelLinear):
     """Column-parallel linear on a sequence-sharded input: the input is
     all-gathered along the sequence (its grad reduce-scattered)."""
 
-    def __init__(self, in_features, out_features, device=None,
-                 dtype=torch.float32, generator=None, has_bias=True,
-                 gather_output=False, mesh=None):
-        super().__init__(in_features, out_features, device, dtype, generator,
-                         has_bias, gather_output, mesh)
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, gather_output=False, fuse_matmul_bias=False,
+                 mp_group=None, name=None, *, device=None,
+                 dtype=torch.float32, generator=None, mesh=None):
+        super().__init__(in_features, out_features, weight_attr, has_bias,
+                         gather_output, fuse_matmul_bias, mp_group, name,
+                         device=device, dtype=dtype, generator=generator,
+                         mesh=mesh)
 
     def forward(self, x):
         out = self.local(AllGatherOp.apply(x, 1, self.mesh))
@@ -470,11 +537,15 @@ class RowSequenceParallelLinear(RowParallelLinear):
     """Row-parallel linear whose partial products are reduce-scattered
     along the sequence instead of all-reduced."""
 
-    def __init__(self, in_features, out_features, device=None,
-                 dtype=torch.float32, generator=None, has_bias=True,
-                 input_is_parallel=True, mesh=None):
-        super().__init__(in_features, out_features, device, dtype, generator,
-                         has_bias, input_is_parallel, mesh)
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=True,
+                 fuse_matmul_bias=False, mp_group=None, name=None, *,
+                 device=None, dtype=torch.float32, generator=None,
+                 mesh=None):
+        super().__init__(in_features, out_features, weight_attr, has_bias,
+                         input_is_parallel, fuse_matmul_bias, mp_group, name,
+                         device=device, dtype=dtype, generator=generator,
+                         mesh=mesh)
 
     def forward(self, x):
         return self._finish(ReduceScatterOp.apply(self.local(x), 1,

@@ -101,9 +101,15 @@ class Request:
             return True
         return False
 
-    def finish(self, state: RequestState):
+    def finish(self, state: RequestState,
+               error: Optional[BaseException] = None):
+        """Move to a terminal ``state``; ``error`` (kept as given) is what
+        ``result()`` raises. A timeout with no error gets a
+        ``RequestTimeout``."""
         self.state = state
-        if state is RequestState.TIMED_OUT:
+        if error is not None:
+            self.error = error
+        if state is RequestState.TIMED_OUT and self.error is None:
             self.error = RequestTimeout(
                 f"serving request {self.rid}", self.deadline.timeout,
                 detail=f"{len(self.output_tokens)} token(s) generated")

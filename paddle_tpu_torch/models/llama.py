@@ -27,7 +27,6 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
-from ..core.errors import NotInThisSlice
 from ..distributed import comms
 from ..distributed.fleet.meta_parallel.mp_layers import (
     AllGatherOp, ColumnParallelLinear, ParallelCrossEntropy, ReduceScatterOp,
@@ -43,7 +42,7 @@ from ..ops.kernels.fused_ce import fused_linear_cross_entropy
 from ..ops.kernels.multi_tensor import multi_tensor_sumsq_finite
 from ..parallel import mesh as mesh_mod
 from ..parallel.context_parallel import sdpa_context_parallel
-from ..parallel.trainer import LossSum, mp_global_sumsq
+from ..parallel.trainer import LossSum
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "load_paddle_tpu_state",
@@ -274,8 +273,8 @@ class LlamaModel(nn.Module):
             raise ValueError(f"unknown context_parallel "
                              f"{config.context_parallel!r}")
         self.embed_tokens = VocabParallelEmbedding(
-            config.vocab_size, config.hidden_size, device, dtype, generator,
-            mesh=mesh)
+            config.vocab_size, config.hidden_size, device=device,
+            dtype=dtype, generator=generator, mesh=mesh)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype, generator, mesh)
              for _ in range(config.num_hidden_layers)])
@@ -380,7 +379,7 @@ class LlamaForCausalLM(nn.Module):
         if mp_degree(self.mesh)[0] == 1:
             return F.cross_entropy(self.logits(input_ids), labels,
                                    reduction="mean")
-        rows = ParallelCrossEntropy(self.mesh)(
+        rows = ParallelCrossEntropy(mesh=self.mesh)(
             self._head(self.llama(input_ids), gather=False), labels)
         valid = (labels != -100).sum().clamp_min(1)
         return rows.sum() / valid
@@ -395,7 +394,7 @@ class LlamaForCausalLM(nn.Module):
             total = F.cross_entropy(self.logits(input_ids), labels,
                                     reduction="sum")
         else:
-            total = ParallelCrossEntropy(self.mesh)(
+            total = ParallelCrossEntropy(mesh=self.mesh)(
                 self._head(self.llama(input_ids), gather=False),
                 labels).sum()
         return LossSum(total, valid)
@@ -591,13 +590,14 @@ def load_paddle_tpu_state(model: nn.Module,
 def paddle_tpu_state(model: nn.Module) -> Dict[str, np.ndarray]:
     """The other direction of ``load_paddle_tpu_state``: the model's
     parameters as ``{name: np.ndarray}`` in float32, keyed as the JAX
-    model's ``named_parameters()``. A tensor-parallel parameter is
-    all-gathered over mp first, so every rank of the mp group must call
-    this."""
+    model's ``named_parameters()``. A layer that a pipeline stage holds
+    (``pp_stage``, set by ``build_hybrid_train_step`` on a pp mesh) is
+    broadcast from its owner over pp, and a tensor-parallel parameter is
+    all-gathered over mp, so every rank of the mesh must call this."""
     out = {}
     mesh = getattr(model, "mesh", None)
     for n, p in model.named_parameters():
-        t = p.detach()
+        t = _pp_param(p, mesh)
         split = getattr(p, "split_axis", None)
         if split is not None:
             parts = comms.wire_all_gather(t.contiguous(), "mp", exact=True,
@@ -615,22 +615,34 @@ def _mesh_axes(mesh) -> Dict[str, int]:
     return {str(k): int(v) for k, v in dict(shape).items()}
 
 
-def _check_mesh(mesh, optimizer) -> Dict[str, int]:
-    """The axes above 1 of a mesh the step runs on; pipeline and ZeRO axes
-    raise NotInThisSlice."""
+def _check_mesh(mesh) -> Dict[str, int]:
+    """The axes above 1 of a mesh the step runs on."""
     big = {k: v for k, v in _mesh_axes(mesh).items() if v > 1}
-    later = {k: v for k, v in big.items() if k not in ("dp", "mp", "sep")}
-    if later:
-        raise NotInThisSlice("pipeline parallelism and ZeRO (multi-GPU "
-                             "training, part 2)", f"mesh={later}")
-    if int(getattr(optimizer, "_shard_stage", 0) or 0) >= 1:
-        raise NotInThisSlice("ZeRO optimizer-state sharding (multi-GPU "
-                             "training, part 2)",
-                             f"stage={optimizer._shard_stage}")
     if big and not isinstance(mesh, mesh_mod.DeviceMesh):
         raise TypeError(f"a mesh with axes above 1 ({big}) must be a "
                         "DeviceMesh (parallel.init_mesh)")
     return big
+
+
+def _stage_layers(L: int, pp: int, i: int, schedule: str, v: int):
+    """The layers pp rank ``i`` holds, one list a chunk: layers
+    ``[i L/pp, (i+1) L/pp)``, or under vpp chunk c = virtual stage
+    ``c pp + i`` (the chunk-major layout ``[v, pp, L/(pp v)]``,
+    llama.py:621-628)."""
+    if pp <= 1:
+        return [list(range(L))]
+    if schedule == "vpp":
+        lc = L // (pp * v)
+        return [[(c * pp + i) * lc + j for j in range(lc)]
+                for c in range(v)]
+    lp = L // pp
+    return [[i * lp + j for j in range(lp)]]
+
+
+def _layer_owner(j: int, L: int, pp: int, schedule: str, v: int) -> int:
+    if schedule == "vpp":
+        return (j // (L // (pp * v))) % pp
+    return j // (L // pp)
 
 
 def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
@@ -639,11 +651,10 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                             n_virtual: int = 1,
                             accumulate_steps: Optional[int] = None,
                             fused_loss: bool = False):
-    """The dp, mp and sep legs of ``build_hybrid_train_step``
-    (llama.py:534-977): ``step(batch_dict) -> loss`` over the GLOBAL batch
-    ``{"input_ids": [B, S], "labels": [B, S]}`` (numpy or tensors), which
-    every rank passes; each keeps its rows of the dp axis and its sequence
-    chunk of the sep axis.
+    """``build_hybrid_train_step`` (llama.py:534-977): ``step(batch_dict)
+    -> loss`` over the GLOBAL batch ``{"input_ids": [B, S], "labels":
+    [B, S]}`` (numpy or tensors), which every rank passes; each keeps its
+    rows of the dp axis and its sequence chunk of the sep axis.
 
     Per step: embedding, the decoder blocks (each under
     ``torch.utils.checkpoint`` when ``remat``, as ``jax.checkpoint`` wraps
@@ -669,32 +680,61 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     (``comms.grad_sync``: one exact all-reduce per dtype, or the quantized
     two-shot per grad inside ``comms.quantized()``, read at every call);
     under sequence parallelism the norms' grads (computed on sequence
-    shards) are summed over mp. A ``ClipGradByGlobalNorm`` clip takes the
-    global norm over the synced grads: one U1 launch gives every grad's
-    sum of squares, the sharded ones' are all-reduced over mp and the
-    replicated ones (the norms) counted once (:888-897; any other clip is
-    not honoured, as there). Then the optimizer's ``_multi_update``
-    updates every local shard in place (for Adam and AdamW one kernel
-    launch on the card, U2), weight decay included on norms and
-    embeddings, with the step counted from 1 and the lr read by
+    shards) are summed over mp.
+
+    A pp axis above 1 runs the blocks as a pipeline
+    (``parallel.pipeline``): rank i of pp holds its stage's layers stacked,
+    ``[L/pp, ...]`` a parameter, or chunk-major ``[v, L/(pp v), ...]``
+    under vpp; the model's own layer parameters become views of them (the
+    other ranks' layers are released until ``step.write_back()``).
+    ``schedule``: ``gpipe`` and ``vpp`` (``n_virtual`` chunks a rank)
+    pipeline the forward and run the head and loss on the last stage over
+    the reassembled batch (the valid-token mean over all microbatches,
+    :697-700); ``1f1b`` (alias ``1f1b_fused``) and ``1f1b_compact`` take
+    loss and grads from ``spmd_pipeline_1f1b`` (:710-764: the mean of the
+    microbatches' losses, each its valid-token mean over dp), with the
+    embedding's backward chained onto stage 0's dx. Microbatch m is the
+    GLOBAL rows ``[m B/M, (m+1) B/M)``; each dp rank takes its share of
+    each (:690, :733). The embedding, final norm and head are replicated
+    over pp: the embedding's grads come from dx broadcast from stage 0,
+    the head's are broadcast from the last stage, so every replica takes
+    the same update. Checks: ``L % (pp v)`` and ``M % pp`` for vpp,
+    ``L % pp`` otherwise (:565-577).
+
+    ZeRO (``optimizer._shard_stage`` >= 1, ``_shard_axis`` resolved by
+    ``_resolve_zero_axis``: ``sharding`` when the mesh has it above 1,
+    else dp): each rank holds the slice ``_zero_state_spec`` gives of
+    every state leaf (llama.py:823-849) and updates its slice of the
+    parameter (``parallel.trainer.ZeroShards``; one U2 launch), then the
+    slices are all-gathered; stage 2 reduce-scatters the grads over a dp
+    ZeRO axis; stage 3 keeps the parameters sharded between steps.
+
+    A ``ClipGradByGlobalNorm`` clip takes the global norm over the synced
+    grads: one U1 launch gives every grad's sum of squares, and each is
+    summed over the axes its tensor is split over (mp, pp, the ZeRO axis
+    at stage 2-3), the replicated ones counted once (:888-897; any other
+    clip is not honoured, as there). Then the optimizer's
+    ``_multi_update`` updates every tensor in place (for Adam and AdamW
+    one kernel launch on the card, U2), weight decay included on norms
+    and embeddings, with the step counted from 1 and the lr read by
     ``get_lr()`` every step (:898-926).
 
-    The step trains the model's own parameters in place, so they are the
-    fp32 masters and ``step.write_back()`` has nothing to copy (the JAX
-    step holds donated copies and needs it); ``step.state`` holds
-    ``params`` (name -> parameter), ``opt`` (name -> moments) and
-    ``step``. A mesh with a pipeline or ZeRO axis above 1, or a ZeRO
-    optimizer, waits for part 2 of the multi-GPU slice and raises
-    ``NotInThisSlice``; the pipeline arguments (``n_microbatches``,
-    ``schedule``, ``n_virtual``) have nothing to schedule without one.
+    The step trains in place: the model's parameters (or the stacked
+    stage tensors they view) are the fp32 masters; ``step.write_back()``
+    makes the model whole (the pp ranks' layers, ZeRO stage 3's slices)
+    and returns it. ``step.state`` holds ``params`` (name -> trained
+    tensor), ``opt`` (name -> moments), ``step``, ``zero`` (the
+    ``ZeroShards`` or None) and ``pipeline`` (the last step's
+    ``pipeline_info()``).
     """
-    if schedule not in ("gpipe", "1f1b", "1f1b_fused", "1f1b_compact",
-                        "vpp"):
+    if schedule == "1f1b_fused":       # alias used by activation accounting
+        schedule = "1f1b"
+    if schedule not in ("gpipe", "1f1b", "1f1b_compact", "vpp"):
         raise ValueError(f"unknown pipeline schedule {schedule!r} "
                          "(gpipe | 1f1b | 1f1b_compact | vpp)")
     mesh = mesh if mesh is not None else mesh_mod.get_mesh()
-    big = _check_mesh(mesh, optimizer)
-    mp = big.get("mp", 1)
+    big = _check_mesh(mesh)
+    mp, pp = big.get("mp", 1), big.get("pp", 1)
     if big and getattr(model, "mesh", None) is not mesh:
         raise ValueError("the model was not built on this mesh: build it "
                          "with LlamaForCausalLM(..., mesh=mesh)")
@@ -702,67 +742,215 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         raise ValueError("a sep axis above 1 needs "
                          "LlamaConfig.context_parallel ('ring' or "
                          "'ulysses')")
+    L = model.config.num_hidden_layers
+    M = int(n_microbatches)
+    if pp <= 1:
+        schedule = "gpipe"
+    if schedule == "vpp":
+        if L % (pp * n_virtual):
+            raise ValueError("layers must divide pp*n_virtual")
+        if M % pp:
+            raise ValueError("vpp needs n_microbatches % pp == 0")
+    else:
+        n_virtual = 1
+    if L % pp:
+        raise ValueError("layers must divide pp degree")
     data_axes = tuple(a for a in ("dp", "sep") if a in big)
+    base_opt = optimizer
+    while hasattr(base_opt, "inner_opt"):
+        base_opt = base_opt.inner_opt
     if accumulate_steps is None:
-        accumulate_steps = int(getattr(optimizer, "_accumulate_steps", 1)
+        accumulate_steps = int(getattr(base_opt, "_accumulate_steps", 1)
+                               or getattr(optimizer, "_accumulate_steps", 1)
                                or 1)
     use_fused_loss = fused_loss and mp <= 1
     from torch.func import functional_call
     from torch.utils.checkpoint import set_checkpoint_early_stop
 
     from ..distributed.parallel import shard_batch
+    from ..parallel.pipeline import (pipeline_info, spmd_pipeline,
+                                     spmd_pipeline_1f1b)
+    from ..parallel.trainer import (ZeroShards, param_spec,
+                                    split_global_sumsq, zero_config)
 
     params = dict(model.named_parameters())
-    plist = list(params.values())
     layers = list(model.llama.layers)
-    layer_names = [[n for n, _ in layer.named_parameters()]
-                   for layer in layers]
-    sp_params = [i for i, p in enumerate(plist)
-                 if getattr(p, "sequence_parallel", False)]
-    sharded = [getattr(p, "split_axis", None) is not None for p in plist]
-    state = {"params": params,
-             "opt": {n: optimizer._init_state(p) for n, p in params.items()},
-             "step": 0}
-    pce = ParallelCrossEntropy(mesh)
+    block_names = [n for n, _ in layers[0].named_parameters()]
+    pp_i = mesh_mod.axis_index("pp", mesh) if pp > 1 else 0
+    chunks = _stage_layers(L, pp, pp_i, schedule, n_virtual)
+    is_last = pp_i == pp - 1
+
+    def gshape_of(p):
+        shape = list(p.shape)
+        split = getattr(p, "split_axis", None)
+        if split is not None:
+            shape[split] *= mp
+        return shape
+
+    names, tensors, layouts, split_axes, sp_idx = [], [], [], [], []
+
+    def add(name, t, gshape, spec, local, axes, sp):
+        if sp:
+            sp_idx.append(len(tensors))
+        names.append(name)
+        tensors.append(t)
+        layouts.append((tuple(gshape), tuple(spec), local))
+        split_axes.append(axes)
+
+    for n, p in params.items():
+        if pp > 1 and ".layers." in n:
+            continue
+        split = getattr(p, "split_axis", None)
+        add(n, p, gshape_of(p), param_spec(p, mesh), list(range(p.dim())),
+            ("mp",) if split is not None else (),
+            getattr(p, "sequence_parallel", False))
+    stacked = {}
+    if pp > 1:
+        own = {j for ch in chunks for j in ch}
+        for bn in block_names:
+            lp = [dict(layer.named_parameters())[bn] for layer in layers]
+            t0 = lp[0]
+            per = [torch.stack([lp[j].detach() for j in ch]) for ch in chunks]
+            t = torch.stack(per) if schedule == "vpp" else per[0]
+            stacked[bn] = t.requires_grad_(True)
+            inner = param_spec(t0, mesh)
+            split = getattr(t0, "split_axis", None)
+            if schedule == "vpp":
+                g = [n_virtual, pp, L // (pp * n_virtual)] + gshape_of(t0)
+                spec = (None, "pp", None) + inner
+                local = [0, None, 1] + [2 + d for d in range(t0.dim())]
+            else:
+                g = [L] + gshape_of(t0)
+                spec = ("pp",) + inner
+                local = [0] + [1 + d for d in range(t0.dim())]
+            add(f"stacked.{bn}", stacked[bn], g, spec, local,
+                ("pp",) + (("mp",) if split is not None else ()),
+                getattr(t0, "sequence_parallel", False))
+            # the model's layers view the stage's tensors; the other
+            # stages' layers are released (write_back gathers them)
+            for j, q in enumerate(lp):
+                q.pp_stage = _layer_owner(j, L, pp, schedule, n_virtual)
+                q.pp_shape = tuple(q.shape)
+        _view_stage(layers, block_names, stacked, chunks, schedule, own)
+
+    zaxis, zstage = zero_config(optimizer, mesh)
+    zero = ZeroShards(tensors, layouts, zaxis, zstage, mesh) \
+        if zstage else None
+    if zero is not None and zero.stage >= 2:
+        split_axes = [a + ((zaxis,) if zero.dims[k] is not None else ())
+                      for k, a in enumerate(split_axes)]
+    if zero is not None and zero.stage >= 3 and pp > 1:
+        _view_stage(layers, block_names, stacked, chunks, schedule, set())
+    states = [base_opt._init_state(zero.state_like(k) if zero is not None
+                                   else t) for k, t in enumerate(tensors)]
+    state = {"params": dict(zip(names, tensors)),
+             "opt": dict(zip(names, states)), "step": 0, "zero": zero,
+             "pipeline": {}}
+    pce = ParallelCrossEntropy(mesh=mesh)
+    head_idx = [k for k, n in enumerate(names)
+                if n in ("llama.norm.weight", "lm_head.weight")]
+    sp_on = model.llama.sp
 
     def cast(p):
         return p.to(torch.bfloat16) if amp and p.is_floating_point() else p
 
-    def block(i, x, off, *vals):
-        return functional_call(layers[i], dict(zip(layer_names[i], vals)),
-                               (x, off))
+    def block(layer, x, off, *vals):
+        return functional_call(layer, dict(zip(block_names, vals)), (x, off))
 
-    def loss_sum(ids, labels):
-        """This rank's tokens' summed loss (ignored labels add 0)."""
-        vals = {n: cast(p) for n, p in params.items()}
-        x = model.llama.embed_tokens(ids,
-                                     vals["llama.embed_tokens.weight"])
+    def run_blocks(x, off, per_layer):
+        """``per_layer``: (module, [value per block param]) in order."""
+        for layer, lv in per_layer:
+            if remat:
+                x = checkpoint(block, layer, x, off, *lv, use_reentrant=False)
+            else:
+                x = block(layer, x, off, *lv)
+        return x
+
+    def embed(ids, w):
+        x = model.llama.embed_tokens(ids, w)
         if amp:
             x = x.to(torch.bfloat16)
-        if model.llama.sp:
-            x = ScatterOp.apply(x, 1, mesh)
-        off = model.llama.cp_offset(ids.shape[1])
-        for i in range(len(layers)):
-            lv = [vals[f"llama.layers.{i}.{n}"] for n in layer_names[i]]
-            if remat:
-                x = checkpoint(block, i, x, off, *lv, use_reentrant=False)
-            else:
-                x = block(i, x, off, *lv)
-        h = F.rms_norm(x, vals["llama.norm.weight"], model.llama.norm.epsilon)
+        return ScatterOp.apply(x, 1, mesh) if sp_on else x
+
+    def head_sum(h, labels, norm_w, head_w):
+        """The summed loss of the rows of ``h`` (ignored labels add 0)."""
+        h = F.rms_norm(h, norm_w, model.llama.norm.epsilon)
         if use_fused_loss:
             flat = labels.reshape(-1)
             valid = flat != -100
             losses = fused_linear_cross_entropy(
-                h.reshape(-1, h.shape[-1]), vals["lm_head.weight"],
+                h.reshape(-1, h.shape[-1]), head_w,
                 torch.where(valid, flat, 0))
             return (losses * valid.to(losses.dtype)).sum()
-        logits = model.lm_head.local(_mp_in(h, model.llama.sp, mesh),
-                                     vals["lm_head.weight"])
+        logits = model.lm_head.local(_mp_in(h, sp_on, mesh), head_w)
         if amp:       # softmax / CE in fp32 for numeric stability
             logits = logits.float()
         if mp > 1:
             return pce(logits, labels).sum()
         return F.cross_entropy(logits, labels, reduction="sum")
+
+    def loss_sum(ids, labels):
+        """This rank's tokens' summed loss (the unpipelined model)."""
+        vals = {n: cast(p) for n, p in params.items()}
+        x = embed(ids, vals["llama.embed_tokens.weight"])
+        off = model.llama.cp_offset(ids.shape[1])
+        x = run_blocks(x, off, [
+            (layers[i], [vals[f"llama.layers.{i}.{n}"] for n in block_names])
+            for i in range(L)])
+        return head_sum(x, labels, vals["llama.norm.weight"],
+                        vals["lm_head.weight"])
+
+    def stage_fn(vals, x):
+        """This rank's chunk of layers on ``x``; ``vals`` maps each block
+        parameter to its ``[layers, ...]`` tensor."""
+        n = vals[block_names[0]].shape[0]
+        return run_blocks(x, stage_off, [
+            (layers[0], [vals[bn][j] for bn in block_names])
+            for j in range(n)])
+
+    def pipelined(ids, labels, counts):
+        """One accumulation step through the pipeline: the loss (on the
+        last stage, else 0), grads left on the masters' ``.grad``."""
+        nonlocal stage_off
+        v = {n: cast(params[n]) for n in ("llama.embed_tokens.weight",
+                                          "llama.norm.weight",
+                                          "lm_head.weight")}
+        Mn, mbl = ids.shape[0], ids.shape[1]
+        x = embed(ids.reshape(Mn * mbl, -1), v["llama.embed_tokens.weight"])
+        x_mb = x.reshape(Mn, mbl, *x.shape[1:])
+        stage_off = model.llama.cp_offset(ids.shape[2])
+        vals = {bn: cast(t) for bn, t in stacked.items()}
+        if schedule in ("gpipe", "vpp"):
+            y = spmd_pipeline(stage_fn, vals, x_mb, n_microbatches=M,
+                              mesh=mesh, remat=remat, schedule=schedule,
+                              n_virtual=n_virtual, replicate=False)
+            if not is_last:
+                torch.autograd.backward([y], [torch.zeros_like(y)])
+                return torch.zeros((), device=model.device)
+            loss = head_sum(y.reshape(Mn * mbl, *y.shape[2:]),
+                            labels.reshape(Mn * mbl, -1),
+                            v["llama.norm.weight"], v["lm_head.weight"]) \
+                / counts.sum().clamp_min(1.0)
+            loss.backward()
+            return loss.detach()
+
+        def mb_loss(head, y, lab_cnt):
+            lab, cnt = lab_cnt
+            return head_sum(y, lab, head["norm"], head["head"]) / cnt
+        head = {"norm": v["llama.norm.weight"], "head": v["lm_head.weight"]}
+        loss, g_stage, g_head, dx = spmd_pipeline_1f1b(
+            stage_fn, mb_loss, vals, head, x_mb,
+            [(labels[m], counts[m].clamp_min(1.0)) for m in range(Mn)],
+            n_microbatches=M, mesh=mesh, remat=remat,
+            variant="compact" if schedule == "1f1b_compact" else "fused")
+        outs = [x_mb] + [vals[bn] for bn in block_names] + \
+            [head["norm"], head["head"]]
+        cots = [dx] + [g_stage[bn] for bn in block_names] + \
+            [g_head["norm"], g_head["head"]]
+        torch.autograd.backward(outs, cots)
+        return loss
+
+    stage_off = 0
 
     def as_ids(x):
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -773,56 +961,150 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         t = shard_batch(t, "dp", 0, mesh)
         return shard_batch(t, "sep", 1, mesh)
 
+    def local_mb(t):
+        """[B_k, S] -> this rank's share of each microbatch, [M, mb, S]."""
+        if t.shape[0] % M:
+            raise ValueError(f"batch {t.shape[0]} is not a multiple of "
+                             f"n_microbatches={M}")
+        t = t.reshape(M, t.shape[0] // M, *t.shape[1:])
+        t = shard_batch(t, "dp", 1, mesh)
+        return shard_batch(t, "sep", 2, mesh)
+
+    def reduce_counts(c):
+        if not data_axes:
+            return c
+        return comms.wire_all_reduce(c, data_axes, "sum", exact=True,
+                                     mesh=mesh, owner="llama.valid_tokens")
+
     def step(batch):
         ids, labels = as_ids(batch["input_ids"]), as_ids(batch["labels"])
         state["step"] += 1
-        lr = optimizer.get_lr()
-        for p in plist:
-            p.grad = None
+        lr = base_opt.get_lr()
+        if zero is not None:
+            zero.gather()
+        for t in tensors:
+            t.grad = None
         k = accumulate_steps
-        micro = [(local(a), local(b)) for a, b in zip(ids.chunk(k),
-                                                      labels.chunk(k))]
-        counts = torch.stack([(lab != -100).sum() for _, lab in micro])
-        counts = comms.wire_all_reduce(counts, data_axes or None, "sum",
-                                       exact=True, mesh=mesh,
-                                       owner="llama.valid_tokens") \
-            if data_axes else counts
-        counts = counts.to(torch.float32).clamp_min(1.0)
         total = torch.zeros((), device=model.device)
         with set_checkpoint_early_stop(not big):
-            for (mi, ml), cnt in zip(micro, counts):
-                loss = loss_sum(mi, ml) / cnt
-                loss.backward()
-                total = total + loss.detach()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in plist]
+            if pp > 1:
+                micro = [(local_mb(a), local_mb(b)) for a, b in
+                         zip(ids.chunk(k), labels.chunk(k))]
+                counts = reduce_counts(torch.stack(
+                    [(lab != -100).sum(dim=(1, 2)) for _, lab in micro]))
+                counts = counts.to(torch.float32)
+                for (mi, ml), cnt in zip(micro, counts):
+                    total = total + pipelined(mi, ml, cnt)
+            else:
+                micro = [(local(a), local(b)) for a, b in
+                         zip(ids.chunk(k), labels.chunk(k))]
+                counts = reduce_counts(torch.stack(
+                    [(lab != -100).sum() for _, lab in micro]))
+                counts = counts.to(torch.float32).clamp_min(1.0)
+                for (mi, ml), cnt in zip(micro, counts):
+                    loss = loss_sum(mi, ml) / cnt
+                    loss.backward()
+                    total = total + loss.detach()
+        grads = [torch.zeros_like(t) if t.grad is None else t.grad
+                 for t in tensors]
+        for t in tensors:
+            t.grad = None
         if k > 1:
             total = total / k
             grads = [g / k for g in grads]
+        if pp > 1:
+            if schedule in ("gpipe", "vpp"):
+                # the loss and the head's grads live on the last stage
+                total = comms.wire_broadcast(total, pp - 1, "pp", mesh=mesh,
+                                             owner="llama.pp_loss")
+                flat = torch.cat([grads[j].reshape(-1) for j in head_idx])
+                flat = comms.wire_broadcast(flat, pp - 1, "pp", mesh=mesh,
+                                            owner="llama.pp_head_grad")
+                for j, piece in zip(head_idx, flat.split(
+                        [grads[j].numel() for j in head_idx])):
+                    grads[j] = piece.view_as(grads[j])
+            state["pipeline"] = pipeline_info()
         if data_axes:
             total = comms.wire_all_reduce(total, data_axes, "sum",
                                           exact=True, mesh=mesh,
                                           owner="llama.loss")
+        if zero is not None:
+            grads = zero.sync_grads(grads, data_axes, "sum",
+                                    "trainer.grad_sync")
+        elif data_axes:
             grads = comms.grad_sync(grads, mesh, data_axes, op="sum")
-        if sp_params:
-            red = comms.grad_sync([grads[i] for i in sp_params], mesh, "mp",
-                                  op="sum", exact=True,
-                                  owner="llama.sequence_parallel.grad")
-            for i, g in zip(sp_params, red):
+        if sp_idx:
+            red = comms.grad_sync([grads[i] for i in sp_idx], mesh, "mp",
+                                  "llama.sequence_parallel.grad", op="sum",
+                                  exact=True)
+            for i, g in zip(sp_idx, red):
                 grads[i] = g
-        clip = getattr(optimizer, "_grad_clip", None)
+        clip = getattr(base_opt, "_grad_clip", None)
         scale = None
         if isinstance(clip, ClipGradByGlobalNorm):
             sums, sumsq, _ = multi_tensor_sumsq_finite(grads)
-            if mp > 1:
-                sumsq = mp_global_sumsq(sums, sharded, mesh)
+            if any(split_axes):
+                sumsq = split_global_sumsq(sums, split_axes, mesh)
             scale = clip.scale_from_sumsq(sumsq)
-        optimizer._multi_update(plist, grads, list(state["opt"].values()),
-                                lr, state["step"], clip_scale=scale)
-        for p in plist:
-            p.grad = None
+        if zero is not None:
+            zero.update(base_opt, grads, states, lr, state["step"],
+                        clip_scale=scale)
+            zero.release()
+        else:
+            base_opt._multi_update(tensors, grads, states, lr, state["step"],
+                                   clip_scale=scale)
         return total
 
+    def write_back():
+        """Make the model whole on this rank: ZeRO stage 3's slices
+        gathered, and under pp every layer's parameters (this stage's
+        views of the stacked tensors, the others' broadcast from their
+        owner over pp; collective). Returns the model."""
+        if zero is not None:
+            zero.gather()
+        if pp > 1:
+            _view_stage(layers, block_names, stacked, chunks, schedule,
+                        {j for ch in chunks for j in ch})
+            _gather_pp_layers(model, mesh)
+        return model
+
     step.state = state
-    step.write_back = lambda: model
+    step.write_back = write_back
     return step
+
+
+def _view_stage(layers, block_names, stacked, chunks, schedule, own) -> None:
+    """Point this stage's layer parameters at their rows of the stacked
+    tensors; release the other stages' layers."""
+    for c, ch in enumerate(chunks):
+        for j, li in enumerate(ch):
+            ps = dict(layers[li].named_parameters())
+            for bn in block_names:
+                t = stacked[bn]
+                ps[bn].data = t.detach()[c, j] if schedule == "vpp" \
+                    else t.detach()[j]
+    for li, layer in enumerate(layers):
+        if li not in own:
+            for q in layer.parameters():
+                q.data = torch.empty(0, dtype=q.dtype, device=q.device)
+
+
+def _pp_param(p, mesh) -> torch.Tensor:
+    """``p``'s value on this rank: a layer a pipeline stage holds
+    (``pp_stage``) is broadcast from its owner over pp (collective)."""
+    owner = getattr(p, "pp_stage", None)
+    if owner is None or mesh_mod.mesh_axis_size("pp", mesh) <= 1:
+        return p.detach()
+    mine = mesh_mod.axis_index("pp", mesh) == owner
+    src = p.detach() if mine else torch.empty(p.pp_shape, dtype=p.dtype,
+                                              device=p.device)
+    return comms.wire_broadcast(src.contiguous(), owner, "pp", mesh=mesh,
+                                owner="llama.pp_gather")
+
+
+def _gather_pp_layers(model, mesh) -> None:
+    """Every pp-held parameter from its owner (collective over pp; every
+    rank walks the same parameters in the same order)."""
+    for _, p in model.named_parameters():
+        if getattr(p, "pp_stage", None) is not None:
+            p.data = _pp_param(p, mesh)

@@ -24,28 +24,38 @@ _FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-             epsilon: float = 1e-6) -> torch.Tensor:
-    """fp32 mean square over the last axis, ``x * rsqrt(ms + eps)`` cast
-    back to the input dtype, *then* times the weight (norm.py:108-119)."""
+             epsilon: float = 1e-6, axis=-1) -> torch.Tensor:
+    """fp32 mean square over ``axis`` (an int or a tuple), ``x * rsqrt(ms
+    + eps)`` cast back to the input dtype, *then* times the weight
+    (norm.py:108-119)."""
     xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
+    ms = xf.square().mean(dim=axis, keepdim=True)
     out = (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight
     return out
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
+def silu(x: torch.Tensor, name=None) -> torch.Tensor:
     return torch.nn.functional.silu(x)
 
 
-def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``x @ W`` with W ``[in, out]`` (LLaMA's projections have no bias)."""
-    return torch.matmul(x, weight)
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, name=None) -> torch.Tensor:
+    """``x @ W (+ b)`` with W ``[in, out]`` (common.py:25-30)."""
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
 
 
-def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    return weight[ids]
+def embedding(x: torch.Tensor, weight: torch.Tensor, padding_idx=None,
+              sparse: bool = False, name=None) -> torch.Tensor:
+    """Rows of ``weight`` at the ids ``x``; rows at ``padding_idx`` are
+    zeros (common.py:33-40). ``sparse`` asks Paddle for a sparse grad;
+    the JAX function and this one take the dense one."""
+    out = weight[x]
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx)[..., None], 0.0)
+    return out
 
 
 def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,11 +88,11 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
-def sdp_attention_ref(query, key, value, mask=None, dropout_p: float = 0.0,
+def sdp_attention_ref(q, k, v, mask=None, dropout_p: float = 0.0,
                       causal: bool = False, scale: Optional[float] = None):
     """The plain attention (attention.py:47-48); ``dropout_p`` is ignored
     there too."""
-    return sdpa_ref(query, key, value, mask=mask, causal=causal, scale=scale)
+    return sdpa_ref(q, k, v, mask=mask, causal=causal, scale=scale)
 
 
 def flash_attention(query, key, value, dropout: float = 0.0,

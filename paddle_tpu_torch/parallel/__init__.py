@@ -1,7 +1,8 @@
 """paddle_tpu_torch.parallel: the device mesh (``mesh``), ring and Ulysses
-attention (``context_parallel``) and the general train step
-(``TrainStep``, ``compile_train_step``) with its dp and mp legs. Pipeline
-schedules and ZeRO wait for part 2 of the multi-GPU slice (ROADMAP.md)."""
+attention (``context_parallel``), the pipeline schedules (``pipeline``)
+and the general train step (``TrainStep``, ``compile_train_step``) over
+dp, mp, sep, pp and sharding axes with ZeRO (``trainer``)."""
+from . import pipeline  # noqa: F401
 from .mesh import (  # noqa: F401
     DeviceMesh, axis_index, get_mesh, has_mesh, init_mesh, mesh_axis_size,
     set_mesh,

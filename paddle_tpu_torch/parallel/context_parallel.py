@@ -2,8 +2,11 @@
 
 Counterpart of ``paddle_tpu/parallel/context_parallel.py``. The sequence
 is split into contiguous chunks over a mesh axis (``sep``): rank i holds
-tokens ``[i S_loc, (i+1) S_loc)`` of q, k and v, ``[B, S_loc, H, D]``
-(the flash layout), and gets its chunk of the attention output.
+tokens ``[i S_loc, (i+1) S_loc)`` of q, k and v and gets its chunk of the
+attention output. ``ring_attention`` and ``ulysses_attention`` take the
+JAX functions' per-device ``[B, H, S_loc, D]`` and arguments;
+``sdpa_context_parallel`` takes ``[B, S_loc, H, D]`` (the flash layout),
+which the kernels read.
 
 - **Ring attention** (:49-150): q stays, the K/V block moves one rank
   along the ring per step (an exact send/recv over the axis). Rank i's
@@ -40,6 +43,8 @@ from . import mesh as mesh_mod
 
 __all__ = ["ring_attention", "ulysses_attention", "sdpa_context_parallel"]
 
+_IMPLS = ("auto", "flash", "einsum")
+
 
 def _merge_partials(o_acc, lse_acc, o_t, lse_t):
     """Streaming logsumexp merge of two normalized partial attentions
@@ -65,26 +70,26 @@ class _RingHandOff(torch.autograd.Function):
     def forward(ctx, kv, carry, group, mesh):
         lk = comms.link(group, mesh)
         ctx.group, ctx.mesh, ctx.n, ctx.rank = group, mesh, lk.n, lk.rank
-        out = comms.wire_sendrecv(kv, (lk.rank + 1) % lk.n,
-                                  (lk.rank - 1) % lk.n, group,
-                                  owner="context_parallel.ring", mesh=mesh)
+        (out,) = comms.wire_p2p([(kv, lk.rank + 1)], [(kv, lk.rank - 1)],
+                                group, owner="context_parallel.ring",
+                                mesh=mesh)
         return out, carry.view_as(carry)
 
     @staticmethod
     def backward(ctx, g_kv, g_carry):
-        back = comms.wire_sendrecv(g_kv.contiguous(), (ctx.rank - 1) % ctx.n,
-                                   (ctx.rank + 1) % ctx.n, ctx.group,
-                                   owner="context_parallel.ring.grad",
-                                   mesh=ctx.mesh)
+        (back,) = comms.wire_p2p([(g_kv, ctx.rank - 1)],
+                                 [(g_kv, ctx.rank + 1)], ctx.group,
+                                 owner="context_parallel.ring.grad",
+                                 mesh=ctx.mesh)
         return back, g_carry, None, None
 
 
-def ring_attention(q, k, v, group="sep", causal: bool = True,
-                   scale: Optional[float] = None, mesh=None) -> torch.Tensor:
-    """Ring attention of this rank's chunk: q ``[B, S_loc, H, D]``, k and
-    v ``[B, S_loc, Hkv, D]``; returns ``[B, S_loc, H, D]`` in q's dtype.
-    Launches ``flash_attention_lse`` for the ``i + 1`` blocks rank i meets
-    when causal (its own and the earlier ranks'), for all n otherwise."""
+def _ring_bshd(q, k, v, group, causal: bool, scale, mesh) -> torch.Tensor:
+    """Ring attention of this rank's chunk in the flash layout: q
+    ``[B, S_loc, H, D]``, k and v ``[B, S_loc, Hkv, D]``; returns
+    ``[B, S_loc, H, D]`` in q's dtype. Launches ``flash_attention_lse``
+    for the ``i + 1`` blocks rank i meets when causal (its own and the
+    earlier ranks'), for all n otherwise."""
     lk = comms.link(group, mesh)
     n, i = lk.n, lk.rank
     kv = torch.stack([k, v])
@@ -102,6 +107,33 @@ def ring_attention(q, k, v, group="sep", causal: bool = True,
         else:
             o, lse = _merge_partials(o, lse, o_t.float(), lse_t)
     return o.to(q.dtype)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown ring-attention impl {impl!r} "
+                         f"({' | '.join(_IMPLS)})")
+
+
+def _bhsd(fn, q, k, v, *args):
+    """Run a ``[B, S, H, D]`` function on ``[B, H, S, D]`` inputs."""
+    out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), *args)
+    return out.transpose(1, 2)
+
+
+def ring_attention(q, k, v, axis_name, causal: bool = True,
+                   scale: Optional[float] = None, impl: str = "auto", *,
+                   mesh=None) -> torch.Tensor:
+    """Ring attention of this rank's sequence chunk over ``axis_name`` (a
+    mesh axis, a tuple of axes or a ``collective.Group``), in the JAX
+    function's per-device layout: q ``[B, H, S_loc, D]``, k and v
+    ``[B, Hkv, S_loc, D]``; returns ``[B, H, S_loc, D]``. ``impl``
+    ("auto", "flash" or "einsum") picks the JAX function's block kernel;
+    here every value runs the blocks through ``flash_attention_lse``
+    (K2-K4 on the card, their plain versions for CPU tensors), which
+    computes what both JAX paths compute."""
+    _check_impl(impl)
+    return _bhsd(_ring_bshd, q, k, v, axis_name, causal, scale, mesh)
 
 
 def _heads_to_seq(x, group, mesh):
@@ -129,11 +161,10 @@ def _seq_to_heads(y, group, mesh):
     return x.permute(1, 2, 0, 3, 4).reshape(B, S, n * Hn, D)
 
 
-def ulysses_attention(q, k, v, group="sep", causal: bool = True,
-                      scale: Optional[float] = None, mesh=None
-                      ) -> torch.Tensor:
-    """Ulysses attention of this rank's chunk (shapes as
-    ``ring_attention``): flash attention over the whole sequence on H/n
+def _ulysses_bshd(q, k, v, group, causal: bool, scale, mesh
+                  ) -> torch.Tensor:
+    """Ulysses attention of this rank's chunk in the flash layout (shapes
+    as ``_ring_bshd``): flash attention over the whole sequence on H/n
     heads between two all-to-alls."""
     n = comms.link(group, mesh).n
     if k.shape[2] != q.shape[2] and k.shape[2] % n:
@@ -146,20 +177,30 @@ def ulysses_attention(q, k, v, group="sep", causal: bool = True,
     return _seq_to_heads(o, group, mesh)
 
 
+def ulysses_attention(q, k, v, axis_name, causal: bool = True,
+                      scale: Optional[float] = None, *, mesh=None
+                      ) -> torch.Tensor:
+    """Ulysses attention of this rank's sequence chunk over ``axis_name``,
+    in the JAX function's layout (as ``ring_attention``)."""
+    return _bhsd(_ulysses_bshd, q, k, v, axis_name, causal, scale, mesh)
+
+
 def sdpa_context_parallel(query, key, value, *, mesh=None, axis: str = "sep",
                           mode: str = "ring", is_causal: bool = True,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          impl: str = "auto") -> torch.Tensor:
     """Context-parallel attention of this rank's sequence chunk
     ``[B, S_loc, H, D]`` over mesh axis ``axis`` (the JAX function takes
-    the global array with S sharded over the axis)."""
+    the global array with S sharded over the axis); ``impl`` as
+    ``ring_attention``'s."""
+    _check_impl(impl)
     mesh = mesh if mesh is not None else mesh_mod.get_mesh()
     if mesh is None or axis not in mesh.shape:
         raise ValueError(f"mesh with axis {axis!r} required for context "
                          "parallel attention")
     if mode == "ring":
-        return ring_attention(query, key, value, axis, is_causal, scale,
-                              mesh)
+        return _ring_bshd(query, key, value, axis, is_causal, scale, mesh)
     if mode == "ulysses":
-        return ulysses_attention(query, key, value, axis, is_causal, scale,
-                                 mesh)
+        return _ulysses_bshd(query, key, value, axis, is_causal, scale,
+                             mesh)
     raise ValueError(f"unknown context-parallel mode {mode!r}")

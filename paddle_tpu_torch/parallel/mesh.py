@@ -187,13 +187,14 @@ _state = {"mesh": None}
 
 def init_mesh(shape: Union[Dict[str, int], Sequence[int]],
               axis_names: Optional[Sequence[str]] = None,
-              device=None, backend: Optional[str] = None) -> DeviceMesh:
+              devices=None, *, backend: Optional[str] = None) -> DeviceMesh:
     """Make and install the mesh: ``init_mesh({"dp": 2, "mp": 2})`` or
     ``init_mesh([2, 2], ["dp", "mp"])``. Axes of size 1 are kept, so code
     can always name them. The mesh must span the world of
     ``torch.distributed`` (``distributed.init_parallel_env`` first); a
-    mesh of one rank needs no process group. ``device`` and ``backend``
-    default to what ``init_parallel_env`` chose."""
+    mesh of one rank needs no process group. ``devices`` is one device
+    per rank of the mesh (this rank takes its own), or this rank's device;
+    it and ``backend`` default to what ``init_parallel_env`` chose."""
     if isinstance(shape, dict):
         shape = {str(k): int(v) for k, v in shape.items()}
     else:
@@ -215,7 +216,15 @@ def init_mesh(shape: Union[Dict[str, int], Sequence[int]],
     else:
         raise RuntimeError(f"mesh {shape} needs {n} ranks: call "
                            "distributed.init_parallel_env() first")
-    dev = device if device is not None else env.current_device()
+    if devices is None:
+        dev = env.current_device()
+    elif isinstance(devices, (list, tuple)):
+        if len(devices) != n:
+            raise ValueError(f"mesh {shape} needs {n} devices, got "
+                             f"{len(devices)}")
+        dev = devices[rank]
+    else:
+        dev = devices
     mesh = DeviceMesh(shape, rank=rank, device=dev,
                       backend=backend).build_groups()
     _state["mesh"] = mesh

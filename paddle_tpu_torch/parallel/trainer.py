@@ -1,5 +1,5 @@
 """The general train step: ``TrainStep`` and ``compile_train_step``, on
-one device or over a mesh's dp and mp axes.
+one device or over a mesh (dp, mp, sep, pp and sharding axes, ZeRO).
 
 Counterpart of ``paddle_tpu/parallel/trainer.py`` (:127-546), where the
 whole step (forward, backward, clip, update, the grad-finite skip and the
@@ -40,13 +40,25 @@ tokens with ignored labels does not. Such a loss returns a ``LossSum``
 the count summed over dp and sums loss and grads over dp, which is the
 JAX step's mean over the global batch. The model's tensor-parallel layers do their own mp collectives; the
 grads of sequence-parallel parameters are summed over mp. The global-norm
-clip sums the squares of the sharded grads over mp and counts the
-replicated ones once. The grad-finite flag is judged on each rank's raw
-grads before the sync and
-all-reduced over every rank, so all ranks skip a step together; the
-clip's sums come from a second U1 launch over the synced grads. A pipeline, sep or ZeRO axis,
-``reshard``, ``lower_text`` and ``memory_stats`` wait for later slices
-(ROADMAP.md Queue 1) and raise ``NotInThisSlice``.
+clip sums the squares of the sharded grads over the axes they are split
+over and counts the replicated ones once. The grad-finite flag is judged
+on each rank's raw grads before the sync and all-reduced over every rank,
+so all ranks skip a step together; the clip's sums come from a second U1
+launch over the synced grads.
+
+A sep axis (the model's ``context_parallel``): each rank also keeps its
+chunk of the sequence (dim 1 of every leaf with two dims or more), a
+``LossSum`` count is summed over dp and sep, and loss and grads are
+synced over both. A pp or ``sharding`` axis is what the JAX step makes of
+it (:249-257): params keep their own spec, the batch is split over
+``batch_spec`` only, so those ranks compute the same step. ZeRO
+(``optimizer._shard_stage`` >= 1, the axis ``_resolve_zero_axis`` picks):
+each rank holds the slice ``_zero_state_spec`` gives of every state leaf
+and updates its slice of the parameter (``ZeroShards``); stage 2
+reduce-scatters the grads over a dp ZeRO axis; stage 3 keeps the params
+sharded between steps (``write_back()`` makes them whole). ``reshard``,
+``lower_text`` and ``memory_stats`` wait for later slices (ROADMAP.md
+Queue 1) and raise ``NotInThisSlice``.
 """
 from __future__ import annotations
 
@@ -62,7 +74,8 @@ from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
 from ..ops.kernels.multi_tensor import multi_tensor_sumsq_finite
 from . import mesh as mesh_mod
 
-__all__ = ["TrainStep", "compile_train_step", "LossSum", "MAX_LOSS_SCALE"]
+__all__ = ["TrainStep", "compile_train_step", "LossSum", "MAX_LOSS_SCALE",
+           "ZeroShards"]
 
 # Dynamic loss scaling never grows past this: with tiny gradients the
 # overflow signal that normally bounds growth never fires, and a scale
@@ -93,16 +106,285 @@ def _comms_grad_sync(grads, mesh, axis="dp", op="avg"):
     return comms.grad_sync(grads, mesh=mesh, axis=axis, op=op)
 
 
-def mp_global_sumsq(sums: torch.Tensor, sharded, mesh) -> torch.Tensor:
-    """The global sum of squares from per-grad sums ``sums`` [n] (fp32):
-    the grads of tensor-parallel shards (``sharded[i]``) are summed over
-    mp, the replicated ones counted once."""
-    mask = torch.tensor(list(sharded), device=sums.device)
-    zero = torch.zeros_like(sums)
-    part = torch.where(mask, sums, zero).sum()
-    part = comms.wire_all_reduce(part, "mp", "sum", exact=True, mesh=mesh,
-                                 owner="trainer.clip")
-    return part + torch.where(mask, zero, sums).sum()
+def _resolve_zero_axis(axis, mesh):
+    """The ZeRO axis on the live mesh (trainer.py:84): ``axis`` when it is
+    on the mesh above 1, else ``dp`` when that is above 1 (Fleet's default
+    sharding degree is the dp degree), else None (states stay whole)."""
+    if axis is None or mesh is None:
+        return axis
+    shape = dict(getattr(mesh, "shape", {}))
+    if shape.get(axis, 1) > 1:
+        return axis
+    if shape.get("dp", 1) > 1:
+        return "dp"
+    return None
+
+
+def _zero_state_spec(param_spec, shape, axis, mesh):
+    """The spec of an optimizer-state leaf sharded over the ZeRO axis
+    (trainer.py:100): the largest dim not already sharded whose size the
+    axis divides; the param's spec when it already rides the axis (stage
+    3) or no dim fits. Specs are tuples of axis names (or None) per
+    dim."""
+    shape_of = dict(getattr(mesh, "shape", {}))
+    if axis not in shape_of or shape_of[axis] == 1:
+        return tuple(param_spec)
+    n = shape_of[axis]
+    spec = list(param_spec) + [None] * (len(shape) - len(param_spec))
+    if any(axis == s or (isinstance(s, tuple) and axis in s) for s in spec):
+        return tuple(param_spec)
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    for i in order:
+        if spec[i] is None and shape[i] % n == 0 and shape[i] >= n:
+            spec[i] = axis
+            return tuple(spec)
+    return tuple(param_spec)
+
+
+def zero_config(optimizer, mesh):
+    """``(axis, stage)`` of the optimizer's ZeRO tags on ``mesh``: the
+    axis resolved by ``_resolve_zero_axis``; ``(None, 0)`` when nothing is
+    sharded."""
+    base = optimizer
+    tags = [optimizer]
+    while hasattr(base, "inner_opt"):
+        base = base.inner_opt
+        tags.append(base)
+    axis = next((getattr(o, "_shard_axis", None) for o in reversed(tags)
+                 if getattr(o, "_shard_axis", None)), None)
+    stage = max(int(getattr(o, "_shard_stage", 0) or 0) for o in tags)
+    axis = _resolve_zero_axis(axis, mesh)
+    if not axis or stage < 1 or mesh is None \
+            or dict(mesh.shape).get(axis, 1) <= 1:
+        return None, 0
+    return axis, stage
+
+
+def param_spec(p, mesh=None) -> tuple:
+    """A port parameter's spec as the JAX package cleans it
+    (``_param_sharding_spec``): ``mp`` on its tensor-parallel dim
+    (``split_axis``), overlaid with an explicit ``_sharding`` tuple
+    (``shard_layer_params``) whose axes are on the mesh above 1 and divide
+    the dim."""
+    mesh = mesh if mesh is not None else mesh_mod.get_mesh()
+    shape = dict(getattr(mesh, "shape", {}) or {})
+    spec = [None] * p.dim()
+    split = getattr(p, "split_axis", None)
+    if split is not None:
+        spec[split] = "mp"
+    for i, s in enumerate(getattr(p, "_sharding", None) or ()):
+        if s is not None and i < len(spec) and spec[i] is None \
+                and shape.get(s, 1) > 1 and p.shape[i] % shape[s] == 0:
+            spec[i] = s
+    return tuple(spec)
+
+
+class ZeroShards:
+    """ZeRO over one mesh axis for a list of trained tensors.
+
+    ``layouts[k]`` is ``(global shape, JAX spec, local dim of each global
+    dim or None)`` for tensor k; ``_zero_state_spec`` picks the dim. Rank r
+    of the axis holds rows ``[r m, (r+1) m)`` of that dim of every state
+    leaf, as a contiguous tensor (the rule's dim is rarely the first, so
+    the slice is strided in the full tensor: it is copied in and out).
+
+    - Stage 1: the grads are synced whole; each rank updates its slice of
+      the parameter (one U2 launch over all slices and the unsharded
+      tensors) and the slices are all-gathered into every full tensor.
+    - Stage 2: the grads of sharded tensors are reduce-scattered over the
+      axis when it carries data (dp); over a ``sharding`` axis, whose
+      ranks see the same data, each rank takes its slice.
+    - Stage 3: the parameter itself is sharded at rest: the rank keeps its
+      fp32 slice (the master) and the full tensor exists only inside a
+      step (``gather``, then ``release``).
+    """
+
+    GATHER_BYTES = 256 << 20
+
+    def __init__(self, tensors, layouts, axis: str, stage: int, mesh):
+        self.tensors = list(tensors)
+        self.axis, self.stage, self.mesh = axis, int(stage), mesh
+        self.n = mesh.shape[axis]
+        self.r = mesh.coords[axis]
+        self.dims = []
+        for t, (gshape, spec, local) in zip(self.tensors, layouts):
+            zspec = _zero_state_spec(spec, gshape, axis, mesh)
+            gd = next((i for i, s in enumerate(zspec)
+                       if s == axis or (isinstance(s, tuple) and axis in s)),
+                      None)
+            d = None if gd is None else local[gd]
+            if d is not None and t.shape[d] % self.n:
+                d = None
+            self.dims.append(d)
+        self.slices = [None] * len(self.tensors)
+        if self.stage >= 3:
+            for k, (t, d) in enumerate(zip(self.tensors, self.dims)):
+                if d is not None:
+                    self.slices[k] = self._slice(t.detach(), k).clone()
+            self.release()
+
+    def _slice(self, t, k):
+        d = self.dims[k]
+        m = t.shape[d] // self.n
+        return t.narrow(d, self.r * m, m)
+
+    def shard_shape(self, k):
+        t = self.tensors[k]
+        d = self.dims[k]
+        if d is None:
+            return tuple(t.shape)
+        shape = list(self.full_shape(k))
+        shape[d] //= self.n
+        return tuple(shape)
+
+    def full_shape(self, k):
+        if self.slices[k] is not None:
+            shape = list(self.slices[k].shape)
+            shape[self.dims[k]] *= self.n
+            return tuple(shape)
+        return tuple(self.tensors[k].shape)
+
+    def state_like(self, k):
+        """A tensor of the shape and dtype this rank's state of tensor k
+        has (its slice, or the whole tensor)."""
+        t = self.tensors[k]
+        return torch.empty(self.shard_shape(k), dtype=t.dtype,
+                           device=t.device)
+
+    # ---- stage 3: the full parameters exist only inside a step ----
+    def gather(self) -> None:
+        if self.stage < 3:
+            return
+        idx = [k for k, d in enumerate(self.dims) if d is not None]
+        for k, full in zip(idx, self._all_gather([self.slices[k]
+                                                   for k in idx], idx)):
+            self.tensors[k].data = full
+
+    def release(self) -> None:
+        if self.stage < 3:
+            return
+        for k, d in enumerate(self.dims):
+            if d is not None:
+                t = self.tensors[k]
+                t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+
+    # ---- the step ----
+    def sync_grads(self, grads, data_axes, op: str, owner: str):
+        """The grads each rank updates with: the data-parallel sync over
+        ``data_axes`` (``op`` sum or avg), and at stage >= 2 this rank's
+        slice of each sharded one (reduce-scattered when the ZeRO axis is
+        a data axis)."""
+        from ..distributed import comms
+        grads = list(grads)
+        if self.stage < 2:
+            return comms.grad_sync(grads, self.mesh, data_axes, owner,
+                                   op=op) if data_axes else grads
+        sharded = [k for k, d in enumerate(self.dims) if d is not None]
+        scatter = self.axis in (data_axes or ())
+        rest_axes = tuple(a for a in (data_axes or ()) if a != self.axis) \
+            if scatter else data_axes
+        whole = [k for k in range(len(grads)) if k not in sharded]
+        if data_axes and whole:
+            synced = comms.grad_sync([grads[k] for k in whole], self.mesh,
+                                     data_axes, owner, op=op)
+            for k, g in zip(whole, synced):
+                grads[k] = g
+        if rest_axes and sharded:
+            synced = comms.grad_sync([grads[k] for k in sharded], self.mesh,
+                                     rest_axes, owner, op=op)
+            for k, g in zip(sharded, synced):
+                grads[k] = g
+        for k in sharded:
+            d = self.dims[k]
+            if scatter:
+                moved = grads[k].movedim(d, 0).contiguous()
+                red = comms.wire_reduce_scatter(moved, self.axis, "sum",
+                                                owner=owner + ".scatter",
+                                                mesh=self.mesh)
+                if op == "avg":
+                    red = red / self.n
+                grads[k] = red.movedim(0, d).contiguous()
+            else:
+                grads[k] = self._slice(grads[k], k).contiguous()
+        return grads
+
+    def update(self, optimizer, grads, states, lr, step, **kw) -> None:
+        """One ``_multi_update`` over every tensor's slice (or whole
+        tensor), then the updated slices all-gathered into the full
+        tensors (stage 1, 2; at stage 3 the slices are the masters)."""
+        params = []
+        for k, (t, d) in enumerate(zip(self.tensors, self.dims)):
+            if d is None:
+                params.append(t)
+            elif self.stage >= 3:
+                params.append(self.slices[k])
+            else:
+                params.append(self._slice(t.detach(), k).contiguous())
+        if self.stage < 2:
+            grads = [g if d is None else self._slice(g, k).contiguous()
+                     for k, (g, d) in enumerate(zip(grads, self.dims))]
+        optimizer._multi_update(params, grads, states, lr, step, **kw)
+        if self.stage >= 3:
+            return
+        idx = [k for k, d in enumerate(self.dims) if d is not None]
+        with torch.no_grad():
+            for k, full in zip(idx, self._all_gather([params[k]
+                                                       for k in idx], idx)):
+                self.tensors[k].copy_(full)
+
+    def _all_gather(self, slices, idx):
+        """Full tensors from every rank's slices (one exact all-gather a
+        dtype and bucket of ``GATHER_BYTES``)."""
+        from ..distributed import comms
+        out = [None] * len(idx)
+        buckets, size = [[]], 0
+        for j, s in enumerate(slices):
+            nbytes = s.numel() * s.element_size()
+            if buckets[-1] and (size + nbytes > self.GATHER_BYTES or
+                                s.dtype != slices[buckets[-1][0]].dtype):
+                buckets.append([])
+                size = 0
+            buckets[-1].append(j)
+            size += nbytes
+        for b in buckets:
+            if not b:
+                continue
+            flat = torch.cat([slices[j].reshape(-1) for j in b])
+            parts = comms.wire_all_gather(flat, self.axis, exact=True,
+                                          mesh=self.mesh,
+                                          owner="zero.param_gather")
+            off = 0
+            for j in b:
+                s = slices[j]
+                pieces = [parts[r, off:off + s.numel()].view(s.shape)
+                          for r in range(self.n)]
+                out[j] = torch.cat(pieces, dim=self.dims[idx[j]])
+                off += s.numel()
+        return out
+
+    def state_bytes(self, states) -> int:
+        return sum(v.numel() * v.element_size() for st in states
+                   for v in st.values() if isinstance(v, torch.Tensor))
+
+
+def split_global_sumsq(sums: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The global sum of squares from per-tensor sums ``sums`` [n] (fp32)
+    and, per tensor, the mesh axes it is split over: the tensors of one
+    set of axes are summed, all-reduced over each of its axes, and the
+    sets added (a replicated tensor counted once). Every rank passes the
+    same sets in the same order."""
+    from ..distributed import comms
+    total = torch.zeros((), dtype=torch.float32, device=sums.device)
+    keys = sorted(set(tuple(a) for a in axes))
+    for key in keys:
+        mask = torch.tensor([tuple(a) == key for a in axes],
+                            device=sums.device)
+        part = torch.where(mask, sums, torch.zeros_like(sums)).sum()
+        for a in key:
+            part = comms.wire_all_reduce(part, a, "sum", exact=True,
+                                         mesh=mesh, owner="trainer.clip")
+        total = total + part
+    return total
 
 
 def _to_device(tree, device):
@@ -116,6 +398,19 @@ def _to_device(tree, device):
         return torch.from_numpy(tree).to(device)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
+    return tree
+
+
+def _seq_chunk(tree, mesh):
+    """This rank's chunk of the sequence (dim 1) of every tensor leaf with
+    two dims or more, over the sep axis (the context-parallel model reads
+    its own chunk at its RoPE offset)."""
+    if isinstance(tree, dict):
+        return {k: _seq_chunk(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_seq_chunk(v, mesh) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dim() >= 2:
+        return shard_batch(tree, "sep", 1, mesh)
     return tree
 
 
@@ -143,15 +438,6 @@ class TrainStep:
                  accumulate_steps: Optional[int] = None, scaler=None):
         mesh = mesh if mesh is not None else mesh_mod.get_mesh()
         big = {k: v for k, v in _mesh_axes(mesh).items() if v > 1}
-        later = {k: v for k, v in big.items() if k not in ("dp", "mp")}
-        if later:
-            raise NotInThisSlice("pipeline, context-parallel and ZeRO axes "
-                                 "of TrainStep (multi-GPU training, part 2)",
-                                 f"mesh={later}")
-        if int(getattr(optimizer, "_shard_stage", 0) or 0) >= 1:
-            raise NotInThisSlice("ZeRO optimizer-state sharding (multi-GPU "
-                                 "training, part 2)",
-                                 f"stage={optimizer._shard_stage}")
         if big and not isinstance(mesh, mesh_mod.DeviceMesh):
             raise TypeError(f"a mesh with axes above 1 ({big}) must be a "
                             "DeviceMesh (parallel.init_mesh)")
@@ -162,6 +448,10 @@ class TrainStep:
         axes = (batch_spec,) if isinstance(batch_spec, str) \
             else tuple(batch_spec)
         self._sync_axis = next((a for a in axes if a in big), None)
+        self._sep = big.get("sep", 1) > 1
+        self._data_axes = tuple(a for a in (self._sync_axis,
+                                            "sep" if self._sep else None)
+                                if a is not None)
         self._mp = big.get("mp", 1)
         self._big = big
         self._step_count = 0
@@ -172,11 +462,12 @@ class TrainStep:
             while hasattr(inner, attr):
                 inner = getattr(inner, attr)
         self._inner = inner
-        self._params = [p for p in inner.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in inner.named_parameters()
+                 if p.requires_grad]
+        self._param_names = [n for n, _ in named]
+        self._params = [p for _, p in named]
         if not self._params:
             raise ValueError("the model has no trainable parameter")
-        self._sharded = [getattr(p, "split_axis", None) is not None
-                         for p in self._params]
         self._sp = [i for i, p in enumerate(self._params)
                     if getattr(p, "sequence_parallel", False)]
         self._device = self._params[0].device
@@ -185,7 +476,32 @@ class TrainStep:
         while hasattr(base_opt, "inner_opt"):
             base_opt = base_opt.inner_opt
         self._base_opt = base_opt
-        self._opt_state = [base_opt._init_state(p) for p in self._params]
+        # ZeRO (trainer.py:228-247): the optimizer's tags, the axis
+        # resolved on this mesh; each param's state sharded by its spec
+        zaxis, zstage = zero_config(optimizer, mesh)
+        self._zero = None
+        if zstage:
+            layouts = []
+            for p in self._params:
+                gshape = list(p.shape)
+                split = getattr(p, "split_axis", None)
+                if split is not None:
+                    gshape[split] *= self._mp
+                layouts.append((tuple(gshape), param_spec(p, mesh),
+                                list(range(p.dim()))))
+            self._zero = ZeroShards(self._params, layouts, zaxis, zstage,
+                                    mesh)
+            self._opt_state = [base_opt._init_state(self._zero.state_like(k))
+                               for k in range(len(self._params))]
+        else:
+            self._opt_state = [base_opt._init_state(p) for p in self._params]
+        # the axes each grad is split over, for the global-norm clip
+        zsplit = self._zero is not None and self._zero.stage >= 2
+        self._split_axes = [
+            (("mp",) if getattr(p, "split_axis", None) is not None else ())
+            + ((self._zero.axis,) if zsplit and self._zero.dims[k] is not None
+               else ())
+            for k, p in enumerate(self._params)]
         if accumulate_steps is None:
             accumulate_steps = int(getattr(base_opt, "_accumulate_steps", 1)
                                    or getattr(optimizer, "_accumulate_steps",
@@ -227,12 +543,14 @@ class TrainStep:
             mb = _split(batch, acc, i) if acc > 1 else batch
             if self._sync_axis is not None:
                 mb = shard_batch(mb, self._sync_axis, 0, self.mesh)
+            if self._sep:
+                mb = _seq_chunk(mb, self.mesh)
             loss = self.loss_fn(self._inner, mb)
             if isinstance(loss, LossSum):
                 count = loss.count.to(torch.float32)
-                if self._sync_axis is not None:
+                if self._data_axes:
                     count = comms.wire_all_reduce(
-                        count, self._sync_axis, "sum", exact=True,
+                        count, self._data_axes, "sum", exact=True,
                         mesh=self.mesh, owner="trainer.loss_count")
                 loss = loss.total / count.clamp_min(1.0)
                 summed = True
@@ -277,6 +595,8 @@ class TrainStep:
         self._step_count += 1
         lr = self._base_opt.get_lr()
         scale = self._health["loss_scale"]
+        if self._zero is not None:
+            self._zero.gather()
         loss, grads, summed = self._loss_and_grads(batch, scale)
         inv = None
         if self._use_scaling:
@@ -291,12 +611,16 @@ class TrainStep:
                                         mesh=self.mesh,
                                         owner="trainer.grad_finite")
             finite = 1 - bad
-        if self._sync_axis is not None:
-            op = "sum" if summed else "avg"
-            loss = comms.wire_all_reduce(loss, self._sync_axis, op,
+        op = "sum" if summed else "avg"
+        if self._data_axes:
+            loss = comms.wire_all_reduce(loss, self._data_axes, op,
                                          exact=True, mesh=self.mesh,
                                          owner="trainer.loss")
-            grads = _comms_grad_sync(grads, self.mesh, self._sync_axis, op)
+        if self._zero is not None:
+            grads = self._zero.sync_grads(grads, self._data_axes, op,
+                                          "trainer.grad_sync")
+        elif self._data_axes:
+            grads = _comms_grad_sync(grads, self.mesh, self._data_axes, op)
         if self._sp:
             red = comms.grad_sync([grads[i] for i in self._sp], self.mesh,
                                   "mp", op="sum", exact=True,
@@ -312,8 +636,8 @@ class TrainStep:
             if not self._big:
                 finite = synced_finite
         if isinstance(clip, ClipGradByGlobalNorm):
-            if self._mp > 1:
-                total = mp_global_sumsq(sums, self._sharded, self.mesh)
+            if any(self._split_axes):
+                total = split_global_sumsq(sums, self._split_axes, self.mesh)
             clip_scale = clip.scale_from_sumsq(total)
         elif isinstance(clip, ClipGradByValue):
             with torch.no_grad():
@@ -321,11 +645,24 @@ class TrainStep:
                     grads = [g * inv.to(g.dtype) for g in grads]
                     inv = None
                 grads = [torch.clamp(g, clip.min, clip.max) for g in grads]
-        self._base_opt._multi_update(
-            self._params, grads, self._opt_state, lr, self._step_count,
-            grad_scale=inv, clip_scale=clip_scale, finite=finite)
+        kw = dict(grad_scale=inv, clip_scale=clip_scale, finite=finite)
+        if self._zero is not None:
+            self._zero.update(self._base_opt, grads, self._opt_state, lr,
+                              self._step_count, **kw)
+            self._zero.release()
+        else:
+            self._base_opt._multi_update(self._params, grads,
+                                         self._opt_state, lr,
+                                         self._step_count, **kw)
         self._update_health(finite)
         return loss
+
+    def write_back(self):
+        """Make every parameter whole in the model (ZeRO stage 3 keeps
+        only this rank's slice between steps); returns the model."""
+        if self._zero is not None:
+            self._zero.gather()
+        return self.model
 
     # ---- self-healing telemetry (host reads, outside the step) ----
     @property
@@ -347,7 +684,7 @@ class TrainStep:
 
     # ---- legs of later slices ----
     def reshard(self, new_mesh) -> None:
-        raise NotInThisSlice("live resharding (multi-GPU training, part 2)",
+        raise NotInThisSlice("live resharding (durability and elasticity)",
                              "TrainStep.reshard")
 
     def lower_text(self, batch):

@@ -13,7 +13,14 @@ against the JAX package on the CPU.
   not, MHA and GQA, against the JAX ``sdpa_context_parallel`` on a sep
   mesh of the same size (its einsum leg on the CPU), at rtol 2e-5 / atol
   2e-5 on the output and 2e-4 on the grads.
+- ``ring_attention`` and ``ulysses_attention`` called by name, in the JAX
+  functions' per-rank layout ``[B, H, S_loc, D]`` with ``axis_name``
+  second (every ``impl`` of the ring), against the JAX functions under
+  ``shard_map`` over a sep mesh of the same size, causal and not, MHA and
+  GQA, at the same tolerances.
 """
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +31,7 @@ import paddle_tpu as P
 from paddle_tpu.ops.pallas import flash_attention as JFA
 from paddle_tpu.parallel import mesh as jmesh
 from paddle_tpu.parallel import sdpa_context_parallel as jax_cp
+from paddle_tpu.parallel import context_parallel as JCP
 from paddle_tpu_torch.ops.kernels import flash_attention as fa_mod
 from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention_lse
 
@@ -139,3 +147,71 @@ def test_context_parallel_matches_jax(port, n, name):
     np.testing.assert_allclose(got[0], want[0], rtol=2e-5, atol=2e-5)
     for a, b, nm in zip(got[1:], want[1:], "qkv"):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4, err_msg=nm)
+
+
+def _direct_cases():
+    out = []
+    r = np.random.RandomState(21)
+    B, H, S, D = 1, 4, 16, 8
+    for fn, impls in (("ring", ("auto", "flash", "einsum")),
+                      ("ulysses", ("auto",))):
+        for causal in (True, False):
+            for hkv in (4, 2):
+                for impl in impls:
+                    out.append(dict(
+                        name=f"{fn}-{impl}-{'causal' if causal else 'full'}"
+                        f"-kv{hkv}", fn=fn, impl=impl, causal=causal,
+                        q=r.randn(B, H, S, D).astype(np.float32),
+                        k=r.randn(B, hkv, S, D).astype(np.float32),
+                        v=r.randn(B, hkv, S, D).astype(np.float32),
+                        g=r.randn(B, H, S, D).astype(np.float32)))
+    return out
+
+
+DIRECT = _direct_cases()
+
+
+@pytest.fixture(scope="module")
+def port_direct(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cp_direct")
+    res = torch_dist.spawn("cp_direct", 2, tmp, {"mesh": {"sep": 2},
+                                                 "cases": DIRECT})
+    return {c["name"]: [rk[c["name"]] for rk in res] for c in DIRECT}
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in DIRECT])
+def test_ring_and_ulysses_by_name_match_jax(port_direct, name):
+    """The reference layout and arguments: a caller who passes
+    ``[B, H, S_loc, D]`` and ``"sep"`` gets the JAX function's output
+    and grads (before the repair this layout attended over the head axis,
+    3.09 off)."""
+    case = next(c for c in DIRECT if c["name"] == name)
+    mesh = jmesh.init_mesh({"sep": 2})
+    try:
+        spec = jax.sharding.PartitionSpec(None, None, "sep", None)
+        if case["fn"] == "ring":
+            local = partial(JCP.ring_attention, axis_name="sep",
+                            causal=case["causal"], impl="einsum")
+        else:
+            local = partial(JCP.ulysses_attention, axis_name="sep",
+                            causal=case["causal"])
+        f = jax.jit(jax.shard_map(local, mesh=mesh, in_specs=(spec,) * 3,
+                                  out_specs=spec, check_vma=False))
+        args = [jnp.asarray(case[k]) for k in "qkv"]
+        o, vjp = jax.vjp(f, *args)
+        want = [np.asarray(o)] + [np.asarray(t) for t in
+                                  vjp(jnp.asarray(case["g"]))]
+    finally:
+        jmesh.set_mesh(None)
+    got = [np.concatenate([rk[i] for rk in port_direct[name]], axis=2)
+           for i in range(4)]
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-5, atol=2e-5)
+    for a, b, nm in zip(got[1:], want[1:], "qkv"):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4, err_msg=nm)
+
+
+def test_ring_impl_is_checked():
+    from paddle_tpu_torch.parallel.context_parallel import ring_attention
+    x = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="impl"):
+        ring_attention(x, x, x, "sep", impl="pallas")

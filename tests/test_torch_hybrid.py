@@ -34,7 +34,6 @@ from paddle_tpu.nn.clip import ClipGradByGlobalNorm as JaxClip
 from paddle_tpu.parallel import mesh as mesh_mod
 from paddle_tpu.parallel.trainer import compile_train_step as jax_compile
 import paddle_tpu_torch.optimizer as popt
-from paddle_tpu_torch.core.errors import NotInThisSlice
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      build_hybrid_train_step)
 from paddle_tpu_torch.parallel import compile_train_step
@@ -197,26 +196,6 @@ def test_every_rank_of_a_dp_group_reports_the_same_loss(port_runs):
     for name, ranks in port_runs.items():
         for res in ranks[1:]:
             assert res["losses"] == ranks[0]["losses"], name
-
-
-def test_pipeline_and_zero_axes_raise_not_in_this_slice():
-    """A mesh with pp or sharding above 1, or a ZeRO optimizer, waits for
-    part 2 of the multi-GPU slice."""
-    cfg = LlamaConfig(**TINY)
-    pm = LlamaForCausalLM(cfg, device="cpu")
-    opt = popt.AdamW(parameters=pm.parameters())
-    for mesh in ({"pp": 2}, {"dp": 2, "sharding": 2}, {"mp": 2, "pp": 2}):
-        with pytest.raises(NotInThisSlice, match="part 2"):
-            build_hybrid_train_step(pm, opt, mesh=mesh)
-        with pytest.raises(NotInThisSlice, match="part 2"):
-            compile_train_step(pm, lambda m, b: m.compute_loss(*b), opt,
-                               mesh=mesh)
-    with pytest.raises(NotInThisSlice, match="part 2"):
-        compile_train_step(pm, lambda m, b: m.compute_loss(*b), opt,
-                           mesh={"sep": 2})
-    opt._shard_stage = 1
-    with pytest.raises(NotInThisSlice, match="part 2"):
-        build_hybrid_train_step(pm, opt)
 
 
 def test_trainstep_skips_a_poisoned_step_on_every_rank(tmp_path):

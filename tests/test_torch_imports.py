@@ -57,6 +57,20 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.distributed.fleet.meta_parallel\n"
         "import paddle_tpu_torch.parallel.mesh\n"
         "import paddle_tpu_torch.parallel.context_parallel\n"
+        "import paddle_tpu_torch.parallel.pipeline\n"
+        "import paddle_tpu_torch.parallel.trainer\n"
+        "import paddle_tpu_torch.distributed.fleet\n"
+        "import paddle_tpu_torch.distributed.fleet.fleet\n"
+        "import paddle_tpu_torch.distributed.fleet.topology\n"
+        "import paddle_tpu_torch.distributed.fleet.role_maker\n"
+        "import paddle_tpu_torch.distributed.fleet.hybrid_optimizer\n"
+        "import paddle_tpu_torch.distributed.fleet.distributed_strategy\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+        ".parallel_wrappers\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+        ".sharding_optimizer\n"
+        "import paddle_tpu_torch.distributed.parallel\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"

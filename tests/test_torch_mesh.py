@@ -77,11 +77,11 @@ def test_mesh_helpers_without_a_world():
     mesh needs no process group; a bigger one needs init_parallel_env."""
     assert pmesh.mesh_axis_size("dp") == jmesh.mesh_axis_size("dp") == 1
     assert pmesh.axis_index("dp") == 0 and not pmesh.has_mesh()
-    m = pmesh.init_mesh({"dp": 1, "mp": 1}, device="cpu")
+    m = pmesh.init_mesh({"dp": 1, "mp": 1}, devices="cpu")
     assert pmesh.get_mesh() is m and m.group("dp") is None
     assert pmesh.mesh_axis_size("mp") == 1
     with pytest.raises(RuntimeError, match="init_parallel_env"):
-        pmesh.init_mesh({"dp": 2}, device="cpu")
+        pmesh.init_mesh({"dp": 2}, devices="cpu")
     with pytest.raises(ValueError):
         pmesh.init_mesh([2, 2], ["dp"])
 

@@ -1,0 +1,144 @@
+"""Signature parity: every public name that a port module shares with its
+``paddle_tpu`` counterpart (``paddle_tpu_torch.X.Y`` against
+``paddle_tpu.X.Y``) accepts every reference parameter, and takes the
+reference's positional parameters first, in the reference's order. For a
+class both its constructor and the methods the port class defines itself
+are checked (methods a port class inherits from ``torch.nn.Module`` stand
+for Paddle's ``Layer`` API and are not the port's). Port-only knobs are
+free to follow, keyword-only.
+
+``ALLOWED`` lists the differences the port makes on purpose, each with
+its reason (ROADMAP.md "Deliberate differences"); an entry that no longer
+differs fails the test, so the list stays true.
+"""
+import importlib
+import inspect
+import pkgutil
+
+import pytest
+
+import paddle_tpu_torch
+
+ALLOWED = {
+    "distributed.comms.quantize.quantize_blockwise":
+        "takes a torch.Generator (`generator`) for stochastic rounding "
+        "where the JAX function takes a PRNG key",
+    "jit.capture.CapturedStep":
+        "a CUDA graph keeps its inputs' addresses (`inplace`); XLA's "
+        "`donate`, `allow_baked_rng` and its jaxpr `passes` have no "
+        "counterpart",
+    "jit.capture.capture_step":
+        "as CapturedStep: `inplace` instead of `donate`; no baked-RNG "
+        "check or jaxpr passes",
+}
+
+
+def _pairs():
+    """(qualified name, port object, reference object) of every shared
+    public function, class constructor and own method."""
+    out = []
+    mods = ["paddle_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                              "paddle_tpu_torch.")]
+    for name in mods:
+        ref_name = "paddle_tpu" + name[len("paddle_tpu_torch"):]
+        try:
+            rm = importlib.import_module(ref_name)
+        except ImportError:
+            continue            # a port-only module (the CUDA kernels)
+        pm = importlib.import_module(name)
+        rel = name[len("paddle_tpu_torch."):] if "." in name else ""
+        for attr in dir(pm):
+            if attr.startswith("_") or not hasattr(rm, attr):
+                continue
+            po, ro = getattr(pm, attr), getattr(rm, attr)
+            if inspect.ismodule(po) or not callable(po) or not callable(ro):
+                continue
+            if getattr(po, "__module__", None) != name:
+                continue        # re-exported: checked where it is defined
+            key = f"{rel}.{attr}" if rel else attr
+            out.append((key, po, ro))
+            if inspect.isclass(po) and inspect.isclass(ro):
+                for meth in dir(ro):
+                    if meth.startswith("_") or not hasattr(po, meth):
+                        continue
+                    own = any(meth in k.__dict__ for k in po.__mro__
+                              if k.__module__.startswith("paddle_tpu_torch"))
+                    pf, rf = getattr(po, meth), getattr(ro, meth)
+                    if own and callable(pf) and callable(rf) \
+                            and not inspect.isclass(pf):
+                        out.append((f"{key}.{meth}", pf, rf))
+    return out
+
+
+def _params(obj):
+    try:
+        sig = inspect.signature(obj.__init__ if inspect.isclass(obj)
+                                else obj)
+    except (TypeError, ValueError):
+        return None
+    return [p for p in sig.parameters.values() if p.name != "self"]
+
+
+def _mismatch(port, ref):
+    """What the port's signature lacks against the reference's."""
+    pp, rp = _params(port), _params(ref)
+    if pp is None or rp is None:
+        return []
+    kinds = {p.kind for p in pp}
+    names = {p.name for p in pp}
+    pos_kinds = (inspect.Parameter.POSITIONAL_ONLY,
+                 inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    out = []
+    for p in rp:
+        if p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
+            continue
+        if p.name not in names and inspect.Parameter.VAR_KEYWORD not in kinds:
+            out.append(f"missing {p.name!r}")
+    rpos = [p.name for p in rp if p.kind in pos_kinds]
+    ppos = [p.name for p in pp if p.kind in pos_kinds]
+    var_pos_only = not ppos and inspect.Parameter.VAR_POSITIONAL in kinds
+    if ppos[:len(rpos)] != rpos and not var_pos_only:
+        out.append(f"positional order {ppos} against {rpos}")
+    return out
+
+
+PAIRS = _pairs()
+
+
+def test_enough_shared_names_are_checked():
+    """The walk finds the port's shared surface (guards against a vacuous
+    pass): the mesh, comms, fleet, pipeline, trainer and model names."""
+    keys = {k for k, _, _ in PAIRS}
+    assert len(PAIRS) >= 150
+    for must in ("parallel.mesh.init_mesh", "distributed.env.init_parallel_env",
+                 "distributed.comms.api.grad_sync",
+                 "parallel.context_parallel.ring_attention",
+                 "parallel.context_parallel.ulysses_attention",
+                 "parallel.pipeline.spmd_pipeline_1f1b",
+                 "distributed.fleet.fleet.init",
+                 "distributed.fleet.topology.HybridCommunicateGroup",
+                 "distributed.fleet.meta_parallel.mp_layers."
+                 "ColumnParallelLinear",
+                 "distributed.fleet.meta_parallel.sharding_optimizer."
+                 "group_sharded_parallel",
+                 "inference.serving.request.Request.finish",
+                 "nn.functional.linear", "nn.functional.embedding"):
+        assert must in keys, must
+
+
+@pytest.mark.parametrize("key", sorted({k for k, _, _ in PAIRS}))
+def test_signature_accepts_the_reference_parameters(key):
+    port, ref = next((p, r) for k, p, r in PAIRS if k == key)
+    bad = _mismatch(port, ref)
+    if key in ALLOWED:
+        assert bad, f"{key} no longer differs: drop it from ALLOWED"
+        return
+    assert not bad, f"{key}: {'; '.join(bad)}"
+
+
+def test_every_allowed_difference_has_a_reason():
+    keys = {k for k, _, _ in PAIRS}
+    for key, why in ALLOWED.items():
+        assert key in keys, f"{key} is not a shared name"
+        assert len(why.split()) >= 5, key

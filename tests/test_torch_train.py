@@ -21,7 +21,6 @@ from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import build_hybrid_train_step as jax_build
 from paddle_tpu.nn.clip import ClipGradByGlobalNorm as JaxClip
 from paddle_tpu.nn.functional import cross_entropy as jax_ce
-from paddle_tpu_torch.core.errors import NotInThisSlice
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      build_hybrid_train_step,
                                      load_paddle_tpu_state)
@@ -296,17 +295,19 @@ def test_fused_loss_equals_the_unfused_loss_in_fp32():
 
 
 def test_fused_loss_and_a_mesh_raise_not_in_this_slice():
-    """A pipeline or ZeRO axis above 1 raises (they wait for part 2 of the
-    multi-GPU slice), with or without the fused loss; the dp/mp/sep legs
-    need a real DeviceMesh (tests/test_torch_hybrid.py drives them);
-    ``fused_loss=True`` alone builds."""
+    """Every mesh leg is ported (tests/test_torch_hybrid.py and
+    test_torch_hybrid_pp.py drive them), so nothing raises
+    ``NotInThisSlice`` any more: a mesh with an axis above 1 must be a real
+    DeviceMesh (a dict raises ``TypeError``), with or without the fused
+    loss; the schedule's checks raise ``ValueError``; ``fused_loss=True``
+    alone builds."""
     _, pm = _pair(2)
     opt = AdamW(parameters=pm.parameters())
     build_hybrid_train_step(pm, opt, fused_loss=True)
-    with pytest.raises(NotInThisSlice):
+    with pytest.raises(TypeError):
         build_hybrid_train_step(pm, opt, fused_loss=True,
                                 mesh={"dp": 1, "pp": 2})
-    with pytest.raises(NotInThisSlice):
+    with pytest.raises(TypeError):
         build_hybrid_train_step(pm, opt, mesh={"dp": 2, "sharding": 2})
     with pytest.raises(TypeError):
         build_hybrid_train_step(pm, opt, mesh={"dp": 2, "mp": 1})

@@ -383,18 +383,26 @@ def _hybrid_run(cfg_d):
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.parallel import compile_train_step
     from paddle_tpu_torch.parallel import mesh as mesh_mod
-    mesh = mesh_mod.init_mesh(cfg_d["mesh"], device="cpu")
+    mesh = mesh_mod.init_mesh(cfg_d["mesh"], devices="cpu")
     cfg = LlamaConfig(**cfg_d["config"])
     model = LlamaForCausalLM(cfg, device="cpu", mesh=mesh)
     load_paddle_tpu_state(model, cfg_d["state"])
     clip = ClipGradByGlobalNorm(cfg_d["clip"]) if cfg_d.get("clip") else None
     opt = popt.AdamW(learning_rate=cfg_d["lr"], parameters=model.parameters(),
                      epsilon=cfg_d["eps"], grad_clip=clip)
+    if cfg_d.get("zero"):
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+            sharding_optimizer as SO
+        level = {1: "os", 2: "os_g", 3: "p_g_os"}[cfg_d["zero"]]
+        _, opt, _ = SO.group_sharded_parallel(model, opt, level)
     if cfg_d["kind"] == "hybrid":
         step = build_hybrid_train_step(
             model, opt, mesh=mesh, remat=cfg_d.get("remat", True),
             amp=cfg_d.get("amp", False),
-            accumulate_steps=cfg_d.get("accumulate", 1))
+            accumulate_steps=cfg_d.get("accumulate", 1),
+            n_microbatches=cfg_d.get("micro", 1),
+            schedule=cfg_d.get("schedule", "1f1b"),
+            n_virtual=cfg_d.get("virtual", 1))
     else:
         scaler = GradScaler(**cfg_d["scaler"]) if cfg_d.get("scaler") \
             else None
@@ -413,9 +421,25 @@ def _hybrid_run(cfg_d):
                 losses.append(float(step(b)))
         else:
             losses.append(float(step(b)))
+    zero = step.state["zero"] if cfg_d["kind"] == "hybrid" \
+        else step._zero
+    opt_states = step.state["opt"].values() if cfg_d["kind"] == "hybrid" \
+        else step._opt_state
+    names = list(step.state["params"]) if cfg_d["kind"] == "hybrid" \
+        else step._param_names
+    zinfo = None if zero is None else {
+        "axis": zero.axis, "stage": zero.stage, "dims": list(zero.dims),
+        "names": names,
+        "state_bytes": zero.state_bytes(list(opt_states)),
+        "full_bytes": sum(2 * 4 * int(np.prod(zero.full_shape(k)))
+                          for k in range(len(zero.tensors)))}
+    step.write_back()
     state = paddle_tpu_state(model)
     info = comms.comm_info()
     return {"losses": losses, "state": state if mesh.rank == 0 else None,
+            "zero": zinfo,
+            "pipeline": step.state.get("pipeline")
+            if cfg_d["kind"] == "hybrid" else None,
             "sites": {k: (v["count"], v["quantized"])
                       for k, v in info["sites"].items()}}
 
@@ -431,7 +455,7 @@ def _finite_skip(payload):
     from paddle_tpu_torch.distributed import comms
     from paddle_tpu_torch.parallel import compile_train_step
     from paddle_tpu_torch.parallel import mesh as mesh_mod
-    mesh = mesh_mod.init_mesh({"dp": 2}, device="cpu")
+    mesh = mesh_mod.init_mesh({"dp": 2}, devices="cpu")
     torch.manual_seed(0)
     model = torch.nn.Linear(64, 8, bias=False)   # every grad quantized
     opt = popt.AdamW(learning_rate=1e-2, parameters=model.parameters())
@@ -450,6 +474,225 @@ def _finite_skip(payload):
     return {"steps": out, "rank": mesh.rank}
 
 
+def _pipe_stage(params, x):
+    """A stage of ``tanh(x W + b)`` layers: leaves ``[n, H, H]`` /
+    ``[n, H]`` (n layers), or one layer's ``[H, H]`` / ``[H]``."""
+    w, b = params["w"], params["b"]
+    if w.dim() == 2:
+        return torch.tanh(x @ w + b)
+    for j in range(w.shape[0]):
+        x = torch.tanh(x @ w[j] + b[j])
+    return x
+
+
+def _pipe_head_loss(kind):
+    def mse(head, y, labels):
+        return ((y @ head["wo"] - labels) ** 2).mean()
+
+    def ce(head, y, labels):
+        """The valid-label mean of one microbatch's cross entropy."""
+        logits = (y @ head["wo"]).reshape(-1, head["wo"].shape[-1])
+        lab = labels.reshape(-1)
+        valid = lab != -100
+        rows = torch.nn.functional.cross_entropy(
+            logits, torch.where(valid, lab, 0), reduction="none")
+        return (rows * valid).sum() / valid.sum().clamp_min(1)
+    return {"mse": mse, "ce": ce}[kind]
+
+
+def _pipe_total_loss(kind, head, y, labels):
+    """gpipe / vpp: the loss of the whole reassembled batch (for ``ce`` the
+    valid-label mean over every microbatch)."""
+    M = y.shape[0]
+    if kind == "mse":
+        return _pipe_head_loss("mse")(head, y.reshape(-1, y.shape[-1]),
+                                      labels.reshape(-1, labels.shape[-1]))
+    return _pipe_head_loss("ce")(head, y.reshape(M * y.shape[1], -1),
+                                 labels.reshape(-1))
+
+
+def _pipeline(payload):
+    """Each case of ``payload["cases"]`` through the port's schedules on the
+    pp axis: loss, this rank's stage grads, the head grads, dx (and the
+    outputs for gpipe / vpp), and ``pipeline_info()``."""
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel import pipeline as PL
+    m = mesh_mod.get_mesh()
+    S, i = m.shape["pp"], m.coords["pp"]
+    out = {}
+    for case in payload["cases"]:
+        sched, M, v = case["schedule"], case["M"], case.get("v", 1)
+        full = {k: _t(a) for k, a in case["params"].items()}
+        if sched == "vpp":      # [L, ...] -> [v, S, ...], this rank's [:, i]
+            params = {k: a.reshape(v, S, *a.shape[1:])[:, i].clone()
+                      for k, a in full.items()}
+        else:                   # [L, ...] -> this rank's [L/S, ...]
+            n = full["w"].shape[0] // S
+            params = {k: a[i * n:(i + 1) * n].clone() for k, a in
+                      full.items()}
+        head = {"wo": _t(case["wo"])}
+        x = _t(case["x"])
+        labels = _t(case["labels"])
+        res = {}
+        if sched in ("gpipe", "vpp"):
+            leaves = {k: p.requires_grad_(True) for k, p in params.items()}
+            hl = {k: p.requires_grad_(True) for k, p in head.items()}
+            xl = x.clone().requires_grad_(True)
+            y = PL.spmd_pipeline(_pipe_stage, leaves, xl, n_microbatches=M,
+                                 schedule=sched, n_virtual=v,
+                                 remat=case.get("remat", True))
+            loss = _pipe_total_loss(case["loss"], hl, y, labels)
+            loss.backward()
+            res.update(loss=float(loss), y=_np(y),
+                       g_stage={k: _np(p.grad) for k, p in leaves.items()},
+                       g_head={k: _np(p.grad) for k, p in hl.items()},
+                       dx=_np(xl.grad))
+        else:
+            loss, gs, gh, dx = PL.spmd_pipeline_1f1b(
+                _pipe_stage, _pipe_head_loss(case["loss"]), params, head, x,
+                labels, n_microbatches=M,
+                variant="compact" if sched == "1f1b_compact" else "fused")
+            res.update(loss=float(loss),
+                       g_stage={k: _np(g) for k, g in gs.items()},
+                       g_head={k: _np(g) for k, g in gh.items()},
+                       dx=_np(dx))
+        res["info"] = PL.pipeline_info()
+        out[case["name"]] = res
+    return out
+
+
+def _fleet(payload):
+    """``fleet.init`` with the payload's strategy, the HCG's answers, then
+    ``distributed_optimizer`` -> ``build_hybrid_train_step`` on the
+    installed mesh for three steps."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         build_hybrid_train_step,
+                                         load_paddle_tpu_state)
+    from paddle_tpu_torch.models.llama import paddle_tpu_state
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update(payload["hybrid"])
+    if payload.get("stage"):
+        strategy.sharding = True
+        strategy.sharding_configs["stage"] = payload["stage"]
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    groups = {}
+    for name in ("data", "model", "pipe", "sharding"):
+        g = getattr(hcg, f"get_{name}_parallel_group")()
+        groups[name] = (g.nranks, g.rank, g.ranks)
+    out = {"degrees": (hcg.get_data_parallel_world_size(),
+                       hcg.get_model_parallel_world_size(),
+                       hcg.get_pipe_parallel_world_size(),
+                       hcg.get_sharding_parallel_world_size()),
+           "ranks": (hcg.get_data_parallel_rank(),
+                     hcg.get_model_parallel_rank(), hcg.get_stage_id(),
+                     hcg.get_sharding_parallel_rank()),
+           "mode": hcg.get_parallel_mode(), "groups": groups,
+           "mesh": dict(hcg.mesh.shape), "coords": dict(hcg.mesh.coords),
+           "comm_list": hcg.topology().get_comm_list("pipe"),
+           "workers": (fleet.worker_num(), fleet.worker_index(),
+                       fleet.is_first_worker())}
+    mesh = hcg.mesh
+    cfg = LlamaConfig(**payload["config"])
+    model = LlamaForCausalLM(cfg, device="cpu", mesh=mesh)
+    load_paddle_tpu_state(model, payload["state"])
+    opt = popt.AdamW(learning_rate=payload["lr"],
+                     parameters=model.parameters(), epsilon=payload["eps"],
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+    opt = fleet.distributed_optimizer(opt)
+    step = build_hybrid_train_step(model, opt, mesh=mesh,
+                                   n_microbatches=payload["micro"],
+                                   schedule=payload["schedule"])
+    out["losses"] = [float(step({"input_ids": i, "labels": lab}))
+                     for i, lab in payload["batches"]]
+    z = step.state["zero"]
+    out["zero"] = None if z is None else (z.axis, z.stage)
+    step.write_back()
+    state = paddle_tpu_state(model)
+    out["state"] = state if mesh.rank == 0 else None
+    return out
+
+
+def _data_parallel(payload):
+    """Eager ``DataParallel`` training on dp: each rank feeds its half of
+    every batch, ``loss.backward()``, then the optimizer's step (AdamW, or
+    ``DygraphShardingOptimizer(AdamW)`` for the eager ZeRO update)."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.distributed import DataParallel, shard_batch
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        DygraphShardingOptimizer
+    out = {}
+    for zero in (False, True):
+        lin = torch.nn.Linear(16, 8, bias=True)
+        with torch.no_grad():
+            lin.weight.copy_(_t(payload["w"]))
+            lin.bias.copy_(_t(payload["b"]))
+        model = DataParallel(lin)
+        opt = popt.AdamW(learning_rate=1e-2, parameters=lin.parameters())
+        if zero:
+            opt = DygraphShardingOptimizer(opt)
+        for x, y in zip(payload["x"], payload["y"]):
+            xl, yl = shard_batch(_t(x)), shard_batch(_t(y))
+            loss = ((model(xl) - yl) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        inner = getattr(opt, "inner_opt", opt)
+        out["zero" if zero else "plain"] = {
+            "w": _np(lin.weight), "b": _np(lin.bias),
+            "state_numel": sum(v.numel() for st in inner._states.values()
+                               for v in st.values()
+                               if isinstance(v, torch.Tensor))}
+    return out
+
+
+def spawn_probe(root):
+    """A ``distributed.spawn`` target: join through the launcher's
+    variables, all-reduce the rank, write what this rank saw."""
+    import json
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import comms
+    env = dist.init_parallel_env(device="cpu")
+    total = comms.wire_all_reduce(torch.tensor([float(env.rank)]), "dp",
+                                  exact=True)
+    Path(root, f"spawn{env.rank}.json").write_text(json.dumps(
+        {"rank": env.rank, "world": env.world_size,
+         "local": env.local_rank, "sum": float(total)}))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _cp_direct(payload):
+    """``ring_attention`` / ``ulysses_attention`` called directly in the
+    JAX functions' per-rank layout ``[B, H, S_loc, D]`` with ``axis_name``
+    second: output and q/k/v grads of each case."""
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel.context_parallel import (
+        ring_attention, ulysses_attention)
+    m = mesh_mod.get_mesh()
+    n, r = m.shape["sep"], m.coords["sep"]
+    out = {}
+    for case in payload["cases"]:
+        q, k, v, g = (_t(a).chunk(n, dim=2)[r].contiguous()
+                      for a in (case["q"], case["k"], case["v"], case["g"]))
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        if case["fn"] == "ring":
+            o = ring_attention(q, k, v, "sep", case["causal"],
+                               impl=case["impl"])
+        else:
+            o = ulysses_attention(q, k, v, "sep", case["causal"])
+        (o * g).sum().backward()
+        out[case["name"]] = (_np(o), _np(q.grad), _np(k.grad), _np(v.grad))
+    return out
+
+
 SCENARIOS = {"mesh": _mesh, "collective": _collective, "comms": _comms,
              "mp_layers": _mp_layers, "tp_ce": _tp_ce, "cp": _cp,
-             "hybrid": _hybrid, "finite_skip": _finite_skip}
+             "hybrid": _hybrid, "finite_skip": _finite_skip,
+             "pipeline": _pipeline, "fleet": _fleet,
+             "data_parallel": _data_parallel, "cp_direct": _cp_direct}
