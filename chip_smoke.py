@@ -79,7 +79,12 @@ fails:
    steps, one whose loss a batch field multiplies by inf, 2 more; the bad
    step skipped with every parameter and moment unchanged (checksums),
    the scale halved there and doubled after 2 good steps, the loss finite
-   and falling, U1 and U2 launched once a step;
+   and falling, U1 and U2 launched once a step; then
+   ``LlamaConfig(recompute=True)`` through the fleet's ``recompute`` at
+   llama_7b width cut to 2 layers (S=2048, B=2, bf16): ``compute_loss``
+   forward + backward against recompute off on the same model, loss and
+   grads bitwise (a tensor two plain runs disagree on, within their
+   spread), K2 2 x layers and K3, K4 layers, each path's ms;
 10. K2, K3 and K4 timed at the training shape (B=2, S=2048, H=32, D=128,
    bf16, causal) from CUDA-graph replays, beside their plain versions,
    ``F.scaled_dot_product_attention(is_causal=True)`` forward and its
@@ -127,7 +132,19 @@ fails:
    must, every state tensor sharded); then (gloo only) 16 ranks of
    dp2 x pp2 x sharding2 x mp2 run the vpp step of a tiny model with
    sequence parallelism and ZeRO over the sharding axis, equal to one
-   unpipelined rank.
+   unpipelined rank. Then the checkpoint job: 4 ranks of dp2 x mp2 at
+   llama_7b width cut to 2 layers (S=2048, bf16 amp, remat, a clip,
+   ZeRO-1 over dp) take 3 steps, commit a sharded generation of the
+   step's state under ``build/`` (one owner a rank; free disk checked
+   first), take 3 more; a fresh step from other weights restores it (its
+   pieces' CRC32 equal to the saved ones) and repeats them: losses
+   bitwise (or within the spread of two uninterrupted runs), launches a
+   step and rank exact; save and restore seconds, bytes a rank, GB/s and
+   ``wait_commit`` seconds printed, the generations deleted. Then the MoE
+   job: 2 ranks of ep2 run a gshard ``MoELayer(4096, 8 experts, 11008,
+   top-2)`` on 4096 fp32 tokens against the ep1 layer from the same seed
+   (output, l_aux and the grads at rtol 1e-4), forward + backward ms of
+   each and the ep all-reduce bytes.
    Times are the gloo path's, labelled so, with no bound claimed.
    ``--mesh-backend nccl --mesh-only`` runs the same phase (and only it,
    after the build) with one card a rank over NCCL, on a machine with 4
@@ -136,7 +153,8 @@ fails:
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
-``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"mesh": ...}``,
+``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"recompute": ...}``,
+``{"mesh": ...}``,
 ``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
 launches),
 ``{"serving": ...}``, the total run time, the card's
@@ -2333,8 +2351,182 @@ def job_axis4(torch, rank, seed):
             "state_share": share, "state": state if rank == 0 else None}
 
 
+# the checkpoint job: dp2 x mp2 at llama_7b width cut to 2 layers (667M
+# parameters: fp32 masters and Adam's m and v about 8.0 GB over the four
+# ranks' files), 3 steps, a sharded generation, 3 more; a fresh step
+# restores it and repeats the last 3
+CKPT_LAYERS, CKPT_SEQ, CKPT_BATCH, CKPT_STEPS = 2, 2048, 2, 3
+CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")
+CKPT_MIN_FREE_GB = 24
+# the MoE job: a gshard layer at llama_7b's MLP width, fp32
+MOE_D, MOE_E, MOE_H, MOE_K, MOE_TOKENS = 4096, 8, 11008, 2, (2, 2048)
+MOE_RTOL = 1e-4
+MOE_AUX_W = 0.1
+
+
+def crc_of(bricks) -> dict:
+    import zlib
+    return {k: zlib.crc32(np.ascontiguousarray(v).view(np.uint8))
+            for k, v in bricks.items()}
+
+
+def job_ckpt_dp_mp(torch, rank, seed):
+    """4 ranks, dp2 x mp2, bf16 amp, remat, a global-norm clip, AdamW and
+    ZeRO-1 over dp: CKPT_STEPS steps, a sharded generation of
+    ``step.state`` (one owner a rank: stage, then commit or wait for the
+    commit), CKPT_STEPS more; a fresh step from other weights restores it
+    (its pieces' CRCs against the saved ones) and repeats them, its
+    kernels counted. If the repeat is not bitwise, a second uninterrupted
+    run gives the run-to-run spread."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed import CheckpointManager, checkpoint
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        DygraphShardingOptimizer
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mods = mesh_mods()
+    counters = mods["counters"]
+    mesh = mesh_mod.init_mesh({"dp": 2, "mp": 2})
+    cfg = mesh_config(mods["LlamaConfig"], CKPT_LAYERS, CKPT_SEQ)
+    batches = [mesh_batch(torch, cfg.vocab_size, CKPT_BATCH, CKPT_SEQ,
+                          seed + 20 + i) for i in range(2 * CKPT_STEPS)]
+
+    def build(model_seed):
+        model = mods["LlamaForCausalLM"](cfg, device=DEVICE, seed=model_seed,
+                                         mesh=mesh)
+        opt = DygraphShardingOptimizer(mods["AdamW"](
+            learning_rate=1e-4, parameters=model.parameters(),
+            grad_clip=ClipGradByGlobalNorm(1.0)))
+        return model, mods["build"](model, opt, mesh=mesh, remat=True,
+                                    amp=True)
+
+    def train(step, part):
+        return [float(step(b)) for b in part]
+
+    model, step = build(seed)
+    losses = train(step, batches[:CKPT_STEPS])
+    mgr = CheckpointManager(CKPT_DIR, keep_last_k=1)
+    owners = [f"rank{r}" for r in range(tdist.get_world_size())]
+    torch.cuda.synchronize()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    bricks, meta = checkpoint.shard_bricks(step.state)
+    t1 = time.perf_counter()
+    n_params = sum(int(np.prod(m["shape"])) for n, m in meta.items()
+                   if n.startswith("params."))
+    stats = mgr.stage_shards(CKPT_STEPS, owners[rank], bricks)
+    t2 = time.perf_counter()
+    if rank == 0:
+        mgr.commit_sharded(CKPT_STEPS, owners, meta)
+    else:
+        mgr.wait_commit(CKPT_STEPS)
+    t3 = time.perf_counter()
+    saved = crc_of(bricks)
+    del bricks
+    losses += train(step, batches[CKPT_STEPS:])
+    del model, step
+    release(torch)
+    model, step = build(seed + 1)
+    torch.cuda.synchronize()
+    tdist.barrier()
+    t4 = time.perf_counter()
+    got_step = mgr.restore(step.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t4
+    restored = crc_of(checkpoint.shard_bricks(step.state)[0])
+    for kern in counters.values():
+        kern.launches = 0        # the resumed run's launches start here
+    resumed = train(step, batches[CKPT_STEPS:])
+    launches = {k: kern.launches / CKPT_STEPS for k, kern in counters.items()}
+    del model, step
+    release(torch)
+    out = {"losses": losses, "resumed": resumed, "restored_step": got_step,
+           "pieces": len(saved),
+           "pieces_equal": saved == restored, "launches": launches,
+           "bytes": stats["bytes"], "bricks_s": t1 - t0,
+           "stage_s": t2 - t1, "commit_or_wait_s": t3 - t2,
+           "save_s": t3 - t0, "restore_s": restore_s,
+           "params_model": n_params, "spread": None}
+    if resumed != losses[CKPT_STEPS:]:
+        model, step = build(seed)
+        again = train(step, batches)
+        out["spread"] = [abs(a - b) for a, b in
+                         zip(again[CKPT_STEPS:], losses[CKPT_STEPS:])]
+        del model, step
+        release(torch)
+    return out
+
+
+def job_moe_ep(torch, rank, seed):
+    """2 ranks, ep2: the gshard MoE layer at ep1 (every expert on the rank,
+    no mesh) and at ep2 (4 experts a rank), drawn from one seed, on the
+    same tokens: output, l_aux and the grads of the input, the gate and
+    this rank's experts compared; forward + backward timed (after a
+    warm-up), the ep all-reduces' bytes read."""
+    from paddle_tpu_torch.distributed import comms
+    from paddle_tpu_torch.distributed.fleet.moe import MoELayer
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.init_mesh({"ep": 2})
+    rng = np.random.RandomState(seed + 40)
+    x = torch.from_numpy(rng.randn(*MOE_TOKENS, MOE_D).astype(np.float32)) \
+        .to(DEVICE).requires_grad_(True)
+    cot = torch.from_numpy(rng.randn(*MOE_TOKENS, MOE_D).astype(
+        np.float32)).to(DEVICE)
+
+    def layer(on_mesh):
+        g = torch.Generator(device=DEVICE).manual_seed(seed + 41)
+        return MoELayer(MOE_D, gate="gshard", num_experts=MOE_E, top_k=MOE_K,
+                        d_hidden=MOE_H, device=DEVICE, generator=g,
+                        mesh=on_mesh)
+
+    def run(m, reps=2):
+        ms = []
+        for _ in range(reps):
+            x.grad = None
+            m.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = m(x)
+            loss = (y * cot).sum() + MOE_AUX_W * m.l_aux
+            loss.backward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return y.detach(), float(m.l_aux.detach()), x.grad.clone(), ms[-1]
+
+    one = layer(mesh_mod.DeviceMesh({"ep": 1}))
+    y1, l1, dx1, ms1 = run(one)
+    two = layer(mesh)
+    comms.comm_clear()
+    y2, l2, dx2, ms2 = run(two, reps=1)
+    wire = {k: v["bytes_logical"] for k, v in
+            comms.comm_info()["sites"].items() if k.startswith("moe.")}
+    y2, l2, dx2, ms2 = run(two)
+
+    def err(got, want):
+        tol = MOE_RTOL * (want.abs() + 1e-2 * want.abs().max())
+        return {"max_abs_err": float((got - want).abs().max()),
+                "ok": bool(((got - want).abs() <= tol).all())}
+    errs = {"y": err(y2, y1), "dx": err(dx2, dx1),
+            "gate": err(two.gate.weight.grad, one.gate.weight.grad),
+            "l_aux": {"max_abs_err": abs(l2 - l1),
+                      "ok": abs(l2 - l1) <= MOE_RTOL * abs(l1)}}
+    for i, e in enumerate(range(two.expert_offset,
+                                two.expert_offset + two.local_experts)):
+        for (n, p), q in zip(two.experts[i].named_parameters(),
+                             one.experts[e].parameters()):
+            errs[f"experts.{e}.{n}"] = err(p.grad, q.grad)
+    out = {"ep1_ms": ms1, "ep2_ms": ms2, "allreduce_bytes": wire,
+           "experts_local": two.local_experts, "offset": two.expert_offset,
+           "capacity": two.capacity(MOE_TOKENS[0] * MOE_TOKENS[1]),
+           "errs": errs, "l_aux": [l1, l2]}
+    del one, two, x, cot, y1, y2, dx1, dx2
+    release(torch)
+    return out
+
+
 MESH_JOBS = {"dp_mp": job_dp_mp, "sep_tp_quant": job_sep_tp_quant,
-             "pp_dp": job_pp_dp, "axis4": job_axis4}
+             "pp_dp": job_pp_dp, "axis4": job_axis4,
+             "ckpt_dp_mp": job_ckpt_dp_mp, "moe_ep": job_moe_ep}
 
 
 def mesh_rank(rank, world, root, job, seed, backend):
@@ -2514,6 +2706,174 @@ def phase_mesh_pp(torch, args, root, backend):
     return pp_res, axis4
 
 
+def phase_ckpt_moe(torch, args, root, backend):
+    """The checkpoint job (dp2 x mp2 save, restore, continue) and the MoE
+    job (ep2 against ep1), with their gates; the generations are deleted
+    afterwards."""
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free_gb = shutil.disk_usage(CKPT_DIR).free / 1e9
+    check(free_gb >= CKPT_MIN_FREE_GB, f"checkpoint job: {free_gb:.1f} GB "
+          f"free under {CKPT_DIR}, want {CKPT_MIN_FREE_GB}")
+    try:
+        res = run_ranks("ckpt_dp_mp", 4, root, args.seed, backend)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    L = CKPT_LAYERS
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "multi_tensor_sumsq": 1, "multi_tensor_adam": 1}
+    note = "bitwise"
+    for r, c in enumerate(res):
+        check(all(np.isfinite(c["losses"])), f"ckpt rank {r}: non-finite "
+              f"loss {c['losses']}")
+        check(c["restored_step"] == CKPT_STEPS and c["pieces_equal"],
+              f"ckpt rank {r}: restored step {c['restored_step']}, pieces "
+              f"bitwise the saved ones: {c['pieces_equal']}")
+        got = {k: c["launches"][k] for k in want}
+        check(got == want, f"ckpt rank {r}: launches a step {got}, want "
+              f"{want}")
+        tail = c["losses"][CKPT_STEPS:]
+        if c["resumed"] != tail:
+            check(c["spread"] is not None and all(
+                abs(a - b) <= s for a, b, s in
+                zip(c["resumed"], tail, c["spread"])),
+                f"ckpt rank {r}: resumed losses {c['resumed']} vs the "
+                f"uninterrupted {tail}, outside the run-to-run spread "
+                f"{c['spread']}")
+            note = ("within the run-to-run spread of two uninterrupted "
+                    "runs (one of K2-K4, U1, U2 or the gloo all-reduce is "
+                    "not run-to-run deterministic)")
+    check(all(c["losses"] == res[0]["losses"] for c in res),
+          "ckpt: ranks report different losses")
+    total = sum(c["bytes"] for c in res)
+    save_s = max(c["save_s"] for c in res)
+    restore_s = max(c["restore_s"] for c in res)
+    ckpt = {"layers": L, "seq": CKPT_SEQ, "batch": CKPT_BATCH,
+            "steps": CKPT_STEPS, "params_model": res[0]["params_model"],
+            "losses": res[0]["losses"], "resumed": res[0]["resumed"],
+            "resumed_equal": note, "pieces_by_rank": [c["pieces"] for c in res],
+            "bytes_by_rank": [c["bytes"] for c in res], "bytes_total": total,
+            "save_s_by_rank": [c["save_s"] for c in res],
+            "bricks_s_by_rank": [c["bricks_s"] for c in res],
+            "stage_s_by_rank": [c["stage_s"] for c in res],
+            "commit_s_rank0": res[0]["commit_or_wait_s"],
+            "wait_commit_s_by_rank": [c["commit_or_wait_s"]
+                                      for c in res[1:]],
+            "restore_s_by_rank": [c["restore_s"] for c in res],
+            "save_gb_per_s": total / 1e9 / save_s,
+            "restore_gb_per_s": total / 1e9 / restore_s,
+            "launches_per_step": res[0]["launches"], "free_gb": free_gb}
+    log(f"ckpt dp2 x mp2 at llama_7b width ({L} layers, S={CKPT_SEQ}, "
+        f"{ckpt['params_model']} parameters, ZeRO-1): {total / 1e9:.3f} GB "
+        f"over 4 ranks ({[c['bytes'] for c in res]} bytes), save "
+        f"{save_s:.2f}s ({ckpt['save_gb_per_s']:.3f} GB/s; wait_commit "
+        f"{[round(s_, 3) for s_ in ckpt['wait_commit_s_by_rank']]}s), restore "
+        f"{restore_s:.2f}s ({ckpt['restore_gb_per_s']:.3f} GB/s); resumed "
+        f"losses {res[0]['resumed']} {note} to the uninterrupted "
+        f"{res[0]['losses'][CKPT_STEPS:]}; {args.card}")
+    moe_res = run_ranks("moe_ep", 2, root, args.seed, backend)
+    for r, m in enumerate(moe_res):
+        bad = {k: v["max_abs_err"] for k, v in m["errs"].items()
+               if not v["ok"]}
+        check(not bad, f"moe ep2 rank {r} vs ep1: {bad} outside rtol "
+              f"{MOE_RTOL}")
+        check(m["offset"] == r * MOE_E // 2 and m["experts_local"]
+              == MOE_E // 2, f"moe rank {r}: experts {m['offset']} + "
+              f"{m['experts_local']}")
+    moe = {"d": MOE_D, "experts": MOE_E, "hidden": MOE_H, "top_k": MOE_K,
+           "tokens": list(MOE_TOKENS), "dtype": "float32",
+           "capacity": moe_res[0]["capacity"],
+           "ep1_ms_by_rank": [m["ep1_ms"] for m in moe_res],
+           "ep2_ms_by_rank": [m["ep2_ms"] for m in moe_res],
+           "allreduce_bytes_rank0": moe_res[0]["allreduce_bytes"],
+           "max_abs_err_by_rank": [{k: v["max_abs_err"] for k, v in
+                                    m["errs"].items()} for m in moe_res],
+           "l_aux": moe_res[0]["l_aux"]}
+    log(f"moe gshard E={MOE_E} d={MOE_D} h={MOE_H} k={MOE_K} tokens "
+        f"{list(MOE_TOKENS)} fp32: ep2 = ep1 within rtol {MOE_RTOL}; "
+        f"forward + backward ep1 {moe['ep1_ms_by_rank']} ms, ep2 "
+        f"{moe['ep2_ms_by_rank']} ms by rank; all-reduce bytes "
+        f"{moe['allreduce_bytes_rank0']}; {args.card}")
+    return {"ckpt_dp_mp": ckpt, "moe_ep": moe,
+            "phase_s": time.perf_counter() - t0}
+
+
+def phase_recompute(torch, args, LlamaConfig, LlamaForCausalLM, fa):
+    """``LlamaConfig(recompute=True)`` through the fleet's ``recompute`` at
+    llama_7b width cut to 2 layers, S=2048, B=2, bf16 parameters: loss and
+    grads of ``compute_loss`` against ``recompute=False`` on the same
+    model (bitwise for every tensor that two plain runs give bitwise; the
+    others within the spread of two plain runs), K2 2 x layers, K3 and K4
+    layers a recomputed step (layers, layers, layers without), forward +
+    backward ms of each (the second of two runs)."""
+    t0 = time.perf_counter()
+    cfg = mesh_config(LlamaConfig, CKPT_LAYERS, CKPT_SEQ)
+    model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.bfloat16,
+                             seed=args.seed + 5)
+    batch = mesh_batch(torch, cfg.vocab_size, CKPT_BATCH, CKPT_SEQ,
+                       args.seed + 6)
+    counters = {"flash_fwd": fa.flash_attention_fwd,
+                "flash_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_bwd_dkv": fa.flash_attention_bwd_dkv}
+
+    def run(recompute):
+        model.config.recompute = recompute
+        model.zero_grad(set_to_none=True)
+        for kern in counters.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = model.compute_loss(batch["input_ids"], batch["labels"])
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        return (loss.detach(), [p.grad.clone() for p in model.parameters()],
+                {k: kern.launches for k, kern in counters.items()}, ms)
+
+    plain = [run(False) for _ in range(2)]
+    rec = [run(True) for _ in range(2)]
+    L = CKPT_LAYERS
+    check(rec[1][2] == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": L}
+          and plain[1][2] == {"flash_fwd": L, "flash_bwd_dq": L,
+                              "flash_bwd_dkv": L},
+          f"recompute launches {rec[1][2]}, plain {plain[1][2]}")
+    names = [n for n, _ in model.named_parameters()]
+    nondet, bad = [], {}
+    for n, a, b, g in zip(names, plain[0][1], plain[1][1], rec[1][1]):
+        if torch.equal(a, b):
+            if not torch.equal(g, b):
+                bad[n] = float((g.float() - b.float()).abs().max())
+        else:
+            nondet.append(n)
+            spread = (a.float() - b.float()).abs().max()
+            if (g.float() - b.float()).abs().max() > spread:
+                bad[n] = float((g.float() - b.float()).abs().max())
+    check(torch.equal(rec[1][0], plain[1][0]) or not torch.equal(
+        plain[0][0], plain[1][0]), f"recompute loss {float(rec[1][0])} != "
+        f"{float(plain[1][0])}")
+    check(not bad, f"recompute grads differ from recompute=False: {bad}")
+    out = {"layers": L, "seq": CKPT_SEQ, "batch": CKPT_BATCH,
+           "dtype": "bfloat16", "loss": float(rec[1][0]),
+           "loss_plain": float(plain[1][0]),
+           "grads_bitwise": len(names) - len(nondet),
+           "grads_nondeterministic": nondet,
+           "launches": rec[1][2], "launches_plain": plain[1][2],
+           "step_ms": rec[1][3], "step_ms_plain": plain[1][3]}
+    del model, plain, rec
+    release(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"recompute at llama_7b width ({L} layers, S={CKPT_SEQ}, B="
+        f"{CKPT_BATCH}, bf16): loss {out['loss']} = {out['loss_plain']}, "
+        f"{out['grads_bitwise']} of {len(names)} grads bitwise (the others "
+        f"within two plain runs' spread: {nondet}); forward + backward "
+        f"{out['step_ms']:.1f} ms vs {out['step_ms_plain']:.1f} ms without; "
+        f"launches {out['launches']}; {args.card}")
+    return out
+
+
 def pp_launches(mesh, key):
     """One kernel's launches a step by rank on the dp2 x pp2 legs."""
     return {f"pp2_dp2_{sched}_by_rank": [
@@ -2616,6 +2976,7 @@ def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
                       f"int8 wire / logical {share:.4f} > "
                       f"{INT8_WIRE_SHARE}")
     pp_res, axis4 = phase_mesh_pp(torch, args, root, backend)
+    slice12 = phase_ckpt_moe(torch, args, root, backend)
     r0 = sep_tp[0]
     mesh = {
         "backend": MESH_LABEL[backend], "claim": "none: a smoke run "
@@ -2679,6 +3040,8 @@ def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
                             for res in pp_res]}
             for sched in ("gpipe", "1f1b_compact")},
         "axis4": axis4,
+        "ckpt_dp_mp": slice12["ckpt_dp_mp"], "moe_ep": slice12["moe_ep"],
+        "ckpt_moe_phase_s": slice12["phase_s"],
         "phase_s": time.perf_counter() - t0,
     }
     log(f"mesh ({MESH_LABEL[backend]}): dp2 x mp2 step p50 "
@@ -2735,6 +3098,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_name_and_power(card_id)
+    args.card = card
     kind = torch.cuda.get_device_name(0)
     log(card)
     log(f"device: {kind}; torch {torch.__version__}, CUDA "
@@ -2821,6 +3185,8 @@ def main(argv=None) -> int:
                                 ClipGradByGlobalNorm, AdamW)
     gc.collect()
     torch.cuda.empty_cache()
+    recompute = phase_recompute(torch, args, LlamaConfig, LlamaForCausalLM,
+                                fa)
     mesh = phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM,
                       build_hybrid_train_step, AdamW)
     flash = phase_flash_timing(torch, fa, heads, head_dim)
@@ -2865,7 +3231,14 @@ def main(argv=None) -> int:
                     r_[name.replace("attention_", "")] for r_ in
                     mesh["sep2"][mode]["launches_per_step"]]
                    for mode in ("ring", "ulysses")},
-                **pp_launches(mesh, name.replace("attention_", ""))},
+                **pp_launches(mesh, name.replace("attention_", "")),
+                "ckpt_dp_mp_each_rank": mesh["ckpt_dp_mp"][
+                    "launches_per_step"][name.replace("attention_", "")]},
+            "recompute_launches": {
+                "recompute": recompute["launches"][
+                    name.replace("attention_", "")],
+                "plain": recompute["launches_plain"][
+                    name.replace("attention_", "")]},
             "entry_points": "flash_attention (sdpa), flash_attention_lse "
                             "(ring attention)",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2914,7 +3287,9 @@ def main(argv=None) -> int:
             "mesh_launches_per_step": {
                 "dp2_mp2_each_rank": mesh["dp2_mp2"]["launches_per_step"][
                     name.replace("_finite", "")],
-                **pp_launches(mesh, name.replace("_finite", ""))},
+                **pp_launches(mesh, name.replace("_finite", "")),
+                "ckpt_dp_mp_each_rank": mesh["ckpt_dp_mp"][
+                    "launches_per_step"][name.replace("_finite", "")]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2937,11 +3312,12 @@ def main(argv=None) -> int:
                        "decode_profile": profile, "training": training,
                        "spec": spec, "prefix": prefix, "chunked": chunked,
                        "gateway": gateway, "mesh": mesh,
-                       **kernels}, f, indent=1)
+                       "recompute": recompute, **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_fused": training_fused}))
     log(json.dumps({"trainstep": trainstep}))
+    log(json.dumps({"recompute": recompute}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))

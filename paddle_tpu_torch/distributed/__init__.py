@@ -3,13 +3,16 @@
 Ported so far: the environment (``init_parallel_env``, ``ParallelEnv``,
 ``spawn``), ``shard_batch`` and ``DataParallel``, Paddle's collective API
 over the mesh's process groups (``collective``), the quantized,
-accounted comms layer (``comms``), the fleet facade with its topology,
-strategy, tensor-parallel, pipeline and ZeRO layers (``fleet``) and
-fault injection (``chaos``). Checkpoints, the store, rpc, the supervisor,
-``fleet.recompute`` / ``util`` / ``moe`` and the auto-parallel API wait
-for later slices (ROADMAP.md).
+accounted comms layer (``comms``), the fleet (``fleet``: the facade, its
+topology and strategy, the tensor-parallel, pipeline and ZeRO layers,
+``recompute``, the RNG tracker, MoE over an ep axis and the utilities),
+the ``sharding`` facade, sharded checkpoints (``checkpoint``) and their
+durable generations (``CheckpointManager``), and crash and fault
+injection (``chaos``). The store, rpc, reshard, the supervisor, launch,
+io and the auto-parallel API wait for later slices (ROADMAP.md).
 """
 from . import chaos  # noqa: F401
+from . import checkpoint  # noqa: F401
 from . import comms  # noqa: F401
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
@@ -22,7 +25,11 @@ from .collective import (  # noqa: F401
 from .env import (  # noqa: F401
     ParallelEnv, get_rank, get_world_size, init_parallel_env, is_initialized,
 )
-from .fleet.meta_parallel.sharding_optimizer import (  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    CheckpointCorruptionError, load_state_dict, save_state_dict,
+)
+from .ckpt_manager import CheckpointManager  # noqa: F401
+from .sharding import (  # noqa: F401
     group_sharded_parallel, save_group_sharded_model,
 )
 from .fleet.topology import ParallelMode  # noqa: F401

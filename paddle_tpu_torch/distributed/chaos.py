@@ -1,8 +1,21 @@
-"""Fault injection at named sites (chaos harness).
+"""Crash points and fault injection at named sites (chaos harness).
 
-Counterpart of ``paddle_tpu/distributed/chaos.py``'s ``faultpoint()`` half.
-A registered fault site sits on a hot path and can be armed through the
-environment with one of four modes:
+Counterpart of ``paddle_tpu/distributed/chaos.py``. Every dangerous window
+of the checkpoint save path is a named crash site
+(``crashpoint("ckpt.shard_tmp_written")``) that a test arms through the
+environment:
+
+    PT_CRASHPOINT=ckpt.shard_tmp_written   # die the first time this site
+                                           # is reached
+    PT_CRASHPOINT_HITS=2                   # ... or only on the 2nd hit
+
+An armed crash point kills the process with SIGKILL: no atexit handlers,
+no flushing, no cleanup, as a preemption or an OOM kill. Sites register
+themselves at import (``register``), so the crash matrix enumerates them
+with ``registered_sites(prefix)``.
+
+A registered fault site sits on a blocking primitive's hot path and can
+be armed with one of four modes:
 
     PT_FAULTPOINT=engine.pressure      # the armed site
     PT_FAULTPOINT_MODE=delay:2.5       # crash | delay:<secs> | error | drop
@@ -18,8 +31,41 @@ import os
 import signal
 import time
 
-__all__ = ["FaultInjected", "FaultDrop", "register_fault", "faultpoint",
-           "reset_hits"]
+__all__ = ["register", "registered_sites", "describe", "crashpoint",
+           "FaultInjected", "FaultDrop", "register_fault", "fault_sites",
+           "describe_fault", "faultpoint", "reset_hits"]
+
+# crash site name -> short description of the window it guards
+_REGISTRY: dict[str, str] = {}
+_hits: dict[str, int] = {}
+
+
+def register(site: str, description: str = "") -> str:
+    """Declare a crash site (idempotent); returns the site name."""
+    _REGISTRY.setdefault(site, description)
+    return site
+
+
+def registered_sites(prefix: str = "") -> list[str]:
+    """Every declared crash site starting with ``prefix``, sorted."""
+    return sorted(s for s in _REGISTRY if s.startswith(prefix))
+
+
+def describe(site: str) -> str:
+    return _REGISTRY.get(site, "")
+
+
+def crashpoint(site: str) -> None:
+    """Die here (SIGKILL) iff this site is armed via PT_CRASHPOINT, on the
+    PT_CRASHPOINT_HITS-th time it is reached (default the first)."""
+    if site not in _REGISTRY:
+        register(site)
+    if os.environ.get("PT_CRASHPOINT") != site:
+        return
+    _hits[site] = _hits.get(site, 0) + 1
+    if _hits[site] < int(os.environ.get("PT_CRASHPOINT_HITS", "1") or 1):
+        return
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 class FaultInjected(RuntimeError):
@@ -49,8 +95,18 @@ def register_fault(site: str, description: str = "") -> str:
     return site
 
 
+def fault_sites(prefix: str = "") -> list[str]:
+    """Every declared fault site starting with ``prefix``, sorted."""
+    return sorted(s for s in _FAULTS if s.startswith(prefix))
+
+
+def describe_fault(site: str) -> str:
+    return _FAULTS.get(site, "")
+
+
 def reset_hits() -> None:
     """Forget hit counts (tests that arm several sites in one process)."""
+    _hits.clear()
     _fault_hits.clear()
 
 

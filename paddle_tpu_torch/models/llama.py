@@ -33,6 +33,7 @@ from ..distributed.fleet.meta_parallel.mp_layers import (
     RowParallelLinear, ScatterOp, VocabParallelEmbedding, copy_to_mp,
     gather_from_mp, mark_as_sequence_parallel_parameter, mp_degree,
     reduce_from_mp)
+from ..distributed.fleet.recompute import recompute
 from ..jit.capture import capture_step
 from ..nn import functional as F
 from ..nn.clip import ClipGradByGlobalNorm
@@ -42,7 +43,7 @@ from ..ops.kernels.fused_ce import fused_linear_cross_entropy
 from ..ops.kernels.multi_tensor import multi_tensor_sumsq_finite
 from ..parallel import mesh as mesh_mod
 from ..parallel.context_parallel import sdpa_context_parallel
-from ..parallel.trainer import LossSum
+from ..parallel.trainer import LossSum, param_value
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "load_paddle_tpu_state",
@@ -254,9 +255,9 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    """The decoder stack. ``config.recompute`` checkpoints each layer of the
-    cache-free forward (``torch.utils.checkpoint``, as the reference's
-    ``recompute``, llama.py:272-274). Over a mesh: the layers are
+    """The decoder stack. ``config.recompute`` runs each layer of the
+    cache-free forward through the fleet's ``recompute`` (as the reference
+    does, llama.py:272-274). Over a mesh: the layers are
     tensor-parallel over mp; ``sequence_parallel`` keeps the activations
     between blocks split along the sequence over mp (Megatron-SP, JAX
     llama.py:232-244); ``context_parallel`` ("ring" or "ulysses") runs
@@ -299,7 +300,7 @@ class LlamaModel(nn.Module):
             off = self.cp_offset(input_ids.shape[1])
             for layer in self.layers:
                 if self.config.recompute and torch.is_grad_enabled():
-                    x = checkpoint(layer, x, off, use_reentrant=False)
+                    x = recompute(layer, x, off)
                 else:
                     x = layer(x, off)
         else:
@@ -590,21 +591,25 @@ def load_paddle_tpu_state(model: nn.Module,
 def paddle_tpu_state(model: nn.Module) -> Dict[str, np.ndarray]:
     """The other direction of ``load_paddle_tpu_state``: the model's
     parameters as ``{name: np.ndarray}`` in float32, keyed as the JAX
-    model's ``named_parameters()``. A layer that a pipeline stage holds
-    (``pp_stage``, set by ``build_hybrid_train_step`` on a pp mesh) is
-    broadcast from its owner over pp, and a tensor-parallel parameter is
+    model's ``named_parameters()``: the values the train step holds now,
+    with or without its ``write_back()``. A layer that a pipeline stage
+    holds (``pp_stage``, set by ``build_hybrid_train_step`` on a pp mesh)
+    is read from the stage's stacked tensor and broadcast from its owner
+    over pp, a parameter that ZeRO stage 3 released between steps is
+    gathered from its slices, and a tensor-parallel parameter is
     all-gathered over mp, so every rank of the mesh must call this."""
     out = {}
     mesh = getattr(model, "mesh", None)
+    cache = {}
     for n, p in model.named_parameters():
-        t = _pp_param(p, mesh)
+        t = _pp_param(p, mesh, cache)
         split = getattr(p, "split_axis", None)
         if split is not None:
             parts = comms.wire_all_gather(t.contiguous(), "mp", exact=True,
                                           mesh=mesh,
                                           owner="llama.paddle_tpu_state")
             t = torch.cat(parts.unbind(0), dim=split)
-        out[n] = t.float().cpu().numpy()
+        out[n] = t.float().cpu().numpy().copy()   # never a view of p
     return out
 
 
@@ -722,7 +727,11 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     The step trains in place: the model's parameters (or the stacked
     stage tensors they view) are the fp32 masters; ``step.write_back()``
     makes the model whole (the pp ranks' layers, ZeRO stage 3's slices)
-    and returns it. ``step.state`` holds ``params`` (name -> trained
+    and returns it. Between steps, ``paddle_tpu_state(model)`` reads the
+    step's current values with or without ``write_back()`` (it gathers
+    released ZeRO-3 parameters and reads pp layers from their stacked
+    tensors); the model's own tensors of other stages and of ZeRO stage 3
+    are released after every step, never left stale. ``step.state`` holds ``params`` (name -> trained
     tensor), ``opt`` (name -> moments), ``step``, ``zero`` (the
     ``ZeroShards`` or None) and ``pipeline`` (the last step's
     ``pipeline_info()``).
@@ -770,7 +779,7 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
     from ..distributed.parallel import shard_batch
     from ..parallel.pipeline import (pipeline_info, spmd_pipeline,
                                      spmd_pipeline_1f1b)
-    from ..parallel.trainer import (ZeroShards, param_spec,
+    from ..parallel.trainer import (ZeroShards, annotate_layouts, param_spec,
                                     split_global_sumsq, zero_config)
 
     params = dict(model.named_parameters())
@@ -827,10 +836,15 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
                 ("pp",) + (("mp",) if split is not None else ()),
                 getattr(t0, "sequence_parallel", False))
             # the model's layers view the stage's tensors; the other
-            # stages' layers are released (write_back gathers them)
+            # stages' layers are released (write_back gathers them); a
+            # read of a layer goes to its rows of the stacked tensor
             for j, q in enumerate(lp):
                 q.pp_stage = _layer_owner(j, L, pp, schedule, n_virtual)
                 q.pp_shape = tuple(q.shape)
+            for c, ch in enumerate(chunks):
+                for j, li in enumerate(ch):
+                    lp[li].pp_src = (stacked[bn], (c, j) if schedule == "vpp"
+                                     else (j,))
         _view_stage(layers, block_names, stacked, chunks, schedule, own)
 
     zaxis, zstage = zero_config(optimizer, mesh)
@@ -843,6 +857,10 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         _view_stage(layers, block_names, stacked, chunks, schedule, set())
     states = [base_opt._init_state(zero.state_like(k) if zero is not None
                                    else t) for k, t in enumerate(tensors)]
+    if zero is not None:
+        zero.annotate(states)
+    elif big:
+        annotate_layouts(tensors, layouts, states, mesh)
     state = {"params": dict(zip(names, tensors)),
              "opt": dict(zip(names, states)), "step": 0, "zero": zero,
              "pipeline": {}}
@@ -1053,6 +1071,13 @@ def build_hybrid_train_step(model: LlamaForCausalLM, optimizer, mesh=None,
         else:
             base_opt._multi_update(tensors, grads, states, lr, state["step"],
                                    clip_scale=scale)
+        if pp > 1:
+            # drop write_back's copies: this stage's layers view the
+            # trained stacked tensors again (released at stage 3), the
+            # others are released; reads go through paddle_tpu_state
+            _view_stage(layers, block_names, stacked, chunks, schedule,
+                        set() if zero is not None and zero.stage >= 3
+                        else {j for ch in chunks for j in ch})
         return total
 
     def write_back():
@@ -1078,6 +1103,8 @@ def _view_stage(layers, block_names, stacked, chunks, schedule, own) -> None:
     tensors; release the other stages' layers."""
     for c, ch in enumerate(chunks):
         for j, li in enumerate(ch):
+            if li not in own:
+                continue
             ps = dict(layers[li].named_parameters())
             for bn in block_names:
                 t = stacked[bn]
@@ -1089,15 +1116,29 @@ def _view_stage(layers, block_names, stacked, chunks, schedule, own) -> None:
                 q.data = torch.empty(0, dtype=q.dtype, device=q.device)
 
 
-def _pp_param(p, mesh) -> torch.Tensor:
+def _own_value(p, cache: dict) -> torch.Tensor:
+    """``p``'s current value on a rank that holds it: a pipeline stage's
+    layer is its rows of the stacked tensor (``pp_src``), and a tensor
+    that ZeRO stage 3 released is gathered from its slices (collective
+    over the ZeRO axis; ``cache`` keeps one gather per stacked tensor)."""
+    src = getattr(p, "pp_src", None)
+    if src is None:
+        return param_value(p)
+    base, idx = src
+    if id(base) not in cache:
+        cache[id(base)] = param_value(base)
+    return cache[id(base)][idx]
+
+
+def _pp_param(p, mesh, cache: dict) -> torch.Tensor:
     """``p``'s value on this rank: a layer a pipeline stage holds
     (``pp_stage``) is broadcast from its owner over pp (collective)."""
     owner = getattr(p, "pp_stage", None)
     if owner is None or mesh_mod.mesh_axis_size("pp", mesh) <= 1:
-        return p.detach()
+        return _own_value(p, cache)
     mine = mesh_mod.axis_index("pp", mesh) == owner
-    src = p.detach() if mine else torch.empty(p.pp_shape, dtype=p.dtype,
-                                              device=p.device)
+    src = _own_value(p, cache) if mine else torch.empty(
+        p.pp_shape, dtype=p.dtype, device=p.device)
     return comms.wire_broadcast(src.contiguous(), owner, "pp", mesh=mesh,
                                 owner="llama.pp_gather")
 
@@ -1105,6 +1146,7 @@ def _pp_param(p, mesh) -> torch.Tensor:
 def _gather_pp_layers(model, mesh) -> None:
     """Every pp-held parameter from its owner (collective over pp; every
     rank walks the same parameters in the same order)."""
+    cache = {}
     for _, p in model.named_parameters():
         if getattr(p, "pp_stage", None) is not None:
-            p.data = _pp_param(p, mesh)
+            p.data = _pp_param(p, mesh, cache)

@@ -1,7 +1,7 @@
 """The functionals the LLaMA serving and training paths run.
 
 Counterparts of ``paddle_tpu/nn/functional/{norm,activation,common,
-attention,loss}.py``: ``rms_norm``, ``silu``, ``linear`` (weights in
+attention,loss}.py``: ``rms_norm``, ``silu``, ``gelu``, ``linear`` (weights in
 Paddle's ``[in, out]`` layout, ``y = x @ W``), ``embedding``;
 ``scaled_dot_product_attention`` (flash attention without a mask, the
 plain ``sdpa_ref`` with one), ``sdp_attention_ref`` and the Paddle
@@ -16,7 +16,7 @@ import torch
 
 from ..ops.kernels.flash_attention import flash_attention as _flash
 
-__all__ = ["rms_norm", "silu", "linear", "embedding", "sdpa_ref",
+__all__ = ["rms_norm", "silu", "gelu", "linear", "embedding", "sdpa_ref",
            "sdp_attention_ref", "scaled_dot_product_attention",
            "flash_attention", "cross_entropy"]
 
@@ -38,6 +38,13 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
 
 def silu(x: torch.Tensor, name=None) -> torch.Tensor:
     return torch.nn.functional.silu(x)
+
+
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """GELU: exact (erf) by default, the tanh form with ``approximate``
+    (activation.py:67)."""
+    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
+                                    else "none")
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

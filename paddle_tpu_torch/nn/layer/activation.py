@@ -1,0 +1,17 @@
+"""``GELU`` (counterpart of ``paddle_tpu/nn/layer/activation.py:39``)."""
+from __future__ import annotations
+
+from torch import nn
+
+from .. import functional as F
+
+__all__ = ["GELU"]
+
+
+class GELU(nn.Module):
+    def __init__(self, approximate=False, name=None):
+        super().__init__()
+        self.approximate = approximate
+
+    def forward(self, x):
+        return F.gelu(x, approximate=self.approximate)

@@ -56,7 +56,9 @@ it (:249-257): params keep their own spec, the batch is split over
 each rank holds the slice ``_zero_state_spec`` gives of every state leaf
 and updates its slice of the parameter (``ZeroShards``); stage 2
 reduce-scatters the grads over a dp ZeRO axis; stage 3 keeps the params
-sharded between steps (``write_back()`` makes them whole). ``reshard``,
+sharded between steps: the model's parameters are released, and a read
+through ``param_value`` (``paddle_tpu_state``, a checkpoint) gathers or
+takes the slices (``write_back()`` makes them whole). ``reshard``,
 ``lower_text`` and ``memory_stats`` wait for later slices (ROADMAP.md
 Queue 1) and raise ``NotInThisSlice``.
 """
@@ -75,7 +77,7 @@ from ..ops.kernels.multi_tensor import multi_tensor_sumsq_finite
 from . import mesh as mesh_mod
 
 __all__ = ["TrainStep", "compile_train_step", "LossSum", "MAX_LOSS_SCALE",
-           "ZeroShards"]
+           "ZeroShards", "param_value"]
 
 # Dynamic loss scaling never grows past this: with tiny gradients the
 # overflow signal that normally bounds growth never fires, and a scale
@@ -179,6 +181,15 @@ def param_spec(p, mesh=None) -> tuple:
     return tuple(spec)
 
 
+def _global_shape(p, mp: int) -> tuple:
+    """A parameter's global shape: its ``split_axis`` dim times mp."""
+    shape = list(p.shape)
+    split = getattr(p, "split_axis", None)
+    if split is not None:
+        shape[split] *= mp
+    return tuple(shape)
+
+
 class ZeroShards:
     """ZeRO over one mesh axis for a list of trained tensors.
 
@@ -206,7 +217,8 @@ class ZeroShards:
         self.axis, self.stage, self.mesh = axis, int(stage), mesh
         self.n = mesh.shape[axis]
         self.r = mesh.coords[axis]
-        self.dims = []
+        self.layouts = list(layouts)
+        self.dims, self.state_specs = [], []
         for t, (gshape, spec, local) in zip(self.tensors, layouts):
             zspec = _zero_state_spec(spec, gshape, axis, mesh)
             gd = next((i for i, s in enumerate(zspec)
@@ -216,11 +228,19 @@ class ZeroShards:
             if d is not None and t.shape[d] % self.n:
                 d = None
             self.dims.append(d)
+            self.state_specs.append(tuple(spec) if d is None else zspec)
         self.slices = [None] * len(self.tensors)
         if self.stage >= 3:
+            from ..distributed.checkpoint import set_layout
             for k, (t, d) in enumerate(zip(self.tensors, self.dims)):
                 if d is not None:
                     self.slices[k] = self._slice(t.detach(), k).clone()
+                    set_layout(self.slices[k], self.layouts[k][0],
+                               self.state_specs[k], mesh)
+                    # the slice is the master: a checkpoint saves and
+                    # loads it, and param_value gathers from it
+                    t.zero_master = self.slices[k]
+                    t.zero_ref = (self, k)
             self.release()
 
     def _slice(self, t, k):
@@ -261,12 +281,29 @@ class ZeroShards:
             self.tensors[k].data = full
 
     def release(self) -> None:
+        """Drop the full parameters (stage 3). Reading one between steps
+        goes through ``param_value``, which gathers it from the slices."""
         if self.stage < 3:
             return
         for k, d in enumerate(self.dims):
             if d is not None:
                 t = self.tensors[k]
                 t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+
+    def full(self, k) -> torch.Tensor:
+        """Tensor k's current full value, all-gathered from the slices at
+        stage 3 (collective over the ZeRO axis), else the tensor itself."""
+        if self.slices[k] is None:
+            return self.tensors[k].detach()
+        return self._all_gather([self.slices[k]], [k])[0]
+
+    def annotate(self, states) -> None:
+        """Tag every tensor and its state leaves with their place in the
+        global arrays (``checkpoint.set_layout``): tensor k is its layout's
+        block, and its state leaves (and its stage-3 slice) the block the
+        ZeRO spec gives."""
+        annotate_layouts(self.tensors, self.layouts, states, self.mesh,
+                         self.state_specs)
 
     # ---- the step ----
     def sync_grads(self, grads, data_axes, op: str, owner: str):
@@ -365,6 +402,32 @@ class ZeroShards:
     def state_bytes(self, states) -> int:
         return sum(v.numel() * v.element_size() for st in states
                    for v in st.values() if isinstance(v, torch.Tensor))
+
+
+def annotate_layouts(tensors, layouts, states, mesh,
+                     state_specs=None) -> None:
+    """Tag tensors (``layouts[k]``: global shape, spec, local dims) and
+    their parameter-shaped state leaves with their global layout for the
+    checkpoint; ``state_specs[k]`` overrides the states' spec (ZeRO)."""
+    from ..distributed.checkpoint import set_layout
+    for k, (t, (gshape, spec, _)) in enumerate(zip(tensors, layouts)):
+        if t.numel():
+            set_layout(t, gshape, spec, mesh)
+        sspec = spec if state_specs is None else state_specs[k]
+        for v in states[k].values():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                set_layout(v, gshape, sspec, mesh)
+
+
+def param_value(p: torch.Tensor) -> torch.Tensor:
+    """``p``'s current value: a parameter that ZeRO stage 3 released
+    between steps is all-gathered from its slices (collective over the
+    ZeRO axis: every rank of it must call this for the same parameter)."""
+    ref = getattr(p, "zero_ref", None)
+    if ref is not None and p.numel() == 0:
+        zs, k = ref
+        return zs.full(k)
+    return p.detach()
 
 
 def split_global_sumsq(sums: torch.Tensor, axes, mesh) -> torch.Tensor:
@@ -481,20 +544,20 @@ class TrainStep:
         zaxis, zstage = zero_config(optimizer, mesh)
         self._zero = None
         if zstage:
-            layouts = []
-            for p in self._params:
-                gshape = list(p.shape)
-                split = getattr(p, "split_axis", None)
-                if split is not None:
-                    gshape[split] *= self._mp
-                layouts.append((tuple(gshape), param_spec(p, mesh),
-                                list(range(p.dim()))))
+            layouts = [(_global_shape(p, self._mp), param_spec(p, mesh),
+                        list(range(p.dim()))) for p in self._params]
             self._zero = ZeroShards(self._params, layouts, zaxis, zstage,
                                     mesh)
             self._opt_state = [base_opt._init_state(self._zero.state_like(k))
                                for k in range(len(self._params))]
+            self._zero.annotate(self._opt_state)
         else:
             self._opt_state = [base_opt._init_state(p) for p in self._params]
+            if big:
+                annotate_layouts(self._params, [
+                    (_global_shape(p, self._mp), param_spec(p, mesh),
+                     list(range(p.dim()))) for p in self._params],
+                    self._opt_state, mesh)
         # the axes each grad is split over, for the global-norm clip
         zsplit = self._zero is not None and self._zero.stage >= 2
         self._split_axes = [
@@ -659,7 +722,9 @@ class TrainStep:
 
     def write_back(self):
         """Make every parameter whole in the model (ZeRO stage 3 keeps
-        only this rank's slice between steps); returns the model."""
+        only this rank's slice between steps: ``param_value``, and so
+        ``paddle_tpu_state``, gathers it on read without this); returns
+        the model."""
         if self._zero is not None:
             self._zero.gather()
         return self.model

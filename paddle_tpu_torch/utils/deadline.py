@@ -16,8 +16,8 @@ import socket
 import time
 
 __all__ = ["DeadlineExceeded", "RequestTimeout", "EngineOverloaded",
-           "CommTimeout", "Deadline", "set_incident_hook", "recv_exact", "env_timeout",
-           "env_int"]
+           "CommTimeout", "CheckpointTimeout", "Deadline", "set_incident_hook",
+           "recv_exact", "join_bounded", "env_timeout", "env_int"]
 
 # flight-recorder hook (observability/__init__ installs trace's
 # record_incident): every DeadlineExceeded construction passes the new
@@ -80,6 +80,14 @@ class CommTimeout(DeadlineExceeded):
     mid-collective. The message names the owner and the site."""
 
 
+class CheckpointTimeout(DeadlineExceeded):
+    """A sharded generation commit ran out of budget: a staging owner died
+    (or wedged) before its receipt landed, or the COMMIT marker never
+    appeared within the committer's bound (distributed/ckpt_manager.py).
+    The generation stays uncommitted — readers keep resolving the previous
+    committed one, and GC reaps the partial stage."""
+
+
 class Deadline:
     """One time budget shared across the steps of a blocking operation;
     ``Deadline(None)`` never expires."""
@@ -112,6 +120,11 @@ class Deadline:
             raise exc(what or self.what or "blocking operation",
                       self.timeout, detail)
 
+    def sleep(self, secs: float) -> None:
+        """Sleep at most ``secs``, never past the deadline."""
+        rem = self.remaining()
+        time.sleep(secs if rem is None else min(secs, rem))
+
 
 def recv_exact(sock, n: int, dl: Deadline | None = None,
                closed_exc: type = ConnectionError,
@@ -132,6 +145,20 @@ def recv_exact(sock, n: int, dl: Deadline | None = None,
             raise closed_exc(what)
         buf += chunk
     return buf
+
+
+def join_bounded(thread, what: str, env: str = "PT_CKPT_WAIT_TIMEOUT",
+                 default: float = 600.0) -> None:
+    """Join a worker thread under an env-tunable budget; a thread still
+    alive at expiry raises the typed DeadlineExceeded (a writer wedged on
+    dead storage must not block its caller forever). Shared by the two
+    async-checkpoint wait() paths."""
+    budget = env_timeout(env, default)
+    thread.join(timeout=budget)
+    if thread.is_alive():
+        raise DeadlineExceeded(
+            what, budget,
+            detail="worker thread still running — wedged storage?")
 
 
 def env_timeout(name: str, default: float) -> float:

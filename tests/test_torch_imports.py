@@ -1,10 +1,11 @@
 """The PyTorch port stands apart from JAX and from the JAX package.
 
 - With ``jax`` blocked, the port's packages import and load no
-  ``paddle_tpu`` module (a subprocess: conftest has already imported
-  ``paddle_tpu`` in this process).
+  ``paddle_tpu`` or ``ml_dtypes`` module (a subprocess: conftest has
+  already imported ``paddle_tpu`` in this process).
 - No file of the port, and not ``chip_smoke.py`` or the ranks' helper
-  ``tests/torch_dist.py``, imports ``jax`` or a ``paddle_tpu`` module.
+  ``tests/torch_dist.py``, imports ``jax``, ``ml_dtypes`` or a
+  ``paddle_tpu`` module.
 - The entry points run on the card by default and raise without CUDA
   rather than carry on quietly on the CPU; ``chip_smoke.py`` fails
   without a card and prints no result.
@@ -71,11 +72,23 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.distributed.fleet.meta_parallel"
         ".sharding_optimizer\n"
         "import paddle_tpu_torch.distributed.parallel\n"
+        "import paddle_tpu_torch.core.generator\n"
+        "import paddle_tpu_torch.distributed.fleet.recompute\n"
+        "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+        ".random_state\n"
+        "import paddle_tpu_torch.distributed.fleet.moe\n"
+        "import paddle_tpu_torch.distributed.fleet.util\n"
+        "import paddle_tpu_torch.distributed.fleet.utils\n"
+        "import paddle_tpu_torch.distributed.sharding\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.distributed.ckpt_manager\n"
+        "import paddle_tpu_torch.nn.layer\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
         "             None and (m == 'paddle_tpu' or m.startswith(\n"
-        "             'paddle_tpu.') or m.split('.')[0] == 'jax'))\n"
+        "             'paddle_tpu.') or m.split('.')[0] in ('jax',\n"
+        "             'ml_dtypes')))\n"
         "print('LOADED', bad)\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
@@ -83,7 +96,8 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+paddle_tpu(?!_torch)\b|"
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ml_dtypes\b|"
+    r"from\s+ml_dtypes\b|import\s+paddle_tpu(?!_torch)\b|"
     r"from\s+paddle_tpu(?!_torch)\b|from\s+\.\.+\s*import\s+paddle_tpu\b)",
     re.MULTILINE)
 

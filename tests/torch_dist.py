@@ -370,16 +370,15 @@ def _cp(payload):
     return out
 
 
-def _hybrid_run(cfg_d):
-    """One configuration of ``build_hybrid_train_step`` / ``TrainStep`` on
-    its mesh: per-step losses and (gathered) final parameters."""
+def _build_step(cfg_d):
+    """(model, step, mesh) of one configuration of
+    ``build_hybrid_train_step`` / ``TrainStep`` on its mesh, from the
+    payload's weights."""
     from paddle_tpu_torch import optimizer as popt
     from paddle_tpu_torch.amp import GradScaler
-    from paddle_tpu_torch.distributed import comms
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          build_hybrid_train_step,
                                          load_paddle_tpu_state)
-    from paddle_tpu_torch.models.llama import paddle_tpu_state
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.parallel import compile_train_step
     from paddle_tpu_torch.parallel import mesh as mesh_mod
@@ -412,6 +411,15 @@ def _hybrid_run(cfg_d):
             model, lambda mdl, b: loss(mdl, b["input_ids"], b["labels"]),
             opt, mesh=mesh, scaler=scaler,
             accumulate_steps=cfg_d.get("accumulate", 1))
+    return model, step, mesh
+
+
+def _hybrid_run(cfg_d):
+    """One configuration of ``build_hybrid_train_step`` / ``TrainStep`` on
+    its mesh: per-step losses and (gathered) final parameters."""
+    from paddle_tpu_torch.distributed import comms
+    from paddle_tpu_torch.models.llama import paddle_tpu_state
+    model, step, mesh = _build_step(cfg_d)
     losses = []
     comms.comm_clear()
     for ids, labels in cfg_d["batches"]:
@@ -691,8 +699,139 @@ def _cp_direct(payload):
     return out
 
 
+def _zero_reads(payload):
+    """ZeRO stage 3 between steps: ``paddle_tpu_state`` read after the
+    last step with no ``write_back()`` ("before"), then after it
+    ("after"); ``write_back_first`` calls ``write_back()`` after the first
+    step too (its copies must not go stale)."""
+    from paddle_tpu_torch.models.llama import paddle_tpu_state
+    out = {}
+    for c in payload["configs"]:
+        model, step, mesh = _build_step(c)
+        losses = []
+        for i, (ids, labels) in enumerate(c["batches"]):
+            losses.append(float(step({"input_ids": ids, "labels": labels})))
+            if i == 0 and c.get("write_back_first"):
+                step.write_back()
+        before = paddle_tpu_state(model)
+        step.write_back()
+        after = paddle_tpu_state(model)
+        out[c["name"]] = {"losses": losses,
+                          "before": before if mesh.rank == 0 else None,
+                          "after": after if mesh.rank == 0 else None}
+    return out
+
+
+def _bricks_np(step):
+    from paddle_tpu_torch.distributed import checkpoint
+    bricks, _ = checkpoint.shard_bricks(step.state)
+    return {k: np.asarray(v).tobytes() for k, v in bricks.items()}
+
+
+def _ckpt_hybrid(payload):
+    """dp2 x mp2 ZeRO-1 hybrid step: ``save`` steps, a sharded generation
+    of ``step.state`` (one owner a rank), then the rest; a fresh step from
+    other weights restores the generation and takes the rest again."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import CheckpointManager, checkpoint
+    from paddle_tpu_torch.models.llama import paddle_tpu_state
+    cfg = payload["config"]
+    k = payload["save"]
+    model, step, mesh = _build_step(cfg)
+    batches = [{"input_ids": i, "labels": lab} for i, lab in cfg["batches"]]
+    losses = [float(step(b)) for b in batches[:k]]
+    mgr = CheckpointManager(payload["root"], keep_last_k=2)
+    owners = [f"rank{r}" for r in range(tdist.get_world_size())]
+    saved = _bricks_np(step)
+    bricks, meta = checkpoint.shard_bricks(step.state)
+    stats = mgr.save_sharded(k, owners[mesh.rank], owners, bricks, meta)
+    at_save = paddle_tpu_state(step.write_back())
+    losses += [float(step(b)) for b in batches[k:]]
+    # the gather layout: an untagged mp model's parameters (split_axis),
+    # saved by every rank on the writer thread (the barrier's own group)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models import load_paddle_tpu_state
+    plain = LlamaForCausalLM(LlamaConfig(**cfg["config"]), device="cpu",
+                             mesh=mesh)
+    load_paddle_tpu_state(plain, cfg["state"])
+    checkpoint.save_state_dict(dict(plain.named_parameters()),
+                               payload["root"] + "_flat", async_save=True)
+    checkpoint.wait()
+    model2, step2, _ = _build_step(dict(cfg, state=payload["other_state"]))
+    restored_step = mgr.restore(step2.state)
+    restored = _bricks_np(step2)
+    resumed = [float(step2(b)) for b in batches[k:]]
+    return {"losses": losses, "resumed": resumed, "saved": saved,
+            "restored": restored, "step": restored_step,
+            "step_count": step2.state["step"], "bytes": stats["bytes"],
+            "at_save": at_save if mesh.rank == 0 else None,
+            "latest": mgr.latest()}
+
+
+def _moe_ep(payload):
+    """``MoELayer`` over the mesh's ep axis from the JAX layer's weights:
+    output, ``l_aux``, the input's grad, the gate's grad and this rank's
+    experts' grads (keyed by global expert index)."""
+    from paddle_tpu_torch.distributed.fleet import moe
+    out = {}
+    for c in payload["cases"]:
+        layer = moe.MoELayer(c["d"], gate=c["gate"], num_experts=c["E"],
+                             top_k=c["k"], capacity_factor=c["cf"],
+                             d_hidden=c["h"], device="cpu")
+        moe.load_paddle_tpu_state(layer, c["state"])
+        x = _t(c["x"]).requires_grad_(True)
+        y = layer(x)
+        loss = (y * _t(c["cot"])).sum() + c["aux_w"] * layer.l_aux
+        loss.backward()
+        grads = {}
+        for n, p in layer.named_parameters():
+            if n.startswith("experts."):
+                head, idx, rest = n.split(".", 2)
+                n = f"{head}.{int(idx) + layer.expert_offset}.{rest}"
+            grads[n] = _np(p.grad)
+        out[c["name"]] = {"y": _np(y), "l_aux": float(layer.l_aux.detach()),
+                          "dx": _np(x.grad), "grads": grads,
+                          "ep": layer.ep, "offset": layer.expert_offset}
+    return out
+
+
+def _rng_tracker(payload):
+    """Dropout masks on every mp rank: inside the tracker's
+    ``model_parallel_rng`` (the same everywhere), twice in a row (the
+    stream advances), and with the default generator."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        random_state as rs
+    rs.model_parallel_random_seed(payload["seed"], device="cpu")
+    tracker = rs.get_rng_state_tracker()
+    ones = torch.ones(64, 16)
+    with tracker.rng_state():
+        first = torch.nn.functional.dropout(ones, 0.5)
+    with tracker.rng_state():
+        second = torch.nn.functional.dropout(ones, 0.5)
+    plain = torch.nn.functional.dropout(ones, 0.5)
+    return {"first": _np(first), "second": _np(second), "plain": _np(plain)}
+
+
+def _fleet_util(payload):
+    """``UtilBase``'s collectives over the world, and the file shard."""
+    from paddle_tpu_torch.distributed.fleet import util
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    u = util.UtilBase()
+    r = mesh_mod.get_mesh().rank
+    x = np.arange(4, dtype=np.float64) * (r + 1)
+    u.barrier()
+    return {"sum": u.all_reduce(x, "sum"), "max": u.all_reduce(x, "max"),
+            "min": u.all_reduce(x, "min"),
+            "gather": u.all_gather({"rank": r}),
+            "shard": u.get_file_shard([f"f{i}" for i in range(7)])}
+
+
 SCENARIOS = {"mesh": _mesh, "collective": _collective, "comms": _comms,
              "mp_layers": _mp_layers, "tp_ce": _tp_ce, "cp": _cp,
              "hybrid": _hybrid, "finite_skip": _finite_skip,
              "pipeline": _pipeline, "fleet": _fleet,
-             "data_parallel": _data_parallel, "cp_direct": _cp_direct}
+             "data_parallel": _data_parallel, "cp_direct": _cp_direct,
+             "zero_reads": _zero_reads, "ckpt_hybrid": _ckpt_hybrid,
+             "moe_ep": _moe_ep, "rng_tracker": _rng_tracker,
+             "fleet_util": _fleet_util}
