@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out PATH] [--mesh-backend gloo|nccl]
-                          [--mesh-only]
+                          [--mesh-only | --elastic-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -149,12 +149,36 @@ fails:
    ``--mesh-backend nccl --mesh-only`` runs the same phase (and only it,
    after the build) with one card a rank over NCCL, on a machine with 4
    cards; with no arguments the script needs one card.
+14. phase_elastic, durability and elasticity: the script hosts the master
+   ``TCPStore`` (the native host runtime must load: a Python fallback
+   fails) and a c10d store, then starts two worker processes of its own
+   (``--elastic-worker``) that share the card over gloo, each an
+   ``ElasticManager`` and a ``Supervisor`` over a dp2 ``TrainStep`` at
+   llama_7b width cut to ``ELASTIC_LAYERS`` layers (S=2048, B=2 a rank,
+   bf16 autocast, remat, a global-norm clip, AdamW under ZeRO-1), fed a
+   global-order stream of seeded token ids, committing every 2 steps. Two
+   fresh 6-step runs, at the same time (two fleets of two workers, each
+   with its own stores, process groups and generations; their times
+   include each other's load), lose worker b after step 3: by SIGKILL at
+   ``supervisor.detect`` (b's exit code must be -SIGKILL; a rolls back to
+   the last generation and resumes on dp1 within PT_SUPERVISOR_TIMEOUT)
+   and by a coordinated drain (zero replayed steps; the bytes moved
+   through the store equal b's moment shards). a's losses and final state
+   must be bitwise a fresh dp1 step loaded with the state the event handed
+   a (the generation the rollback read; the drained state) and run over
+   the same samples from the same cursor (else within two such runs'
+   spread; the final tensors compared on the card);
+   launches per step and rank exactly K2 2 x layers, K3 and K4 layers, U2
+   1 and U1 2 at dp2 (the finite flag before the sync, the clip after it)
+   and 1 at dp1; each rank holds 1/dp of the Adam state. Generations go
+   under ``build/chip_smoke_elastic`` (free disk checked, deleted after).
+   ``--elastic-only`` runs the build and this phase alone.
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"recompute": ...}``,
-``{"mesh": ...}``,
+``{"mesh": ...}``, ``{"elastic": ...}``,
 ``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
 launches),
 ``{"serving": ...}``, the total run time, the card's
@@ -3055,7 +3079,495 @@ def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
     return mesh
 
 
+# ---------------------------------------------------------------------------
+# phase_elastic: a supervised data-parallel LLaMA job that loses a rank
+# ---------------------------------------------------------------------------
+
+ELASTIC_LAYERS, ELASTIC_SEQ, ELASTIC_BATCH = 1, 2048, 2
+ELASTIC_STEPS, ELASTIC_COMMIT_EVERY, ELASTIC_EVENT_AFTER = 6, 2, 3
+ELASTIC_DIR = os.path.join("build", "chip_smoke_elastic")
+ELASTIC_MIN_FREE_GB = 24
+ELASTIC_BUDGET_S = 120.0          # PT_SUPERVISOR_TIMEOUT, the pg's timeout
+ELASTIC_HB_S, ELASTIC_LEASE_S = 0.25, 1.0
+# the step barrier re-checks the lease roster and the drain counter after
+# each slice of this many seconds: the detection's granularity
+ELASTIC_BARRIER_SLICE_S = 1.0
+ELASTIC_EVENT_LIMIT_S = 420.0     # both workers of one event, then killed
+ELASTIC_PHASE_BUDGET_S = 150.0
+# U1 a step: over dp TrainStep judges the finite flag on the raw grads
+# before the sync and takes the clip's norm from the synced grads
+ELASTIC_LAUNCHES = {
+    2: {"flash_fwd": 2 * ELASTIC_LAYERS, "flash_bwd_dq": ELASTIC_LAYERS,
+        "flash_bwd_dkv": ELASTIC_LAYERS, "multi_tensor_sumsq": 2,
+        "multi_tensor_adam": 1},
+    1: {"flash_fwd": 2 * ELASTIC_LAYERS, "flash_bwd_dq": ELASTIC_LAYERS,
+        "flash_bwd_dkv": ELASTIC_LAYERS, "multi_tensor_sumsq": 1,
+        "multi_tensor_adam": 1}}
+
+
+def elastic_stream(seed):
+    """The global-order stream of token sequences (S + 1 ids each), four
+    shards of 16, from ``seed``."""
+    from paddle_tpu_torch.io import ShardedSampleStream
+    rng = np.random.RandomState(seed + 30)
+    shards = [[rng.randint(0, 32000, ELASTIC_SEQ + 1).astype(np.int64)
+               for _ in range(16)] for _ in range(4)]
+    return ShardedSampleStream(shards, seed=seed)
+
+
+def elastic_build(torch, mesh, seed):
+    """LLaMA at llama_7b width cut to ELASTIC_LAYERS layers, remat
+    (``LlamaConfig.recompute``), AdamW(1e-4) with a global-norm clip under
+    ``DygraphShardingOptimizer`` (ZeRO-1 over dp), in a ``TrainStep``
+    whose loss is the valid-token sum (``LossSum``) under bf16 autocast."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        DygraphShardingOptimizer
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import compile_train_step
+    from paddle_tpu_torch.parallel.trainer import LossSum
+    import torch.nn.functional as F
+    cfg = mesh_config(LlamaConfig, ELASTIC_LAYERS, ELASTIC_SEQ,
+                      recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=seed, mesh=mesh)
+    opt = DygraphShardingOptimizer(AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+
+    def loss_fn(m, batch):
+        with torch.autocast(DEVICE, dtype=torch.bfloat16):
+            logits = m.logits(batch["input_ids"])
+        labels = batch["labels"]
+        return LossSum(F.cross_entropy(logits.float().flatten(0, 1),
+                                       labels.flatten(), reduction="sum"),
+                       (labels != -100).sum())
+    return model, compile_train_step(model, loss_fn, opt, mesh=mesh)
+
+
+def elastic_share(step) -> float:
+    """This rank's optimizer moments over the whole model's."""
+    z = step._zero
+    held = sum(v.numel() for st in step._opt_state for v in st.values()
+               if hasattr(v, "dim") and v.dim() > 0)
+    full = sum(2 * int(np.prod(z.full_shape(k) if z is not None
+                               else tuple(p.shape)))
+               for k, p in enumerate(step._params))
+    return held / full
+
+
+def elastic_batch(torch, rows):
+    ids = torch.from_numpy(np.stack(rows))
+    return {"input_ids": ids[:, :-1].to(DEVICE),
+            "labels": ids[:, 1:].to(DEVICE)}
+
+
+def elastic_tensors(step) -> dict:
+    """A one-rank step's parameters and optimizer state leaves by their
+    ``supervised_state()`` names, as the device tensors themselves."""
+    out = {f"params.{n}": p.detach()
+           for n, p in zip(step._param_names, step._params)}
+    for n, st in zip(step._param_names, step._opt_state):
+        out.update({f"opt.{n}.{leaf}": v for leaf, v in st.items()
+                    if hasattr(v, "dim")})
+    return out
+
+
+def elastic_oracle(torch, mesh_mod, snap, cursor, gen, seed, against):
+    """A fresh dp1 TrainStep (other weights) loaded with the event's state
+    ``snap`` (``reshard`` onto the installed one-rank mesh with every
+    value given), run from step ``gen`` to ELASTIC_STEPS over the global
+    samples from the event's ``cursor``: its losses, and the names of the
+    tensors that are not bitwise those of ``against`` (the survivor's)."""
+    model, step = elastic_build(torch, mesh_mod.get_mesh(), seed + 1)
+    step.reshard(mesh_mod.get_mesh(), state=snap)
+    stream = elastic_stream(seed)
+    stream.load_state_dict(cursor)
+    losses = []
+    for _ in range(int(gen), ELASTIC_STEPS):
+        rows = [stream.sample_at(stream.pos + j)
+                for j in range(ELASTIC_BATCH)]
+        stream.advance(ELASTIC_BATCH)
+        losses.append(float(step(elastic_batch(torch, rows))))
+    mine = elastic_tensors(step)
+    bad = sorted(n for n, t in against.items()
+                 if not torch.equal(t, mine[n]))
+    del model, step, mine
+    release(torch)
+    return losses, bad
+
+
+def elastic_worker(argv) -> int:
+    """One member of the supervised job (a process of its own, so the
+    crash event can SIGKILL it): ``nid root store_port c10d_port event
+    seed``. Records go to ``root/steps_<nid>.jsonl`` as they happen."""
+    nid, root, port, c10d_port, event, seed = (
+        argv[0], argv[1], int(argv[2]), int(argv[3]), argv[4], int(argv[5]))
+    path = os.path.join(root, f"steps_{nid}.jsonl")
+
+    def emit(rec):
+        with open(path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    try:
+        import datetime
+        import torch
+        import torch.distributed as dist
+        from paddle_tpu_torch.distributed import CheckpointManager
+        from paddle_tpu_torch.distributed import reshard as rs
+        from paddle_tpu_torch.distributed.launch.elastic import \
+            ElasticManager
+        from paddle_tpu_torch.distributed.store import TCPStore
+        from paddle_tpu_torch.distributed.supervisor import Supervisor
+        from paddle_tpu_torch.parallel import mesh as mesh_mod
+        from paddle_tpu_torch.utils import native
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if DEVICE == "cuda":
+            torch.cuda.set_device(0)
+        counters = mesh_mods()["counters"]
+        emit({"kind": "start", "native": native.available(),
+              "native_error": native.load_error()})
+        store = TCPStore("127.0.0.1", port)
+        c10d = dist.TCPStore("127.0.0.1", c10d_port, is_master=False,
+                             timeout=datetime.timedelta(
+                                 seconds=ELASTIC_BUDGET_S))
+        elastic = ElasticManager(store, node_id=nid, np_range=(1, 2),
+                                 heartbeat_interval=ELASTIC_HB_S,
+                                 timeout=ELASTIC_LEASE_S)
+        members = elastic.require_np(2, timeout=ELASTIC_BUDGET_S)
+
+        def world(n, rank, epoch):
+            return mesh_mod.elastic_mesh(
+                {"dp": n}, rank, store=c10d, prefix=f"{event}/pg{epoch}",
+                timeout=ELASTIC_BUDGET_S, device=DEVICE, backend="gloo")
+
+        mesh = mesh_mod.reform_world(world(2, sorted(members).index(nid), 0))
+        model, step = elastic_build(torch, mesh, seed)
+        params, views = step.supervised_state()
+        mgr = CheckpointManager(os.path.join(root, "ckpt"), keep_last_k=1)
+        sup = Supervisor(
+            store=store, elastic=elastic, ckpt=mgr, params=params,
+            state=views, stream=elastic_stream(seed),
+            batch_size=ELASTIC_BATCH, train_step=step,
+            train_mesh=lambda n: world(n, sup.rank, sup.epoch),
+            ckpt_every=ELASTIC_COMMIT_EVERY,
+            barrier_timeout=ELASTIC_BARRIER_SLICE_S,
+            churn_probe=ELASTIC_BUDGET_S / 2)
+        sup.bind(2, timeout=ELASTIC_BUDGET_S)
+        emit({"kind": "bound", "t": time.time()})
+        snaps = {}
+
+        def step_fn(state, mine, s):
+            n = len(s.roster)
+            if s.events and s.events[-1]["epoch"] not in snaps:
+                # the oracle's starting point: the state the event handed
+                # the survivor (the generation the rollback read, or the
+                # drained state) and the cursor it resumed from
+                ev = s.events[-1]
+                snaps[ev["epoch"]] = (dict(state), s.stream.state_dict(),
+                                      int(ev["steps"]))
+            window = [s.stream.sample_at(s.stream.pos + j)
+                      for j in range(ELASTIC_BATCH * n)]
+            rows = [w for r in range(n) for w in window[r::n]]
+            for kern in counters.values():
+                kern.launches = 0        # each step is the main path's run
+            t0 = time.perf_counter()
+            loss = float(step(elastic_batch(torch, rows)))
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            emit({"kind": "step", "step": s.steps_done + 1, "loss": loss,
+                  "ms": ms, "n": n, "epoch": s.epoch, "t": time.time(),
+                  "share": elastic_share(step),
+                  "launches": {k: kern.launches
+                               for k, kern in counters.items()}})
+            if event == "drain" and nid == "b" \
+                    and s.steps_done + 1 == ELASTIC_EVENT_AFTER:
+                s.request_stop(leave=True)
+            return views
+
+        final = sup.run(step_fn, ELASTIC_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30 \
+            if DEVICE == "cuda" else 0.0
+        rec = {"kind": "done", "steps_done": sup.steps_done,
+               "roster": sup.roster, "events": sup.events,
+               "reports": rs.reshard_reports(), "peak_gib": peak,
+               "commits": sup.commit_stats}
+        if nid == "a":
+            sup.close()
+            del final, views, sup
+            ev = rec["events"][-1]
+            full, cur, gen = snaps[ev["epoch"]]
+            live = elastic_tensors(step)
+            t_or = time.perf_counter()
+            rec["oracle"] = elastic_oracle(torch, mesh_mod, full, cur, gen,
+                                           seed, live)
+            rec["oracle_s"] = time.perf_counter() - t_or
+            rec["oracle_from_step"] = gen
+            mine = [r["loss"] for r in elastic_records(root, nid)
+                    if r["kind"] == "step" and r["epoch"] == ev["epoch"]]
+            if mine != rec["oracle"][0] or rec["oracle"][1]:
+                # not bitwise: a second oracle run gives the spread
+                rec["oracle2"] = elastic_oracle(torch, mesh_mod, full, cur,
+                                                gen, seed, live)
+            del live, model, step
+            rec["b_moment_bytes"] = sum(
+                int(np.prod(p.shape)) * np.dtype(p.dtype).itemsize // 2
+                for k, p in params.items()
+                if k.startswith("opt.") and "dp" in p.spec)
+        else:
+            sup.close()
+        emit(rec)
+        elastic.stop()
+        store.stop()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — the parent reports it and fails
+        import traceback
+        emit({"kind": "error", "trace": traceback.format_exc()})
+        sys.stdout.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)      # skip teardown, where gloo's threads can abort
+
+
+def elastic_records(root, nid):
+    path = os.path.join(root, f"steps_{nid}.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def elastic_start(args, event):
+    """Start one fresh 6-step run of two workers that loses b: by SIGKILL
+    at ``supervisor.detect`` after step 3 (``crash``) or by
+    ``request_stop(leave=True)`` after step 3 (``drain``); its own master
+    store, c10d store and directory. Returns the run's handles."""
+    import shutil
+    import datetime
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed.store import create_master_store
+    root = os.path.abspath(os.path.join(ELASTIC_DIR, event))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store = create_master_store()
+    c10d = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                         wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=ELASTIC_BUDGET_S))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PT_FAULTPOINT", "PT_CRASHPOINT"))}
+    env.update(PT_SUPERVISOR_TIMEOUT=str(ELASTIC_BUDGET_S),
+               PT_RESHARD_TIMEOUT=str(ELASTIC_BUDGET_S))
+    cmd = [sys.executable, os.path.abspath(__file__)]
+    run = {"event": event, "root": root, "store": store, "c10d": c10d,
+           "procs": {}, "t0": time.perf_counter(), "t_wall0": time.time()}
+    for nid in ("a", "b"):
+        wenv = dict(env)
+        if event == "crash" and nid == "b":
+            wenv.update(PT_FAULTPOINT="supervisor.detect",
+                        PT_FAULTPOINT_MODE="crash", PT_FAULTPOINT_HITS="1",
+                        PT_FAULTPOINT_SKIP=str(ELASTIC_EVENT_AFTER))
+        with open(os.path.join(root, f"worker_{nid}.log"), "wb") as lf:
+            run["procs"][nid] = subprocess.Popen(
+                cmd + ["--elastic-worker", nid, root, str(store.port),
+                       str(c10d.port), event, str(args.seed)],
+                env=wenv, stdout=lf, stderr=subprocess.STDOUT)
+    return run
+
+
+def elastic_wait(runs):
+    """Wait for every worker of ``runs`` (ELASTIC_EVENT_LIMIT_S at most,
+    then kill the late ones), stop the runs' stores; each run's ``wall``
+    is from its start to its last worker's exit."""
+    end = time.monotonic() + ELASTIC_EVENT_LIMIT_S
+    try:
+        while time.monotonic() < end:
+            for run in runs:
+                if "wall" not in run and all(
+                        p.poll() is not None for p in run["procs"].values()):
+                    run["wall"] = time.perf_counter() - run["t0"]
+            if all("wall" in run for run in runs):
+                break
+            time.sleep(0.05)
+    finally:
+        for run in runs:
+            for p in run["procs"].values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(10)
+            run["store"].stop()
+            run.pop("c10d")
+            run.setdefault("wall", time.perf_counter() - run["t0"])
+
+
+def elastic_event(run):
+    """The gates and numbers of one finished run (``elastic_start``);
+    raises if a gate fails."""
+    import signal
+    event, root, procs = run["event"], run["root"], run["procs"]
+    wall, t_wall0 = run["wall"], run["t_wall0"]
+    rcs = {nid: p.returncode for nid, p in procs.items()}
+    recs = {nid: elastic_records(root, nid) for nid in procs}
+
+    def log_tail(nid):
+        with open(os.path.join(root, f"worker_{nid}.log"), "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+    errs = [f"--- {nid} ---\n{r['trace']}" for nid in recs
+            for r in recs[nid] if r["kind"] == "error"]
+    tails = [f"--- {nid}, last records ---\n" + "\n".join(
+        json.dumps(r)[:400] for r in recs[nid][-6:]) for nid in recs]
+    want_b = -signal.SIGKILL if event == "crash" else 0
+    check(not errs and rcs["a"] == 0 and rcs["b"] == want_b,
+          f"elastic {event}: exit codes {rcs} (b must be {want_b})\n"
+          + "\n".join(errs + tails)
+          + f"\n{log_tail('a')}\n{log_tail('b')}")
+    for nid in recs:
+        start = recs[nid][0]
+        check(start["kind"] == "start" and start["native"],
+              f"elastic {event}: {nid} ran the Python store fallback "
+              f"(native runtime: {start.get('native_error')})")
+    done = next(r for r in recs["a"] if r["kind"] == "done")
+    steps_a = [r for r in recs["a"] if r["kind"] == "step"]
+    steps_b = [r for r in recs["b"] if r["kind"] == "step"]
+    ev = done["events"][-1]
+    check(len(done["events"]) == 1 and ev["new_size"] == 1
+          and ev["old_size"] == 2 and done["roster"] == ["a"]
+          and done["steps_done"] == ELASTIC_STEPS,
+          f"elastic {event}: events {done['events']}, roster "
+          f"{done['roster']}, steps {done['steps_done']}")
+    for nid, steps in (("a", steps_a), ("b", steps_b)):
+        for r in steps:
+            want = ELASTIC_LAUNCHES[r["n"]]
+            check(r["launches"] == {**r["launches"], **want},
+                  f"elastic {event}: {nid} step {r['step']} at dp"
+                  f"{r['n']} launched {r['launches']}, want {want}")
+            check(abs(r["share"] - 1.0 / r["n"]) < 1e-9,
+                  f"elastic {event}: {nid} holds {r['share']} of the Adam "
+                  f"state at dp{r['n']}")
+            check(np.isfinite(r["loss"]), f"elastic {event}: loss "
+                                          f"{r['loss']}")
+    before = [r for r in steps_a if r["epoch"] == 0]
+    after = [r for r in steps_a if r["epoch"] >= 1]
+    check(len(before) == ELASTIC_EVENT_AFTER and all(
+        r["n"] == 2 for r in before) and all(r["n"] == 1 for r in after)
+        and [r["step"] for r in after] == list(range(
+            int(ev["steps"]) + 1, ELASTIC_STEPS + 1)),
+        f"elastic {event}: steps {[(r['step'], r['n']) for r in steps_a]}")
+    replayed = len(before) - int(ev["steps"])
+    losses, bad = done["oracle"]
+    got = [r["loss"] for r in after]
+    bitwise = got == losses and not bad
+    spread = within = None
+    if not bitwise:
+        again = done["oracle2"][0]
+        spread = max(abs(x - y) for x, y in zip(losses, again))
+        gap = max(abs(x - y) for x, y in zip(losses, got))
+        within = gap <= spread
+        log(f"elastic {event}: NOT bitwise the oracle (losses {got} vs "
+            f"{losses}, max gap {gap}); two oracle runs differ by {spread}: "
+            f"{'within' if within else 'OUTSIDE'} that spread")
+    reports = [r for r in done["reports"] if r["owner"] == "a"]
+    rep = reports[-1] if reports else None
+    out = {
+        "b_exit": rcs["b"], "wall_s": wall, "cause": ev["cause"],
+        "rung": ev["how"], "generation": ev["generation"],
+        "event_steps": ev["steps"], "replayed_steps": replayed,
+        "detect_latency_s": ev["detect_latency_s"],
+        "downtime_s": ev["downtime_s"],
+        "stall_s": max(b["t"] - a["t"] for a, b in
+                       zip(steps_a, steps_a[1:])),
+        "bytes_moved": ev["bytes_moved"],
+        "bytes_local": rep["bytes_local"] if rep else 0,
+        "bytes_from_ckpt": rep["bytes_from_ckpt"] if rep else None,
+        "naive_bytes": rep["naive_bytes"] if rep else None,
+        "reshard_s": rep["downtime_s"] if rep else None,
+        "store_gbps": (ev["bytes_moved"] / rep["downtime_s"] / 1e9
+                       if rep and ev["bytes_moved"] else None),
+        "commit_s": ev["commit_wall_s"], "commit_bytes": ev["commit_bytes"],
+        "commits_a": [(c["step"], c.get("wall_s"), c.get("bytes"))
+                      for c in done["commits"]],
+        "start_to_bound_s": {
+            nid: next(r["t"] for r in recs[nid] if r["kind"] == "bound")
+            - t_wall0 for nid in recs
+            if any(r["kind"] == "bound" for r in recs[nid])},
+        "oracle_s": done.get("oracle_s"),
+        "losses": [(r["step"], r["loss"]) for r in steps_a],
+        "oracle_losses": losses, "oracle_unequal_tensors": bad,
+        "bitwise": bitwise, "spread": spread,
+        "within_spread": within,
+        "step_ms_p50": {
+            "dp2": float(np.percentile([r["ms"] for r in before], 50)),
+            "dp1": float(np.percentile([r["ms"] for r in after], 50))},
+        "peak_gib": {"a": done["peak_gib"]},
+        "launches_per_step": {
+            f"dp{r['n']}": {k: r["launches"][k] for k in ELASTIC_LAUNCHES[1]}
+            for r in (before[0], after[0])},
+        "share": {"before": before[-1]["share"], "after": after[-1]["share"]},
+    }
+    check(ev["downtime_s"] < ELASTIC_BUDGET_S,
+          f"elastic {event}: event took {ev['downtime_s']:.1f}s")
+    if event == "drain":
+        bdone = next(r for r in recs["b"] if r["kind"] == "done")
+        out["peak_gib"]["b"] = bdone["peak_gib"]
+        out["b_moment_bytes"] = done["b_moment_bytes"]
+        check(ev["cause"] == "drain" and replayed == 0,
+              f"elastic drain: cause {ev['cause']}, {replayed} replayed")
+        check(ev["bytes_moved"] == done["b_moment_bytes"],
+              f"elastic drain: moved {ev['bytes_moved']} bytes, b's moment "
+              f"shards are {done['b_moment_bytes']}")
+    else:
+        out["b_died_after_step"] = steps_b[-1]["step"] if steps_b else 0
+    return out, bitwise or bool(within)
+
+
+def phase_elastic(torch, args):
+    """The elastic tier on the card: the parent hosts the master store
+    (native runtime) and the process groups' c10d store; two worker
+    processes share the card over gloo, each an ElasticManager and a
+    Supervisor over a dp2 TrainStep; the crash and the drain event run
+    at the same time, two fleets of two workers."""
+    from paddle_tpu_torch.utils import native
+    check(native.available(), "elastic: the native host runtime did not "
+                              f"load: {native.load_error()}")
+    t0 = time.perf_counter()
+    out = {"card": args.card, "layers": ELASTIC_LAYERS,
+           "seq": ELASTIC_SEQ, "batch_per_rank": ELASTIC_BATCH,
+           "steps": ELASTIC_STEPS, "commit_every": ELASTIC_COMMIT_EVERY,
+           "event_after_step": ELASTIC_EVENT_AFTER,
+           "lease_ttl_s": 2 * ELASTIC_HB_S + ELASTIC_LEASE_S}
+    import shutil
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    os.makedirs(ELASTIC_DIR)
+    free_gb = shutil.disk_usage(ELASTIC_DIR).free / 1e9
+    check(free_gb >= ELASTIC_MIN_FREE_GB,
+          f"elastic: {free_gb:.1f} GB free under {ELASTIC_DIR}, need "
+          f"{ELASTIC_MIN_FREE_GB}")
+    # the two events run at the same time, each its own fleet (stores,
+    # process groups, generations): their numbers include the other's load
+    runs = [elastic_start(args, event) for event in ("crash", "drain")]
+    elastic_wait(runs)
+    for run in runs:
+        event = run["event"]
+        out[event], bitwise = elastic_event(run)
+        log(json.dumps({"elastic_event": {event: out[event]}}))
+        check(bitwise, f"elastic {event}: the survivor's losses and state "
+                       f"are neither bitwise the oracle's nor within two "
+                       f"oracle runs' spread: {out[event]['losses']} vs "
+                       f"{out[event]['oracle_losses']}")
+    out["phase_s"] = time.perf_counter() - t0
+    out["within_budget"] = out["phase_s"] <= ELASTIC_PHASE_BUDGET_S
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    log(json.dumps({"elastic": out}))
+    return out
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--elastic-worker"]:
+        return elastic_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
@@ -3067,6 +3579,9 @@ def main(argv=None) -> int:
                          "rank (needs 4 cards)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build the kernels and run the mesh phase alone")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="build the kernels and run the elastic phase "
+                         "alone")
     args = ap.parse_args(argv)
     # the mesh phase's ranks meet (FileStore) and leave their results here
     args.mesh_dir = os.path.join(os.path.dirname(args.out), "mesh") \
@@ -3108,6 +3623,19 @@ def main(argv=None) -> int:
     _build.library()
     log(f"built {', '.join(_build.SOURCES)} -> {_build.LIB_PATH} with nvcc "
         f"(sm_90a, one process per source) in {build_s:.1f}s")
+    if args.elastic_only:
+        elastic = phase_elastic(torch, args)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump({"card": card, "kind": kind, "build_s": build_s,
+                           "elastic": elastic}, f, indent=1)
+        log(f"chip_smoke --elastic-only total "
+            f"{time.perf_counter() - t_start:.1f}s")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.mesh_only:
         mesh = phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM,
                           build_hybrid_train_step, AdamW)
@@ -3189,6 +3717,7 @@ def main(argv=None) -> int:
                                 fa)
     mesh = phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM,
                       build_hybrid_train_step, AdamW)
+    elastic = phase_elastic(torch, args)
     flash = phase_flash_timing(torch, fa, heads, head_dim)
     log(f"flash kernels at B={TRAIN_BATCH} S={TRAIN_SEQ} H={heads} "
         f"D={head_dim} bf16 causal: " + json.dumps(flash))
@@ -3239,6 +3768,9 @@ def main(argv=None) -> int:
                     name.replace("attention_", "")],
                 "plain": recompute["launches_plain"][
                     name.replace("attention_", "")]},
+            "elastic_launches_per_step": {
+                k: v[name.replace("attention_", "")] for k, v in
+                elastic["crash"]["launches_per_step"].items()},
             "entry_points": "flash_attention (sdpa), flash_attention_lse "
                             "(ring attention)",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3290,6 +3822,9 @@ def main(argv=None) -> int:
                 **pp_launches(mesh, name.replace("_finite", "")),
                 "ckpt_dp_mp_each_rank": mesh["ckpt_dp_mp"][
                     "launches_per_step"][name.replace("_finite", "")]},
+            "elastic_launches_per_step": {
+                k: v[name.replace("_finite", "")] for k, v in
+                elastic["crash"]["launches_per_step"].items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3312,6 +3847,7 @@ def main(argv=None) -> int:
                        "decode_profile": profile, "training": training,
                        "spec": spec, "prefix": prefix, "chunked": chunked,
                        "gateway": gateway, "mesh": mesh,
+                       "elastic": elastic,
                        "recompute": recompute, **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
@@ -3319,6 +3855,7 @@ def main(argv=None) -> int:
     log(json.dumps({"trainstep": trainstep}))
     log(json.dumps({"recompute": recompute}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"elastic": elastic}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")

@@ -7,9 +7,12 @@ accounted comms layer (``comms``), the fleet (``fleet``: the facade, its
 topology and strategy, the tensor-parallel, pipeline and ZeRO layers,
 ``recompute``, the RNG tracker, MoE over an ep axis and the utilities),
 the ``sharding`` facade, sharded checkpoints (``checkpoint``) and their
-durable generations (``CheckpointManager``), and crash and fault
-injection (``chaos``). The store, rpc, reshard, the supervisor, launch,
-io and the auto-parallel API wait for later slices (ROADMAP.md).
+durable generations (``CheckpointManager``), crash and fault injection
+(``chaos``), and the elastic tier: the ``TCPStore`` on the host runtime,
+``rpc``, live resharding (``reshard``), the elastic ``Supervisor`` and the
+launcher with its elastic membership (``launch``). The auto-parallel API,
+the sharded embedding and the gloo compat names wait for later slices
+(ROADMAP.md).
 """
 from . import chaos  # noqa: F401
 from . import checkpoint  # noqa: F401
@@ -29,6 +32,14 @@ from .checkpoint import (  # noqa: F401
     CheckpointCorruptionError, load_state_dict, save_state_dict,
 )
 from .ckpt_manager import CheckpointManager  # noqa: F401
+# the live-resharding submodule owns the name `reshard` (calling it, the
+# JAX package's auto-parallel API, raises NotInThisSlice)
+from . import reshard  # noqa: F401
+from . import supervisor  # noqa: F401
+from .supervisor import Supervisor, SupervisedParam  # noqa: F401
+from .store import TCPStore  # noqa: F401
+from . import rpc  # noqa: F401
+from . import launch  # noqa: F401
 from .sharding import (  # noqa: F401
     group_sharded_parallel, save_group_sharded_model,
 )

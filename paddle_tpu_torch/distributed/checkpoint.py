@@ -111,6 +111,23 @@ def _atomic_write(path: str, data: bytes, crash_after_tmp: Optional[str] = None)
     return zlib.crc32(data) & 0xFFFFFFFF
 
 
+def _atomic_write_npz(path: str, arrays: dict) -> tuple[int, int]:
+    """``np.savez`` of ``arrays`` written straight into ``path``, atomically
+    as ``_atomic_write`` (tmp + fsync + rename + directory fsync): the same
+    bytes as a savez into memory (zipfile takes the same path for any
+    seekable file), without the archive's two in-memory copies. Returns
+    the file's (crc32, size), read back from the page cache."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    crc_size = _crc32_file(tmp, chunk=16 << 20)
+    os.replace(tmp, path)
+    _fsync_dir(os.path.dirname(os.path.abspath(path)))
+    return crc_size
+
+
 def _sidecar_path(shard_path: str) -> str:
     return shard_path + ".crc32"
 

@@ -33,7 +33,6 @@ main thread before an async writer starts.
 """
 from __future__ import annotations
 
-import io
 import json
 import os
 import re
@@ -363,24 +362,22 @@ class CheckpointManager:
                 os.unlink(stale)
             except FileNotFoundError:
                 pass
-        buf = io.BytesIO()
-        np.savez(buf, **{k: _ckpt._to_numpy(v) if hasattr(v, "detach")
-                         else np.asarray(v) for k, v in shards.items()})
-        payload = buf.getvalue()
         path = self._shard_path(d, owner)
-        crc = _ckpt._atomic_write(path, payload)
-        _ckpt._write_sidecar(path, crc, len(payload))
+        crc, size = _ckpt._atomic_write_npz(
+            path, {k: _ckpt._to_numpy(v) if hasattr(v, "detach")
+                   else np.asarray(v) for k, v in shards.items()})
+        _ckpt._write_sidecar(path, crc, size)
         _fault_site(FP_SHARD_STAGED, dl,
                     f"sharded stage of step-{step} by {owner}")
         receipt = {"format": RECEIPT_FORMAT, "owner": owner,
                    "step": int(step),
                    "files": {os.path.basename(path):
-                             {"crc32": f"{crc:08x}", "size": len(payload)}},
+                             {"crc32": f"{crc:08x}", "size": size}},
                    "keys": sorted(shards)}
         _ckpt._atomic_write(self._receipt_path(d, owner),
                             json.dumps(receipt, indent=1,
                                        sort_keys=True).encode())
-        return {"bytes": len(payload), "wall_s": time.monotonic() - t0}
+        return {"bytes": size, "wall_s": time.monotonic() - t0}
 
     def _read_receipt(self, d: str, owner: str) -> dict:
         path = self._receipt_path(d, owner)

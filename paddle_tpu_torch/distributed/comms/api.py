@@ -38,7 +38,12 @@ Every phase is named for chaos (``comm.quantize`` / ``comm.collective`` /
 default 60 s) that turns a stall in the issue path into a typed
 ``CommTimeout``; a dropped wire (ConnectionError) is retried once. The
 process group's own timeout (``init_parallel_env``) bounds a wait on a
-peer.
+peer, and the backend's error when a peer dies or that timeout fires (a
+``RuntimeError`` from gloo or NCCL: "Connection closed by peer", "Connection
+reset by peer", a timeout) is raised as ``CommTimeout`` too, naming the
+collective, so an elastic supervisor classifies a lost rank as one of its
+typed step signals. The JAX package has no such error to map: its
+collectives run inside one program.
 
 Env knobs: ``PT_COMM_QUANT`` (the wire dtype of ``quantized()`` with no
 argument), ``PT_COMM_BLOCK`` (block size, default 256),
@@ -47,6 +52,7 @@ argument), ``PT_COMM_BLOCK`` (block size, default 256),
 from __future__ import annotations
 
 import os
+import re
 import threading
 import time
 from contextlib import contextmanager
@@ -210,11 +216,32 @@ _RED = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "avg": dist.ReduceOp.SUM}
 
 
+# what a backend says when a peer died (its socket closed or reset) or the
+# group's timeout fired while a collective waited on it
+_PEER_LOST = re.compile(r"(?i)connection (closed|reset|refused)|by peer|"
+                        r"timed? ?out|broken pipe|aborted|socket")
+
+
+@contextmanager
+def _peer_guard(kind: str, lk: Link):
+    """Raise a backend's lost-peer error inside a collective as the typed
+    ``CommTimeout`` (the process group's timeout is the budget)."""
+    try:
+        yield
+    except RuntimeError as e:
+        if not _PEER_LOST.search(str(e)):
+            raise
+        raise CommTimeout(f"{kind} over {lk.label} ({lk.backend})",
+                          comm_deadline(),
+                          detail=f"a peer is gone: {str(e)[:300]}") from e
+
+
 def _t_all_reduce(t: torch.Tensor, lk: Link, op: str, st: _Stager):
     """The reduction of ``t`` over the group, a new tensor."""
     x = st.out(t.contiguous())
     x = x.clone() if x is t else x
-    dist.all_reduce(x, op=_RED[op], group=lk.pg)
+    with _peer_guard("all_reduce", lk):
+        dist.all_reduce(x, op=_RED[op], group=lk.pg)
     if op == "avg":
         x = x / lk.n
     return st.back(x, t)
@@ -225,10 +252,11 @@ def _t_all_gather(t: torch.Tensor, lk: Link, st: _Stager) -> torch.Tensor:
     x = st.out(t.contiguous())
     out = torch.empty((lk.n,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    if lk.backend == "gloo":
-        dist.all_gather(list(out.unbind(0)), x, group=lk.pg)
-    else:
-        dist.all_gather_into_tensor(out, x, group=lk.pg)
+    with _peer_guard("all_gather", lk):
+        if lk.backend == "gloo":
+            dist.all_gather(list(out.unbind(0)), x, group=lk.pg)
+        else:
+            dist.all_gather_into_tensor(out, x, group=lk.pg)
     return st.back(out, t)
 
 
@@ -237,14 +265,16 @@ def _t_all_to_all(t: torch.Tensor, lk: Link, st: _Stager) -> torch.Tensor:
     block each rank sent here, in group order."""
     x = st.out(t.contiguous())
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=lk.pg)
+    with _peer_guard("all_to_all", lk):
+        dist.all_to_all_single(out, x, group=lk.pg)
     return st.back(out, t)
 
 
 def _t_broadcast(t: torch.Tensor, lk: Link, src: int, st: _Stager):
     x = st.out(t.contiguous())
     x = x.clone() if x is t else x
-    dist.broadcast(x, _global(lk, src), group=lk.pg)
+    with _peer_guard("broadcast", lk):
+        dist.broadcast(x, _global(lk, src), group=lk.pg)
     return st.back(x, t)
 
 
@@ -543,8 +573,9 @@ def wire_p2p(sends, recvs, axis=None, *, owner: str = "collective",
         outs.append((buf, like))
         ops.append(dist.P2POp(dist.irecv, buf, _global(lk, int(src) % lk.n),
                               lk.pg))
-    for w in dist.batch_isend_irecv(ops):
-        w.wait()
+    with _peer_guard("sendrecv", lk):
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
     got = [st.back(b, like) for b, like in outs]
     sent = sum(t.numel() * t.element_size() for t, _ in sends)
     unit = ref.numel() * ref.element_size()

@@ -42,7 +42,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["DeviceMesh", "HYBRID_ORDER", "init_mesh", "set_mesh", "get_mesh",
-           "has_mesh", "mesh_axis_size", "axis_index", "elastic_mesh_shape"]
+           "has_mesh", "mesh_axis_size", "axis_index", "elastic_mesh_shape",
+           "elastic_mesh", "reform_world"]
 
 # canonical hybrid-parallel axis order, outermost first (topology.py:30)
 HYBRID_ORDER = ("dp", "pp", "sharding", "sep", "mp")
@@ -81,6 +82,9 @@ class DeviceMesh:
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._cpu_groups: Dict[Tuple[str, ...], object] = {}
         self._lock = threading.Lock()
+        # (c10d store, key prefix, timeout s) of a world still to be formed
+        # (``elastic_mesh``); None for a mesh over the current world
+        self.rendezvous = None
 
     def build_groups(self) -> "DeviceMesh":
         """Make the process groups of every axis and of every rank
@@ -249,6 +253,58 @@ def elastic_mesh_shape(template: dict, n_devices: int,
     out = dict(template)
     out[elastic_axis] = n_devices // fixed
     return out
+
+
+def elastic_mesh(shape: Dict[str, int], rank: int, *, store, prefix: str,
+                 timeout: float = 60.0, device=None,
+                 backend: Optional[str] = None) -> DeviceMesh:
+    """A mesh over a world that is still to be formed: the ranks of a new
+    roster after an elastic shrink or grow. ``rank`` is this process's
+    position in the roster, ``store`` a ``torch.distributed`` store that
+    outlives every rank (hosted by the job's master), and ``prefix`` a key
+    prefix no earlier world used (one per supervision epoch): a
+    ``PrefixStore`` over it is the new world's rendezvous, so keys of a
+    world that lost a rank are never read again. ``TrainStep.reshard``
+    (through ``reform_world``) forms it; ``timeout`` becomes the process
+    group's timeout, the bound of a collective blocked on a dead peer.
+    ``device`` and ``backend`` default to the current ones."""
+    from ..distributed import env
+    dev = device if device is not None else env.current_device()
+    if backend is None:
+        backend = env.get_backend() or (
+            "nccl" if torch.device(dev).type == "cuda" else "gloo")
+    mesh = DeviceMesh({str(k): int(v) for k, v in shape.items()}, rank=rank,
+                      device=dev, backend=backend)
+    mesh.rendezvous = (store, str(prefix), float(timeout))
+    return mesh
+
+
+def reform_world(mesh: DeviceMesh) -> DeviceMesh:
+    """Leave the current process group and form ``mesh``'s world (an
+    ``elastic_mesh``): ``torch.distributed`` cannot shrink or grow a
+    group, so the old one is destroyed (gloo's destroy returns at once
+    after a peer's death) and ``init_process_group`` runs again over a
+    ``PrefixStore`` with rank = position in the new roster; then the
+    mesh's groups are built and the mesh installed. Collective over the
+    new roster."""
+    import datetime
+    from ..distributed import env
+    if mesh.rendezvous is None:
+        raise ValueError("reform_world needs a mesh from elastic_mesh()")
+    store, prefix, timeout = mesh.rendezvous
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    kw = dict(backend=mesh.backend, rank=mesh.rank, world_size=mesh.size,
+              store=dist.PrefixStore(prefix, store),
+              timeout=datetime.timedelta(seconds=timeout))
+    if mesh.backend == "nccl":
+        kw["device_id"] = mesh.device
+    dist.init_process_group(**kw)
+    env._env["device"], env._env["backend"] = mesh.device, mesh.backend
+    mesh.rendezvous = None
+    mesh.build_groups()
+    _state["mesh"] = mesh
+    return mesh
 
 
 def set_mesh(mesh: Optional[DeviceMesh]) -> None:

@@ -58,9 +58,23 @@ and updates its slice of the parameter (``ZeroShards``); stage 2
 reduce-scatters the grads over a dp ZeRO axis; stage 3 keeps the params
 sharded between steps: the model's parameters are released, and a read
 through ``param_value`` (``paddle_tpu_state``, a checkpoint) gathers or
-takes the slices (``write_back()`` makes them whole). ``reshard``,
-``lower_text`` and ``memory_stats`` wait for later slices (ROADMAP.md
-Queue 1) and raise ``NotInThisSlice``.
+takes the slices (``write_back()`` makes them whole).
+
+``reshard(new_mesh, state=None)`` moves the step onto a new mesh after an
+elastic shrink or grow of the dp (or sharding) axis (trainer.py:459-490).
+In the JAX package every device's shard still exists in the one program
+and a ``device_put`` moves it. Here a rank is a process and its shards die
+with it, so the step re-forms the process groups over the new roster
+(``mesh.reform_world`` for a mesh from ``mesh.elastic_mesh``), re-partitions
+the parameters and every optimizer state to the new ZeRO degree, keeps the
+health scalars (loss scale, streaks, skipped steps) as they are, and drops
+the old mesh's ``ZeroShards``. A value this rank does not hold comes from
+``state`` (a name -> array dict in ``supervised_state()``'s names, each
+array this rank's block on the new mesh; the supervisor passes its
+resharded host state). ``supervised_state()`` gives those names with
+their ``SupervisedParam`` layouts and this rank's blocks as host arrays
+read on demand. ``lower_text`` and ``memory_stats`` wait for a later
+slice (ROADMAP.md Queue 1) and raise ``NotInThisSlice``.
 """
 from __future__ import annotations
 
@@ -492,6 +506,54 @@ def _split(tree, k: int, i: int):
     return tree
 
 
+class _HostView:
+    """One tensor of a train step read as a host numpy array on demand
+    (``np.asarray(view)``): what ``TrainStep.supervised_state`` hands the
+    supervisor, so the device-to-host copy happens only when a commit or
+    a scale event reads the state, and reads the values current then."""
+
+    __slots__ = ("_get",)
+
+    def __init__(self, get):
+        self._get = get
+
+    def __array__(self, dtype=None, copy=None):
+        t = self._get()
+        a = np.asarray(t) if not isinstance(t, torch.Tensor) \
+            else t.detach().to("cpu", copy=True).numpy()
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+
+def _np_dtype(dt: torch.dtype) -> np.dtype:
+    if dt == torch.bfloat16:
+        raise TypeError("a bfloat16 tensor has no numpy dtype: supervise "
+                        "fp32 masters")
+    return torch.empty((), dtype=dt).numpy().dtype
+
+
+def _piece_index(zero, k, full_shape) -> tuple:
+    """The global (start, stop) per dim of this rank's piece of tensor k's
+    ZeRO-sharded values (its state leaves; its parameter at stage 3), or
+    the whole tensor."""
+    idx = [(0, int(d)) for d in full_shape]
+    if zero is not None and zero.dims[k] is not None:
+        d = zero.dims[k]
+        m = int(full_shape[d]) // zero.n
+        idx[d] = (zero.r * m, (zero.r + 1) * m)
+    return tuple(idx)
+
+
+def _cut(t: torch.Tensor, have: tuple, want: tuple):
+    """The block ``want`` of a tensor that holds the block ``have`` (global
+    (start, stop) per dim), or None when ``have`` does not cover it."""
+    for (a, b), (c, d) in zip(have, want):
+        if c < a or d > b:
+            return None
+    for dim, ((a, _), (c, d)) in enumerate(zip(have, want)):
+        t = t.narrow(dim, c - a, d - c)
+    return t
+
+
 class TrainStep:
     """Callable train step over the model's own parameters (trained in
     place) and the optimizer state it holds (``_opt_state``)."""
@@ -499,24 +561,12 @@ class TrainStep:
     def __init__(self, model, loss_fn: Callable, optimizer, mesh=None,
                  batch_spec=("dp",), loss_has_aux=False, remat: bool = False,
                  accumulate_steps: Optional[int] = None, scaler=None):
-        mesh = mesh if mesh is not None else mesh_mod.get_mesh()
-        big = {k: v for k, v in _mesh_axes(mesh).items() if v > 1}
-        if big and not isinstance(mesh, mesh_mod.DeviceMesh):
-            raise TypeError(f"a mesh with axes above 1 ({big}) must be a "
-                            "DeviceMesh (parallel.init_mesh)")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.mesh = mesh
-        axes = (batch_spec,) if isinstance(batch_spec, str) \
+        self._batch_axes = (batch_spec,) if isinstance(batch_spec, str) \
             else tuple(batch_spec)
-        self._sync_axis = next((a for a in axes if a in big), None)
-        self._sep = big.get("sep", 1) > 1
-        self._data_axes = tuple(a for a in (self._sync_axis,
-                                            "sep" if self._sep else None)
-                                if a is not None)
-        self._mp = big.get("mp", 1)
-        self._big = big
+        self._bind_mesh(mesh)
         self._step_count = 0
         self.captured_program = None
 
@@ -539,32 +589,7 @@ class TrainStep:
         while hasattr(base_opt, "inner_opt"):
             base_opt = base_opt.inner_opt
         self._base_opt = base_opt
-        # ZeRO (trainer.py:228-247): the optimizer's tags, the axis
-        # resolved on this mesh; each param's state sharded by its spec
-        zaxis, zstage = zero_config(optimizer, mesh)
-        self._zero = None
-        if zstage:
-            layouts = [(_global_shape(p, self._mp), param_spec(p, mesh),
-                        list(range(p.dim()))) for p in self._params]
-            self._zero = ZeroShards(self._params, layouts, zaxis, zstage,
-                                    mesh)
-            self._opt_state = [base_opt._init_state(self._zero.state_like(k))
-                               for k in range(len(self._params))]
-            self._zero.annotate(self._opt_state)
-        else:
-            self._opt_state = [base_opt._init_state(p) for p in self._params]
-            if big:
-                annotate_layouts(self._params, [
-                    (_global_shape(p, self._mp), param_spec(p, mesh),
-                     list(range(p.dim()))) for p in self._params],
-                    self._opt_state, mesh)
-        # the axes each grad is split over, for the global-norm clip
-        zsplit = self._zero is not None and self._zero.stage >= 2
-        self._split_axes = [
-            (("mp",) if getattr(p, "split_axis", None) is not None else ())
-            + ((self._zero.axis,) if zsplit and self._zero.dims[k] is not None
-               else ())
-            for k, p in enumerate(self._params)]
+        self._shard_states(lambda k, like: base_opt._init_state(like))
         if accumulate_steps is None:
             accumulate_steps = int(getattr(base_opt, "_accumulate_steps", 1)
                                    or getattr(optimizer, "_accumulate_steps",
@@ -591,6 +616,55 @@ class TrainStep:
             "bad_steps": torch.zeros((), dtype=torch.int32, device=dev),
             "skipped": torch.zeros((), dtype=torch.int32, device=dev),
         }
+
+    def _bind_mesh(self, mesh) -> None:
+        """The mesh and what the step derives from it: the dp sync axis,
+        the sep and mp extents."""
+        mesh = mesh if mesh is not None else mesh_mod.get_mesh()
+        big = {k: v for k, v in _mesh_axes(mesh).items() if v > 1}
+        if big and not isinstance(mesh, mesh_mod.DeviceMesh):
+            raise TypeError(f"a mesh with axes above 1 ({big}) must be a "
+                            "DeviceMesh (parallel.init_mesh)")
+        self.mesh = mesh
+        self._sync_axis = next((a for a in self._batch_axes if a in big),
+                               None)
+        self._sep = big.get("sep", 1) > 1
+        self._data_axes = tuple(a for a in (self._sync_axis,
+                                            "sep" if self._sep else None)
+                                if a is not None)
+        self._mp = big.get("mp", 1)
+        self._big = big
+
+    def _shard_states(self, make) -> None:
+        """ZeRO on the bound mesh (trainer.py:228-247: the optimizer's
+        tags, the axis resolved on the mesh; each param's state sharded by
+        its spec) and the optimizer state, ``make(k, like)`` giving tensor
+        k's state leaves for a tensor like its piece; then the layouts for
+        checkpoints and the axes each grad is split over (for the clip)."""
+        mesh = self.mesh
+        zaxis, zstage = zero_config(self.optimizer, mesh)
+        self._zero = None
+        if zstage:
+            layouts = [(_global_shape(p, self._mp), param_spec(p, mesh),
+                        list(range(p.dim()))) for p in self._params]
+            self._zero = ZeroShards(self._params, layouts, zaxis, zstage,
+                                    mesh)
+            self._opt_state = [make(k, self._zero.state_like(k))
+                               for k in range(len(self._params))]
+            self._zero.annotate(self._opt_state)
+        else:
+            self._opt_state = [make(k, p) for k, p in enumerate(self._params)]
+            if self._big:
+                annotate_layouts(self._params, [
+                    (_global_shape(p, self._mp), param_spec(p, mesh),
+                     list(range(p.dim()))) for p in self._params],
+                    self._opt_state, mesh)
+        zsplit = self._zero is not None and self._zero.stage >= 2
+        self._split_axes = [
+            (("mp",) if getattr(p, "split_axis", None) is not None else ())
+            + ((self._zero.axis,) if zsplit and self._zero.dims[k] is not None
+               else ())
+            for k, p in enumerate(self._params)]
 
     # ---- one step ----
     def _loss_and_grads(self, batch, scale):
@@ -747,11 +821,162 @@ class TrainStep:
             self._scaler._scale = float(self._health["loss_scale"])
         return self._scaler
 
-    # ---- legs of later slices ----
-    def reshard(self, new_mesh) -> None:
-        raise NotInThisSlice("live resharding (durability and elasticity)",
-                             "TrainStep.reshard")
+    # ---- live resharding ----
+    def _full_shape(self, k) -> tuple:
+        return tuple(self._zero.full_shape(k)) if self._zero is not None \
+            else tuple(self._params[k].shape)
 
+    def _param_piece(self, k):
+        """(tensor, global index) of this rank's piece of parameter k: its
+        ZeRO-3 slice between steps, else the whole parameter."""
+        full = self._full_shape(k)
+        z = self._zero
+        if z is not None and z.slices[k] is not None:
+            return z.slices[k], _piece_index(z, k, full)
+        return self._params[k].detach(), tuple((0, d) for d in full)
+
+    def supervised_state(self):
+        """``(params, state)`` for a ``Supervisor``: name ->
+        ``SupervisedParam`` (global shape, dtype, and ``spec`` naming the
+        ZeRO axis on the dim it shards, else replicated) and name -> this
+        rank's block as a host array read on demand. Names:
+        ``params.<name>`` (the fp32 masters), ``opt.<name>.<leaf>`` (the
+        optimizer's state leaves) and ``step`` (the step count); the same
+        names ``reshard(new_mesh, state)`` reads."""
+        from ..distributed.supervisor import SupervisedParam
+        z = self._zero
+        params, views = {}, {}
+
+        def spec_of(k, full, sharded):
+            if not sharded or z is None or z.dims[k] is None:
+                return ()
+            return tuple(z.axis if i == z.dims[k] else None
+                         for i in range(len(full)))
+
+        for k, name in enumerate(self._param_names):
+            full = self._full_shape(k)
+            p = self._params[k]
+            params[f"params.{name}"] = SupervisedParam(
+                full, _np_dtype(p.dtype),
+                spec_of(k, full, z is not None and z.stage >= 3))
+            views[f"params.{name}"] = _HostView(
+                lambda k=k: self._param_piece(k)[0])
+            for leaf, v in self._opt_state[k].items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                key = f"opt.{name}.{leaf}"
+                shape = full if v.dim() else ()
+                params[key] = SupervisedParam(
+                    shape, _np_dtype(v.dtype), spec_of(k, shape, v.dim() > 0))
+                views[key] = _HostView(
+                    lambda k=k, leaf=leaf: self._opt_state[k][leaf])
+        params["step"] = SupervisedParam((), np.int64, ())
+        views["step"] = _HostView(
+            lambda: np.asarray(self._step_count, np.int64))
+        return params, views
+
+    def reshard(self, new_mesh, state=None) -> None:
+        """Move the step onto ``new_mesh``, which changes only the dp (or
+        sharding) extent: an installed ``DeviceMesh`` over the current
+        world, or an ``elastic_mesh`` whose world is formed here
+        (``mesh.reform_world``: the old process group destroyed, the new
+        one initialised over a fresh ``PrefixStore``, rank = position in
+        the new roster). The parameters and every optimizer state leaf are
+        re-partitioned to the new ZeRO degree; a block this rank does not
+        hold comes from ``state`` (names of ``supervised_state()``, each
+        value this rank's block on the new mesh), which, where given, is
+        taken as it is (after a rollback it is the committed generation,
+        not the live values); ``state["step"]`` sets the step count. Values
+        are moved, never recomputed: bitwise. The health scalars (loss
+        scale, streaks, skipped steps) stay as they are, and the old
+        mesh's ZeRO shards are dropped."""
+        if new_mesh is None:
+            raise ValueError("reshard needs a mesh (got None)")
+        new_big = {k: v for k, v in _mesh_axes(new_mesh).items() if v > 1}
+        for a in ("mp", "pp", "sep"):
+            if self._big.get(a, 1) != new_big.get(a, 1):
+                raise ValueError(
+                    f"reshard changes only the dp/sharding extent: {a} is "
+                    f"{self._big.get(a, 1)} here and {new_big.get(a, 1)} "
+                    f"on the new mesh")
+        state = {} if state is None else dict(state)
+        dev = self._device
+
+        def host(name, shape, dtype):
+            a = np.asarray(state[name])
+            if tuple(a.shape) != tuple(shape):
+                raise ValueError(f"reshard: state[{name!r}] has shape "
+                                 f"{a.shape}, this rank's block is {shape}")
+            # a copy even on the CPU: the step trains it in place, and the
+            # caller's arrays (the supervisor's state) must not move
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=dev, dtype=dtype, copy=True)
+
+        # this rank's pieces as they stand, read before the old groups go
+        full = [self._full_shape(k) for k in range(len(self._params))]
+        old_states = [(st, _piece_index(self._zero, k, full[k]))
+                      for k, st in enumerate(self._opt_state)]
+        values = []
+        for k, name in enumerate(self._param_names):
+            key = f"params.{name}"
+            whole = tuple((0, d) for d in full[k])
+            if key in state:
+                values.append(host(key, full[k], self._params[k].dtype))
+                continue
+            t, have = self._param_piece(k)
+            if have == whole:
+                values.append(None)          # whole here already: kept
+                continue
+            if _cut(t, have, whole) is None:
+                raise ValueError(f"reshard: this rank holds only {have} of "
+                                 f"{key} and state has no {key!r}")
+        if getattr(new_mesh, "rendezvous", None) is not None:
+            mesh_mod.reform_world(new_mesh)
+        elif isinstance(new_mesh, mesh_mod.DeviceMesh):
+            mesh_mod.set_mesh(new_mesh)
+        self._bind_mesh(new_mesh)
+        for m in self.model.modules():
+            if "mesh" in vars(m):
+                m.mesh = new_mesh
+        with torch.no_grad():
+            for p, v in zip(self._params, values):
+                for attr in ("zero_master", "zero_ref"):
+                    if hasattr(p, attr):
+                        delattr(p, attr)
+                if v is not None:
+                    p.data = v
+        del values
+
+        def make(k, like):
+            name = self._param_names[k]
+            fresh = self._base_opt._init_state(like)
+            old, have = old_states[k]
+            want = _piece_index(self._zero, k, full[k])
+            out = {}
+            for leaf, v in fresh.items():
+                key = f"opt.{name}.{leaf}"
+                if not isinstance(v, torch.Tensor):
+                    out[leaf] = old.get(leaf, v)
+                elif key in state:
+                    out[leaf] = host(key, tuple(v.shape), v.dtype)
+                elif v.dim() == 0:
+                    out[leaf] = old[leaf].detach().clone()
+                else:
+                    got = _cut(old[leaf].detach(), have, want)
+                    if got is None:
+                        raise ValueError(
+                            f"reshard: this rank holds {have} of {key}, "
+                            f"needs {want} and state has no {key!r}")
+                    out[leaf] = got.contiguous().clone()
+            return out
+
+        self._shard_states(make)
+        del old_states
+        if "step" in state:
+            self._step_count = int(np.asarray(state["step"]))
+        self.captured_program = None
+
+    # ---- legs of later slices ----
     def lower_text(self, batch):
         raise NotInThisSlice("whole-step capture", "TrainStep.lower_text")
 

@@ -1,13 +1,18 @@
-"""Deadlines and the typed no-hang errors the serving engine and the
-comms layer raise.
+"""Deadlines and the typed no-hang errors the serving engine, the comms
+layer, the store and rpc transports, the data loader, live resharding, the
+elastic membership and the supervisor raise.
 
-Counterpart of ``paddle_tpu/utils/deadline.py``, cut to what the serving
-path, its gateway and the comms layer use: the ``Deadline`` budget a
-request carries as its TTL, a socket exchange across its reads and a
-collective across its phases, the typed ``RequestTimeout`` /
-``EngineOverloaded`` / ``CommTimeout`` errors, the exact socket read the
-gateway's framing is built on (``recv_exact``), the flight-recorder hook
-(``set_incident_hook``) and the env-knob readers.
+Counterpart of ``paddle_tpu/utils/deadline.py``, with its class
+hierarchy and messages: the ``Deadline`` budget a request carries as its
+TTL, a socket exchange across its reads and a collective across its
+phases; the typed errors (``StoreTimeout``, ``RpcTimeout``,
+``DataLoaderTimeout``, ``RequestTimeout``, ``EngineOverloaded``,
+``ReshardTimeout``, ``CommTimeout``, ``SupervisorTimeout``,
+``CheckpointTimeout``, ``MembershipTimeout``, all ``DeadlineExceeded``,
+and ``StoreConnectionError``, a ``ConnectionError``); the exact socket
+read the store, rpc and gateway framings are built on (``recv_exact``),
+the flight-recorder hook (``set_incident_hook``) and the env-knob
+readers.
 """
 from __future__ import annotations
 
@@ -15,8 +20,11 @@ import os
 import socket
 import time
 
-__all__ = ["DeadlineExceeded", "RequestTimeout", "EngineOverloaded",
-           "CommTimeout", "CheckpointTimeout", "Deadline", "set_incident_hook",
+__all__ = ["DeadlineExceeded", "StoreTimeout", "RpcTimeout",
+           "DataLoaderTimeout", "RequestTimeout", "EngineOverloaded",
+           "ReshardTimeout", "CommTimeout", "SupervisorTimeout",
+           "CheckpointTimeout", "MembershipTimeout", "StoreConnectionError",
+           "Deadline", "set_incident_hook",
            "recv_exact", "join_bounded", "env_timeout", "env_int"]
 
 # flight-recorder hook (observability/__init__ installs trace's
@@ -56,6 +64,18 @@ class DeadlineExceeded(TimeoutError):
                 pass           # mask the typed error being raised
 
 
+class StoreTimeout(DeadlineExceeded):
+    """A TCPStore operation (rpc / wait) ran out of budget."""
+
+
+class RpcTimeout(DeadlineExceeded):
+    """A distributed.rpc call ran out of budget."""
+
+
+class DataLoaderTimeout(DeadlineExceeded):
+    """No batch arrived from the DataLoader workers within `timeout`."""
+
+
 class RequestTimeout(DeadlineExceeded):
     """A serving request ran out of its TTL budget: expired while queued
     for admission or evicted mid-decode (partial output kept on the
@@ -74,10 +94,28 @@ class EngineOverloaded(DeadlineExceeded):
         super().__init__(what, timeout, detail)
 
 
+class ReshardTimeout(DeadlineExceeded):
+    """A live-resharding step (plan exchange, shard transfer, or commit
+    barrier) ran out of budget — a peer died or partitioned mid-reshard.
+    Callers fall down the ladder: reshard -> partial-restore ->
+    full-restore from the last committed checkpoint generation
+    (distributed/reshard.py)."""
+
+
 class CommTimeout(DeadlineExceeded):
     """A collective of the comms layer (its quantize, wire or dequantize
     phase) ran out of its PT_COMM_DEADLINE budget: a peer stalled
     mid-collective. The message names the owner and the site."""
+
+
+class SupervisorTimeout(DeadlineExceeded):
+    """A supervised scale event (failure detection, survivor rendezvous,
+    state swap, or loop resume) ran out of its PT_SUPERVISOR_TIMEOUT
+    budget — the elastic training supervisor could not converge the
+    survivors within the bound (distributed/supervisor.py). The event's
+    cumulative Deadline spans all four supervisor.* sites, so a stall
+    anywhere in the closed loop fails typed instead of wedging the
+    surviving fleet."""
 
 
 class CheckpointTimeout(DeadlineExceeded):
@@ -86,6 +124,17 @@ class CheckpointTimeout(DeadlineExceeded):
     appeared within the committer's bound (distributed/ckpt_manager.py).
     The generation stays uncommitted — readers keep resolving the previous
     committed one, and GC reaps the partial stage."""
+
+
+class MembershipTimeout(DeadlineExceeded):
+    """The elastic membership never reached the required size within the
+    budget (ElasticManager.require_np) — the typed form of wait_for_np's
+    False, for callers that must not proceed under-strength."""
+
+
+class StoreConnectionError(ConnectionError):
+    """Terminal store-client failure: the connection died (or desynced
+    mid-message) and reconnect-plus-retry did not recover it."""
 
 
 class Deadline:

@@ -3,8 +3,9 @@
 - With ``jax`` blocked, the port's packages import and load no
   ``paddle_tpu`` or ``ml_dtypes`` module (a subprocess: conftest has
   already imported ``paddle_tpu`` in this process).
-- No file of the port, and not ``chip_smoke.py`` or the ranks' helper
-  ``tests/torch_dist.py``, imports ``jax``, ``ml_dtypes`` or a
+- No file of the port, and not ``chip_smoke.py`` or the port processes'
+  helpers (``tests/torch_dist.py``, ``tests/torch_supervisor_member.py``,
+  ``tests/torch_no_hang_child.py``), imports ``jax``, ``ml_dtypes`` or a
   ``paddle_tpu`` module.
 - The entry points run on the card by default and raise without CUDA
   rather than carry on quietly on the CPU; ``chip_smoke.py`` fails
@@ -83,6 +84,15 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.distributed.checkpoint\n"
         "import paddle_tpu_torch.distributed.ckpt_manager\n"
         "import paddle_tpu_torch.nn.layer\n"
+        "import paddle_tpu_torch.utils.native\n"
+        "import paddle_tpu_torch.distributed.store\n"
+        "import paddle_tpu_torch.distributed.rpc\n"
+        "import paddle_tpu_torch.distributed.reshard\n"
+        "import paddle_tpu_torch.distributed.supervisor\n"
+        "import paddle_tpu_torch.distributed.launch\n"
+        "import paddle_tpu_torch.distributed.launch.elastic\n"
+        "import paddle_tpu_torch.io, paddle_tpu_torch.io.streaming\n"
+        "import paddle_tpu_torch.profiler\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_dist\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
@@ -104,7 +114,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "fce_variants.py", "tests/torch_dist.py"]))
+    + ["chip_smoke.py", "fce_variants.py", "tests/torch_dist.py",
+       "tests/torch_supervisor_member.py", "tests/torch_no_hang_child.py"]))
 def test_source_imports_neither_jax_nor_paddle_tpu(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path

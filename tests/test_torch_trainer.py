@@ -118,8 +118,11 @@ def test_compile_train_step_five_steps_match_jax(variant):
 
 def test_train_step_legs_of_later_slices_raise():
     """The mesh legs are ported (tests/test_torch_zero.py); what still
-    waits for later slices raises ``NotInThisSlice``: ``lower_text``,
-    ``memory_stats`` (whole-step capture) and ``reshard`` (durability)."""
+    waits for later slices raises ``NotInThisSlice``: ``lower_text`` and
+    ``memory_stats`` (whole-step capture). ``reshard`` is ported (its
+    dp2 -> dp1 case is in tests/test_torch_elastic_trainer.py): it refuses
+    no mesh, as the JAX one, and onto the same one-rank mesh it keeps
+    every value."""
     _, pm = _llamas()
     opt = popt.SGD(parameters=pm.parameters())
     with pytest.raises(TypeError):          # every mesh leg: a DeviceMesh
@@ -128,9 +131,14 @@ def test_train_step_legs_of_later_slices_raise():
         compile_train_step(pm, _llama_loss, opt, mesh={"dp": 2})
     step = compile_train_step(pm, _llama_loss, opt, mesh={"dp": 1})
     assert isinstance(step, TrainStep) and step.captured_program is None
-    for fn in (step.lower_text, step.memory_stats, step.reshard):
+    for fn in (step.lower_text, step.memory_stats):
         with pytest.raises(NotInThisSlice):
             fn(None)
+    with pytest.raises(ValueError):
+        step.reshard(None)
+    before = [p.detach().clone() for p in pm.parameters()]
+    step.reshard({"dp": 1})
+    assert all(torch.equal(a, p) for a, p in zip(before, pm.parameters()))
 
 
 # ---- the self-healing cases (tests/test_amp_self_healing.py) ----

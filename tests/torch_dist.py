@@ -47,6 +47,7 @@ def _rank_main(rank: int, world: int, root: str, scenario: str,
 
         from paddle_tpu_torch.distributed import init_parallel_env
         payload = pickle.loads((root / "payload.pkl").read_bytes())
+        payload["_root"] = str(root)   # for a rank that leaves early
         store = dist.FileStore(str(root / "store"), world)
         init_parallel_env(backend="gloo", device="cpu", store=store,
                           rank=rank, world_size=world,
@@ -827,6 +828,106 @@ def _fleet_util(payload):
             "shard": u.get_file_shard([f"f{i}" for i in range(7)])}
 
 
+def _leave_early(payload, rank, out) -> None:
+    """A rank that leaves the world mid-scenario (an elastic shrink): it
+    writes its result itself and exits, skipping the harness's barrier
+    over a world it is no longer in."""
+    (Path(payload["_root"]) / f"out{rank}.pkl").write_bytes(
+        pickle.dumps(out))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _gather_blocks(step, views):
+    """Every state block of a ``supervised_state()`` gathered over the
+    world and put together whole: name -> full numpy array."""
+    import torch.distributed as tdist
+    params, _ = step.supervised_state()
+    mine = {n: np.asarray(v) for n, v in views.items()}
+    allb = [None] * tdist.get_world_size()
+    tdist.all_gather_object(allb, mine)
+    out = {}
+    for n, p in params.items():
+        d = next((i for i, s in enumerate(p.spec) if s), None)
+        out[n] = allb[0][n] if d is None else np.concatenate(
+            [b[n] for b in allb], axis=d)
+    return out
+
+
+def _elastic_reshard(payload):
+    """dp2 ZeRO-1 ``TrainStep``: two steps, every block gathered; rank 1
+    leaves; rank 0 re-forms a world of one (``elastic_mesh`` over a fresh
+    store, ``TrainStep.reshard`` with the moments it lacks from the
+    gathered host state), holds every parameter and moment against the
+    gathered values, and takes the next step."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    cfg = payload["config"]
+    model, step, mesh = _build_step(cfg)
+    batches = [{"input_ids": i, "labels": lab} for i, lab in cfg["batches"]]
+    losses = [float(step(b)) for b in batches[:2]]
+    params, views = step.supervised_state()
+    share = sum(np.asarray(v).size for n, v in views.items()
+                if n.startswith("opt.")) / sum(
+        int(np.prod(p.shape)) for n, p in params.items()
+        if n.startswith("opt."))
+    full = _gather_blocks(step, views)
+    if mesh.rank == 1:
+        _leave_early(payload, 1, {"losses": losses, "share": share})
+    store = tdist.FileStore(str(Path(payload["_root"]) / "store_e1"), 1)
+    t0 = time.perf_counter()
+    step.reshard(mesh_mod.elastic_mesh({"dp": 1}, 0, store=store,
+                                       prefix="epoch1", timeout=30.0,
+                                       device="cpu", backend="gloo"),
+                 state={n: a for n, a in full.items()
+                        if n.startswith("opt.")})
+    swap_s = time.perf_counter() - t0
+    _, after = step.supervised_state()
+    equal = {n: np.asarray(after[n]).tobytes() == full[n].tobytes()
+             for n in full}
+    after_share = sum(np.asarray(v).size for n, v in after.items()
+                      if n.startswith("opt.")) / sum(
+        int(np.prod(p.shape)) for n, p in params.items()
+        if n.startswith("opt."))
+    losses.append(float(step(batches[2])))
+    return {"losses": losses, "equal": equal, "share": share,
+            "after_share": after_share, "swap_s": swap_s,
+            "world": tdist.get_world_size(),
+            "mesh": dict(mesh_mod.get_mesh().shape),
+            "skipped": step.skipped_steps, "step": step._step_count}
+
+
+def _lost_peer(payload):
+    """One all-reduce, then rank 1 leaves while rank 0 waits in the next
+    one: rank 0 gets ``CommTimeout`` (not a hang, not a raw backend
+    error), leaves the broken group and forms a world of one."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch.distributed import comms
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.utils.deadline import CommTimeout
+    x = torch.ones(1024)
+    first = float(comms.wire_all_reduce(x, "dp", exact=True)[0])
+    if tdist.get_rank() == 1:
+        time.sleep(0.5)
+        _leave_early(payload, 1, {"first": first})
+    t0 = time.perf_counter()
+    err = None
+    try:
+        comms.wire_all_reduce(x, "dp", exact=True)
+    except CommTimeout as e:
+        err = str(e)
+    waited = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_mod.reform_world(mesh_mod.elastic_mesh(
+        {"dp": 1}, 0, store=tdist.FileStore(
+            str(Path(payload["_root"]) / "store_e1"), 1),
+        prefix="epoch1", timeout=30.0, device="cpu", backend="gloo"))
+    reform_s = time.perf_counter() - t0
+    again = float(comms.wire_all_reduce(x, "dp", exact=True)[0])
+    return {"first": first, "error": err, "waited": waited,
+            "reform_s": reform_s, "again": again}
+
+
 SCENARIOS = {"mesh": _mesh, "collective": _collective, "comms": _comms,
              "mp_layers": _mp_layers, "tp_ce": _tp_ce, "cp": _cp,
              "hybrid": _hybrid, "finite_skip": _finite_skip,
@@ -834,4 +935,5 @@ SCENARIOS = {"mesh": _mesh, "collective": _collective, "comms": _comms,
              "data_parallel": _data_parallel, "cp_direct": _cp_direct,
              "zero_reads": _zero_reads, "ckpt_hybrid": _ckpt_hybrid,
              "moe_ep": _moe_ep, "rng_tracker": _rng_tracker,
-             "fleet_util": _fleet_util}
+             "fleet_util": _fleet_util, "elastic_reshard": _elastic_reshard,
+             "lost_peer": _lost_peer}
