@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out PATH] [--mesh-backend gloo|nccl]
-                          [--mesh-only | --elastic-only]
+                          [--mesh-only | --deepfm-only | --elastic-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -79,7 +79,22 @@ fails:
    steps, one whose loss a batch field multiplies by inf, 2 more; the bad
    step skipped with every parameter and moment unchanged (checksums),
    the scale halved there and doubled after 2 good steps, the loss finite
-   and falling, U1 and U2 launched once a step; then
+   and falling, U1 and U2 launched once a step; the step is one CUDA graph
+   (``jit.capture.lower_step``: no bailout, the first call its warm-up and
+   five replays, U1 and U2 counted through them) and its losses equal the
+   same run with capture off (bitwise, else within two eager runs'
+   spread); then DeepFM (``phase_deepfm``) at ``models/deepfm.py``'s
+   default widths (9-wide factors, 13 dense features, 26 fields,
+   512-256-128) over 2**24 hashed rows, batch 512 a rank, Adam(1e-3),
+   seeded power-law ids over 2**32 raw ids: 3 + 20 steps captured (0
+   bailouts, one replay a step, U1 and U2 inside the graph) and the same
+   steps eager, losses equal, finite and falling; step ms p50 of each,
+   samples/s, ``memory_stats()`` and the peak; then 2 ranks sharing the
+   card over gloo (the table row-sharded, the exchange's sites recorded,
+   the step's gloo bailout counted, losses equal to dp1's on the same
+   global batches at rtol 1e-4; inside ``comms.quantized("int8")`` rows
+   wire / logical <= 0.27 and the last loss within 10% of exact), or with
+   ``--mesh-backend nccl`` 4 ranks a card each, the step captured; then
    ``LlamaConfig(recompute=True)`` through the fleet's ``recompute`` at
    llama_7b width cut to 2 layers (S=2048, B=2, bf16): ``compute_loss``
    forward + backward against recompute off on the same model, loss and
@@ -172,13 +187,17 @@ fails:
    1 and U1 2 at dp2 (the finite flag before the sync, the clip after it)
    and 1 at dp1; each rank holds 1/dp of the Adam state. Generations go
    under ``build/chip_smoke_elastic`` (free disk checked, deleted after).
-   ``--elastic-only`` runs the build and this phase alone.
+   ``--elastic-only`` runs the build and this phase alone (with
+   ``--deepfm-only``, the DeepFM phase first). With ``--mesh-backend
+   nccl`` (4 cards) each worker holds a card of its own over NCCL (the
+   crash fleet cards 0-1, the drain fleet 2-3), and the survivor aborts
+   the old world's communicators before it forms the new one.
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"recompute": ...}``,
-``{"mesh": ...}``, ``{"elastic": ...}``,
+``{"deepfm": ...}``, ``{"mesh": ...}``, ``{"elastic": ...}``,
 ``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
 launches),
 ``{"serving": ...}``, the total run time, the card's
@@ -1767,13 +1786,16 @@ TRAINSTEP_LAYERS, TRAINSTEP_BATCH, TRAINSTEP_SEQ = 2, 2, 1024
 
 def phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM, mt,
                     compile_train_step, GradScaler, ClipGradByGlobalNorm,
-                    AdamW):
+                    AdamW, capture, capture_on=True):
     """The general train step's path: compile_train_step, fp32, with a
     GradScaler (2**15, growth every 2 good steps) and a global-norm clip;
     3 steps, one whose loss is multiplied by inf through a batch field,
     then 2 more. The bad step is skipped (params and moments bit for bit,
     by checksum), the scale halves there and doubles after 2 good steps,
-    the loss stays finite and falls; U1 and U2 launch once a step."""
+    the loss stays finite and falls; U1 and U2 launch once a step. With
+    ``capture_on`` the step is one CUDA graph (``jit.capture.lower_step``):
+    no bailout, the first call the warm-up and five replays; without it
+    (``PT_STEP_CAPTURE=0``'s switch) every step eager."""
     base = LlamaConfig.llama_7b()
     cfg = LlamaConfig(vocab_size=base.vocab_size,
                       hidden_size=base.hidden_size,
@@ -1813,6 +1835,8 @@ def phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM, mt,
     torch.cuda.reset_peak_memory_stats()
     mt.multi_tensor_sumsq_finite.launches = 0   # this path's run starts here
     mt.multi_tensor_adam.launches = 0
+    capture.set_step_capture_enabled(capture_on)
+    capture.capture_clear()
     losses, scales, step_ms = [], [], []
     for i, b in enumerate([good] * 3 + [bad] + [good] * 2):
         if i == 3:
@@ -1824,6 +1848,17 @@ def phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM, mt,
         scales.append(step.loss_scale)
         if i == 3:
             after = checksum()
+    capture.set_step_capture_enabled(True)
+    cinfo = {k: v for k, v in capture.capture_info().items()
+             if k != "enabled"}
+    if capture_on:
+        check(cinfo["bailouts"] == 0 and cinfo["lowerings"] == 1
+              and cinfo["hits"] == 5 and step.captured_program is not None,
+              f"TrainStep not captured: {cinfo}")
+    else:
+        check(cinfo["lowerings"] == cinfo["hits"] == 0
+              and step.captured_program is None,
+              f"TrainStep captured with capture off: {cinfo}")
     launches = [mt.multi_tensor_sumsq_finite.launches,
                 mt.multi_tensor_adam.launches]
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1851,10 +1886,12 @@ def phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM, mt,
            "params_and_moments_unchanged_across_skip": before == after,
            "launches": {"multi_tensor_sumsq": launches[0],
                         "multi_tensor_adam": launches[1]},
-           "step_ms": step_ms, "peak_mem_gib": peak}
-    log(f"trainstep: 6 steps, losses {[round(x, 4) for x in losses]}, "
-        f"scales {scales}, skipped {step.skipped_steps}, U1/U2 launches "
-        f"{launches}")
+           "step_ms": step_ms, "peak_mem_gib": peak, "capture": cinfo,
+           "kernels_in_graph": None if step.captured_program is None
+           else step.captured_program.kernel_launches()}
+    log(f"trainstep ({'captured' if capture_on else 'eager'}): 6 steps, "
+        f"losses {[round(x, 4) for x in losses]}, scales {scales}, skipped "
+        f"{step.skipped_steps}, U1/U2 launches {launches}, capture {cinfo}")
     del model, opt, step
     return res
 
@@ -3080,6 +3117,260 @@ def phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW):
 
 
 # ---------------------------------------------------------------------------
+# phase_deepfm: DeepFM over a row-sharded table, each step one CUDA graph
+# ---------------------------------------------------------------------------
+
+# deepfm.py's default widths (9-wide factors, 13 dense features, 26 fields,
+# a 512-256-128 DNN) over 2**24 hashed rows: two fp32 tables of 16.8M x 9
+# and 16.8M x 1 (0.67 GB) and 1.3 GB of Adam moments
+DEEPFM_ROWS, DEEPFM_BATCH = 1 << 24, 512
+DEEPFM_WARMUP, DEEPFM_STEPS, DEEPFM_MESH_STEPS = 3, 20, 3
+DEEPFM_ZIPF = 1.1              # power-law id frequencies
+DEEPFM_CYCLE = 4               # distinct batches, cycled over the steps
+DEEPFM_LOSS_RTOL = 1e-4        # dp > 1 against dp1 (the exchange's sums)
+
+
+def deepfm_batches(torch, seed, n, batch, cycle=None):
+    """``n`` seeded batches (``cycle`` distinct ones repeated, default
+    all distinct), made in bulk and moved to the card once: 26 fields of
+    power-law (Zipf) ids spread over 2**32 raw ids (a field's frequent ids
+    repeat, so the exchange's unique does work), 13 normal dense features,
+    labels from a noisy linear rule of the dense ones."""
+    if cycle:
+        made = deepfm_batches(torch, seed, cycle, batch)
+        return [made[i % cycle] for i in range(n)]
+    rng = np.random.RandomState(seed + 40)
+    z = rng.zipf(DEEPFM_ZIPF, (n, batch, 26)).astype(np.uint64)
+    field = np.arange(26, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        raw = (z * np.uint64(0x9E3779B1) + field * np.uint64(0x85EBCA77)) \
+            & np.uint64(0xFFFFFFFF)
+    dense = rng.randn(n, batch, 13).astype(np.float32)
+    y = (dense[..., :1] + 0.5 * rng.randn(n, batch, 1) > 0).astype(
+        np.float32)
+    sparse = torch.from_numpy(raw.astype(np.int64)).to(DEVICE)
+    dense_t = torch.from_numpy(dense).to(DEVICE)
+    y_t = torch.from_numpy(y).to(DEVICE)
+    return [{"sparse": sparse[i], "dense": dense_t[i], "y": y_t[i]}
+            for i in range(n)]
+
+
+def deepfm_distinct(batches) -> float:
+    """Distinct hashed rows over looked-up ids, averaged over batches."""
+    from paddle_tpu_torch.distributed.embedding import hash_bucket
+    shares = [float(hash_bucket(b["sparse"], DEEPFM_ROWS, True).unique()
+                    .numel()) / b["sparse"].numel() for b in batches]
+    return float(np.mean(shares))
+
+
+def deepfm_train(torch, batches, seed, mesh=None, capture_on=True):
+    """DeepFM (hashed ids, 2**24 rows) trained by ``compile_train_step``
+    with Adam(1e-3) and the binary cross-entropy over ``batches``, capture
+    on or off: the losses, host ms a step (ending in the loss's read), the
+    capture tier's counters, the program, the U1/U2 launches and comms
+    sites of the run, memory_stats and the peak."""
+    from paddle_tpu_torch.distributed import comms
+    from paddle_tpu_torch.jit import capture
+    from paddle_tpu_torch.models import DeepFM
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import compile_train_step
+    release(torch)
+    capture.set_step_capture_enabled(capture_on)
+    try:
+        model = DeepFM(DEEPFM_ROWS, hash_ids=True, device=DEVICE, seed=seed,
+                       mesh=mesh)
+        opt = Adam(learning_rate=1e-3, parameters=model.parameters())
+        step = compile_train_step(
+            model, lambda m, b: F.binary_cross_entropy_with_logits(
+                m(b["sparse"], b["dense"]), b["y"]), opt, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        capture.capture_clear()
+        comms.comm_clear()
+        mt.multi_tensor_sumsq_finite.launches = 0   # the run starts here
+        mt.multi_tensor_adam.launches = 0
+        losses, step_ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            losses.append(float(step(b)))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        prog = step.captured_program
+        out = {"losses": losses, "step_ms": step_ms,
+               "capture": {k: v for k, v in capture.capture_info().items()
+                           if k != "enabled"},
+               "program_kernels": None if prog is None
+               else prog.kernel_launches(),
+               "program_ops": None if prog is None else prog.num_ops,
+               "comm_tagged": None if prog is None
+               else prog.pass_report.comm_tagged,
+               "launches": {
+                   "multi_tensor_sumsq": mt.multi_tensor_sumsq_finite.launches,
+                   "multi_tensor_adam": mt.multi_tensor_adam.launches},
+               "memory_stats": step.memory_stats(batches[0])._asdict(),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "params": sum(p.numel() for p in model.parameters()),
+               "sites": comm_sites(comms, len(batches)),
+               "shards": model.emb_factor.shards}
+    finally:
+        capture.set_step_capture_enabled(True)
+    del model, opt, step
+    release(torch)
+    return out
+
+
+def loss_spread(a, b) -> float:
+    """Largest relative difference of two loss lists."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def job_deepfm_dp(torch, rank, seed):
+    """DeepFM over a dp mesh of every rank, each its rows of both tables
+    and ``DEEPFM_BATCH`` rows of each global batch: exact (capture on:
+    a graph over NCCL, a counted gloo bailout), then inside
+    ``comms.quantized("int8")``."""
+    from paddle_tpu_torch.distributed import comms, get_world_size
+    from paddle_tpu_torch.parallel import init_mesh
+    world = get_world_size()
+    mesh = init_mesh({"dp": world})
+    batches = deepfm_batches(torch, seed, DEEPFM_MESH_STEPS,
+                             DEEPFM_BATCH * world)
+    exact = deepfm_train(torch, batches, seed, mesh=mesh)
+    with comms.quantized("int8"):
+        quant = deepfm_train(torch, batches, seed, mesh=mesh)
+    return {"rank": rank, "exact": exact, "int8": quant}
+
+
+MESH_JOBS["deepfm_dp"] = job_deepfm_dp
+
+
+def phase_deepfm(torch, args):
+    """DeepFM at deepfm.py's default widths over 2**24 hashed rows, batch
+    ``DEEPFM_BATCH`` a rank, Adam(1e-3). One card: ``DEEPFM_WARMUP +
+    DEEPFM_STEPS`` steps over ``DEEPFM_CYCLE`` batches in turn, captured (one
+    CUDA graph a step: 0 bailouts, one replay a step after the first, U1/U2
+    once a step through the replays) and the same steps eager
+    (``PT_STEP_CAPTURE=0``'s switch), the losses equal (bitwise, else within
+    two eager runs' spread), finite and falling (the last cycle's mean below
+    the first's). Then the mesh: over gloo 2 ranks sharing the card (the step
+    bails out of capture, counted; the exchange's sites recorded; the losses
+    equal dp1's on the same global batches at DEEPFM_LOSS_RTOL; int8: rows wire
+    / logical <= 0.27, last loss within 10% of exact), or over NCCL 4 ranks a
+    card each (the step captured, with dp1's gates)."""
+    t0 = time.perf_counter()
+    backend = args.mesh_backend
+    world = 2 if backend == "gloo" else 4
+    n = DEEPFM_WARMUP + DEEPFM_STEPS
+    batches = deepfm_batches(torch, args.seed, n, DEEPFM_BATCH,
+                             DEEPFM_CYCLE)
+    distinct = deepfm_distinct(batches[:DEEPFM_CYCLE])
+    cap = deepfm_train(torch, batches, args.seed)
+    eager = deepfm_train(torch, batches, args.seed, capture_on=False)
+    spread, exact_eq = 0.0, cap["losses"] == eager["losses"]
+    if not exact_eq:
+        again = deepfm_train(torch, batches, args.seed, capture_on=False)
+        spread = loss_spread(again["losses"], eager["losses"])
+        check(loss_spread(cap["losses"], eager["losses"]) <= 2 * spread,
+              f"DeepFM captured losses {cap['losses']} vs eager "
+              f"{eager['losses']}: beyond two eager runs' spread {spread}")
+    ls = cap["losses"]
+    check(all(np.isfinite(ls)) and np.mean(ls[-DEEPFM_CYCLE:])
+          < np.mean(ls[:DEEPFM_CYCLE]),
+          f"DeepFM losses not finite and falling over the batch cycle: {ls}")
+    info = cap["capture"]
+    check(info["bailouts"] == 0 and info["lowerings"] == 1
+          and info["hits"] == n - 1 and info["fallback_calls"] == 0,
+          f"DeepFM dp1 not one graph replayed a step: {info}")
+    check(cap["launches"] == {"multi_tensor_sumsq": n,
+                              "multi_tensor_adam": n},
+          f"DeepFM U1/U2 launches {cap['launches']} in {n} steps")
+    check(cap["program_kernels"] == {"multi_tensor_sumsq_finite": 1,
+                                     "multi_tensor_adam": 1},
+          f"kernels inside the graph: {cap['program_kernels']}")
+    p50 = {k: float(np.percentile(r["step_ms"][DEEPFM_WARMUP:], 50))
+           for k, r in (("captured", cap), ("eager", eager))}
+    out = {"rows": DEEPFM_ROWS, "batch": DEEPFM_BATCH, "params": cap["params"],
+           "distinct_row_share": distinct,
+           "dp1": {"losses": ls, "eager_losses": eager["losses"],
+                   "bitwise_eager": exact_eq, "eager_spread": spread,
+                   "step_ms_p50": p50,
+                   "samples_per_s": {k: DEEPFM_BATCH / v * 1e3
+                                     for k, v in p50.items()},
+                   "capture": info, "program_ops": cap["program_ops"],
+                   "kernels_in_graph": cap["program_kernels"],
+                   "launches": cap["launches"],
+                   "memory_stats": cap["memory_stats"],
+                   "peak_mem_gib": {"captured": cap["peak_mem_gib"],
+                                    "eager": eager["peak_mem_gib"]}}}
+    log(f"deepfm dp1 ({DEEPFM_ROWS} rows, batch {DEEPFM_BATCH}, "
+        f"{distinct:.3f} of lookups distinct): step p50 captured "
+        f"{p50['captured']:.3f} ms vs eager {p50['eager']:.3f} ms, losses "
+        f"{'bitwise' if exact_eq else f'within {spread:.2e}'} eager, "
+        f"{info['hits']} replays, graph kernels {cap['program_kernels']}, "
+        f"memory {cap['memory_stats']}, peak {cap['peak_mem_gib']:.2f} GiB")
+    # the mesh, against dp1 on the same global batches
+    mb = deepfm_batches(torch, args.seed, DEEPFM_MESH_STEPS,
+                        DEEPFM_BATCH * world)
+    ref = deepfm_train(torch, mb, args.seed)["losses"]
+    del batches, mb
+    release(torch)
+    res = run_ranks("deepfm_dp", world, os.path.join(args.mesh_dir, "ranks"),
+                    args.seed, backend)
+    for r in res:
+        ex, q = r["exact"], r["int8"]
+        check(loss_spread(ex["losses"], ref) <= DEEPFM_LOSS_RTOL,
+              f"DeepFM dp{world} rank {r['rank']} losses {ex['losses']} vs "
+              f"dp1 {ref}")
+        check(ex["shards"] == world, f"tables split {ex['shards']} ways")
+        rows = ex["sites"].get("embedding.rows/all_to_all/dp")
+        check(rows is not None and rows["count"] == 2,
+              f"the exchange's rows leg: {rows}")
+        cinfo = ex["capture"]
+        if backend == "gloo":
+            check(cinfo["bailouts"] == 1 and cinfo["lowerings"] == 0
+                  and "gloo" in cinfo["last_bailout"],
+                  f"the gloo step's bailout: {cinfo}")
+        else:
+            check(cinfo["bailouts"] == 0 and cinfo["lowerings"] == 1
+                  and cinfo["hits"] == DEEPFM_MESH_STEPS - 1,
+                  f"DeepFM dp{world} not captured: {cinfo}")
+            check(ex["comm_tagged"] >= 4, f"comm_tagged {ex['comm_tagged']}")
+        qrows = q["sites"]["embedding.rows/all_to_all/dp"]
+        share = qrows["bytes_wire"] / qrows["bytes_logical"]
+        check(qrows["quantized"] == "int8" and share <= 0.27,
+              f"int8 rows leg: {qrows}")
+        check(abs(q["losses"][-1] - ex["losses"][-1])
+              / abs(ex["losses"][-1]) < 0.1,
+              f"int8 last loss {q['losses']} vs exact {ex['losses']}")
+    r0 = res[0]
+    out[f"dp{world}"] = {
+        "backend": backend, "losses": r0["exact"]["losses"], "dp1": ref,
+        "spread_vs_dp1": max(loss_spread(r["exact"]["losses"], ref)
+                             for r in res),
+        "capture": r0["exact"]["capture"],
+        "comm_tagged": r0["exact"]["comm_tagged"],
+        "step_ms_p50_rank0": float(np.percentile(r0["exact"]["step_ms"],
+                                                 50)),
+        "sites_rank0": r0["exact"]["sites"],
+        "int8": {"losses": r0["int8"]["losses"],
+                 "rows_wire_share": r0["int8"]["sites"][
+                     "embedding.rows/all_to_all/dp"]["bytes_wire"]
+                 / r0["int8"]["sites"]["embedding.rows/all_to_all/dp"][
+                     "bytes_logical"]},
+        "peak_mem_gib": [r["exact"]["peak_mem_gib"] for r in res]}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"deepfm dp{world} ({MESH_LABEL[backend]}): losses "
+        f"{out[f'dp{world}']['losses']} vs dp1 {ref} (spread "
+        f"{out[f'dp{world}']['spread_vs_dp1']:.2e}), capture "
+        f"{out[f'dp{world}']['capture']}, int8 rows wire share "
+        f"{out[f'dp{world}']['int8']['rows_wire_share']:.4f}; "
+        f"{out['phase_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase_elastic: a supervised data-parallel LLaMA job that loses a rank
 # ---------------------------------------------------------------------------
 
@@ -3200,9 +3491,11 @@ def elastic_oracle(torch, mesh_mod, snap, cursor, gen, seed, against):
 def elastic_worker(argv) -> int:
     """One member of the supervised job (a process of its own, so the
     crash event can SIGKILL it): ``nid root store_port c10d_port event
-    seed``. Records go to ``root/steps_<nid>.jsonl`` as they happen."""
-    nid, root, port, c10d_port, event, seed = (
-        argv[0], argv[1], int(argv[2]), int(argv[3]), argv[4], int(argv[5]))
+    seed backend``; over NCCL the parent shows it one card of its own.
+    Records go to ``root/steps_<nid>.jsonl`` as they happen."""
+    nid, root, port, c10d_port, event, seed, backend = (
+        argv[0], argv[1], int(argv[2]), int(argv[3]), argv[4], int(argv[5]),
+        argv[6])
     path = os.path.join(root, f"steps_{nid}.jsonl")
 
     def emit(rec):
@@ -3240,7 +3533,7 @@ def elastic_worker(argv) -> int:
         def world(n, rank, epoch):
             return mesh_mod.elastic_mesh(
                 {"dp": n}, rank, store=c10d, prefix=f"{event}/pg{epoch}",
-                timeout=ELASTIC_BUDGET_S, device=DEVICE, backend="gloo")
+                timeout=ELASTIC_BUDGET_S, device=DEVICE, backend=backend)
 
         mesh = mesh_mod.reform_world(world(2, sorted(members).index(nid), 0))
         model, step = elastic_build(torch, mesh, seed)
@@ -3364,8 +3657,11 @@ def elastic_start(args, event):
     cmd = [sys.executable, os.path.abspath(__file__)]
     run = {"event": event, "root": root, "store": store, "c10d": c10d,
            "procs": {}, "t0": time.perf_counter(), "t_wall0": time.time()}
-    for nid in ("a", "b"):
+    for i, nid in enumerate(("a", "b")):
         wenv = dict(env)
+        if args.mesh_backend == "nccl":       # one card a worker
+            wenv["CUDA_VISIBLE_DEVICES"] = str(
+                2 * ("crash", "drain").index(event) + i)
         if event == "crash" and nid == "b":
             wenv.update(PT_FAULTPOINT="supervisor.detect",
                         PT_FAULTPOINT_MODE="crash", PT_FAULTPOINT_HITS="1",
@@ -3373,7 +3669,8 @@ def elastic_start(args, event):
         with open(os.path.join(root, f"worker_{nid}.log"), "wb") as lf:
             run["procs"][nid] = subprocess.Popen(
                 cmd + ["--elastic-worker", nid, root, str(store.port),
-                       str(c10d.port), event, str(args.seed)],
+                       str(c10d.port), event, str(args.seed),
+                       args.mesh_backend],
                 env=wenv, stdout=lf, stderr=subprocess.STDOUT)
     return run
 
@@ -3526,14 +3823,23 @@ def elastic_event(run):
 def phase_elastic(torch, args):
     """The elastic tier on the card: the parent hosts the master store
     (native runtime) and the process groups' c10d store; two worker
-    processes share the card over gloo, each an ElasticManager and a
-    Supervisor over a dp2 TrainStep; the crash and the drain event run
-    at the same time, two fleets of two workers."""
+    processes, each an ElasticManager and a Supervisor over a dp2
+    TrainStep, share the card over gloo, or (``--mesh-backend nccl``)
+    each hold a card of their own over NCCL (the crash fleet cards 0-1,
+    the drain fleet 2-3); the crash and the drain event run at the same
+    time, two fleets of two workers. Over NCCL the survivor aborts the
+    old world's communicators before it re-forms the group
+    (``mesh.reform_world``)."""
     from paddle_tpu_torch.utils import native
     check(native.available(), "elastic: the native host runtime did not "
                               f"load: {native.load_error()}")
+    if args.mesh_backend == "nccl":
+        check(torch.cuda.device_count() >= 4,
+              f"the NCCL elastic form needs 4 cards, found "
+              f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    out = {"card": args.card, "layers": ELASTIC_LAYERS,
+    out = {"card": args.card, "backend": args.mesh_backend,
+           "layers": ELASTIC_LAYERS,
            "seq": ELASTIC_SEQ, "batch_per_rank": ELASTIC_BATCH,
            "steps": ELASTIC_STEPS, "commit_every": ELASTIC_COMMIT_EVERY,
            "event_after_step": ELASTIC_EVENT_AFTER,
@@ -3582,6 +3888,9 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic-only", action="store_true",
                     help="build the kernels and run the elastic phase "
                          "alone")
+    ap.add_argument("--deepfm-only", action="store_true",
+                    help="build the kernels and run the DeepFM phase "
+                         "alone (with --elastic-only: both)")
     args = ap.parse_args(argv)
     # the mesh phase's ranks meet (FileStore) and leave their results here
     args.mesh_dir = os.path.join(os.path.dirname(args.out), "mesh") \
@@ -3623,13 +3932,18 @@ def main(argv=None) -> int:
     _build.library()
     log(f"built {', '.join(_build.SOURCES)} -> {_build.LIB_PATH} with nvcc "
         f"(sm_90a, one process per source) in {build_s:.1f}s")
-    if args.elastic_only:
-        elastic = phase_elastic(torch, args)
+    if args.elastic_only or args.deepfm_only:
+        alone = {}
+        if args.deepfm_only:
+            alone["deepfm"] = phase_deepfm(torch, args)
+            log(json.dumps({"deepfm": alone["deepfm"]}))
+        if args.elastic_only:
+            alone["elastic"] = phase_elastic(torch, args)
         if args.out:
             with open(args.out, "w", encoding="utf-8") as f:
                 json.dump({"card": card, "kind": kind, "build_s": build_s,
-                           "elastic": elastic}, f, indent=1)
-        log(f"chip_smoke --elastic-only total "
+                           **alone}, f, indent=1)
+        log(f"chip_smoke {' '.join(argv)} total "
             f"{time.perf_counter() - t_start:.1f}s")
         log(card)
         print(json.dumps({"ok": True, "device": {
@@ -3710,9 +4024,38 @@ def main(argv=None) -> int:
     training, training_fused = trained[False], trained[True]
     trainstep = phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM,
                                 mt, compile_train_step, GradScaler,
-                                ClipGradByGlobalNorm, AdamW)
+                                ClipGradByGlobalNorm, AdamW, capture)
     gc.collect()
     torch.cuda.empty_cache()
+    eager_ts = phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM,
+                               mt, compile_train_step, GradScaler,
+                               ClipGradByGlobalNorm, AdamW, capture,
+                               capture_on=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    good = [i for i in range(6) if i != 3]     # the inf step aside
+
+    def finite_losses(res):
+        return [res["losses"][i] for i in good]
+    trainstep["eager_losses"] = eager_ts["losses"]
+    trainstep["eager_step_ms"] = eager_ts["step_ms"]
+    trainstep["bitwise_eager"] = \
+        finite_losses(trainstep) == finite_losses(eager_ts)
+    trainstep["eager_spread"] = 0.0
+    if not trainstep["bitwise_eager"]:
+        again = phase_trainstep(torch, args, LlamaConfig, LlamaForCausalLM,
+                                mt, compile_train_step, GradScaler,
+                                ClipGradByGlobalNorm, AdamW, capture,
+                                capture_on=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainstep["eager_spread"] = loss_spread(finite_losses(again),
+                                                finite_losses(eager_ts))
+        check(loss_spread(finite_losses(trainstep), finite_losses(eager_ts))
+              <= 2 * trainstep["eager_spread"],
+              f"captured TrainStep losses {trainstep['losses']} vs eager "
+              f"{eager_ts['losses']}: beyond two eager runs' spread")
+    deepfm = phase_deepfm(torch, args)
     recompute = phase_recompute(torch, args, LlamaConfig, LlamaForCausalLM,
                                 fa)
     mesh = phase_mesh(torch, args, LlamaConfig, LlamaForCausalLM,
@@ -3816,6 +4159,8 @@ def main(argv=None) -> int:
             "launches": trainstep["launches"][name.replace("_finite", "")],
             "train_launches": per_step[name.replace("_finite", "")]
             * training["steps"],
+            "deepfm_launches": deepfm["dp1"]["launches"][
+                name.replace("_finite", "")],
             "mesh_launches_per_step": {
                 "dp2_mp2_each_rank": mesh["dp2_mp2"]["launches_per_step"][
                     name.replace("_finite", "")],
@@ -3847,13 +4192,14 @@ def main(argv=None) -> int:
                        "decode_profile": profile, "training": training,
                        "spec": spec, "prefix": prefix, "chunked": chunked,
                        "gateway": gateway, "mesh": mesh,
-                       "elastic": elastic,
+                       "elastic": elastic, "deepfm": deepfm,
                        "recompute": recompute, **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_fused": training_fused}))
     log(json.dumps({"trainstep": trainstep}))
     log(json.dumps({"recompute": recompute}))
+    log(json.dumps({"deepfm": deepfm}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"elastic": elastic}))
     log(json.dumps(kernels))

@@ -9,7 +9,12 @@
 //    paddle_tpu/optimizer/optimizers.py:63-76 over lists p, g, m, v of one
 //    dtype, in place, with optional device scalars inv_scale and clip_scale
 //    multiplied into the grads first, and a device flag under which nothing
-//    is written. One launch for up to kAdamMax tensors.
+//    is written. The learning rate (fp32) and the step count (int32) are
+//    read from 0-dim device tensors, and the bias corrections 1 - beta**t
+//    are taken from them on the card (powf in fp32, as the plain rule's
+//    torch.pow and the JAX rule's float32 power), so a CUDA graph that
+//    holds the launch reads the values written before each replay. One
+//    launch for up to kAdamMax tensors.
 //
 // Neither replaces a Pallas kernel. In the JAX package XLA fuses this work
 // into one program: the optimizer's one jitted update
@@ -244,17 +249,24 @@ struct AdamTable {
   int count;
 };
 
-// Host scalars, each already rounded to the parameters' dtype (the wrapper
-// computes them as the plain rule does: adam_scalars).
+// The rule's constants, each already rounded to the parameters' dtype (the
+// wrapper computes them as the plain rule does: adam_scalars), and the
+// betas in fp32 for the bias corrections.
 struct AdamScalars {
-  float lr, b1, omb1, b2, omb2, bc1, bc2, eps, wd;
+  float b1_32, b2_32, b1, omb1, b2, omb2, eps, wd;
   int decoupled;
+};
+
+// The step's learning rate and bias corrections, each rounded to T.
+struct AdamStep {
+  float lr, bc1, bc2;
 };
 
 // One element, in the plain rule's op order, each op rounded to T.
 template <typename T>
 __device__ __forceinline__ void adam_elem(T& pe, T ge, T& me, T& ve,
-                                          const AdamScalars& s, bool has_inv,
+                                          const AdamScalars& s,
+                                          const AdamStep& k, bool has_inv,
                                           float inv, bool has_clip,
                                           float clip) {
   float g = Num<T>::to(ge);
@@ -270,11 +282,11 @@ __device__ __forceinline__ void adam_elem(T& pe, T ge, T& me, T& ve,
       __fadd_rn(rnd<T>(__fmul_rn(s.b2, Num<T>::to(ve))),
                 rnd<T>(__fmul_rn(s.omb2, rnd<T>(__fmul_rn(g, g))))));
   const float den = rnd<T>(
-      __fadd_rn(rnd<T>(__fsqrt_rn(rnd<T>(__fdiv_rn(v, s.bc2)))), s.eps));
-  float upd = rnd<T>(__fdiv_rn(rnd<T>(__fdiv_rn(m, s.bc1)), den));
+      __fadd_rn(rnd<T>(__fsqrt_rn(rnd<T>(__fdiv_rn(v, k.bc2)))), s.eps));
+  float upd = rnd<T>(__fdiv_rn(rnd<T>(__fdiv_rn(m, k.bc1)), den));
   if (decay && s.decoupled)
     upd = rnd<T>(__fadd_rn(upd, rnd<T>(__fmul_rn(s.wd, p))));
-  pe = Num<T>::from(__fsub_rn(p, rnd<T>(__fmul_rn(s.lr, upd))));
+  pe = Num<T>::from(__fsub_rn(p, rnd<T>(__fmul_rn(k.lr, upd))));
   me = Num<T>::from(m);
   ve = Num<T>::from(v);
 }
@@ -282,9 +294,16 @@ __device__ __forceinline__ void adam_elem(T& pe, T ge, T& me, T& ve,
 template <typename T>
 __global__ void __launch_bounds__(kThreads) adam_kernel(
     const __grid_constant__ AdamTable tab, const AdamScalars s,
+    const float* __restrict__ lr_ptr, const int* __restrict__ step_ptr,
     const float* __restrict__ inv_ptr, const float* __restrict__ clip_ptr,
     const int* __restrict__ finite) {
   if (finite != nullptr && *finite == 0) return;  // a skipped step
+  // the JAX rule: t = step as float32, (1 - beta ** t) in float32, then
+  // rounded to the dtype; lr.astype(dtype)
+  const float steps = __int2float_rn(*step_ptr);
+  const AdamStep k{rnd<T>(*lr_ptr),
+                   rnd<T>(__fsub_rn(1.f, powf(s.b1_32, steps))),
+                   rnd<T>(__fsub_rn(1.f, powf(s.b2_32, steps)))};
   const int b = blockIdx.x;
   const int t = find_tensor(tab.start, tab.count, b);
   const long long lo = static_cast<long long>(b - tab.start[t]) * kChunk;
@@ -315,9 +334,9 @@ __global__ void __launch_bounds__(kThreads) adam_kernel(
       T* em = reinterpret_cast<T*>(&rm);
       T* ev = reinterpret_cast<T*>(&rv);
 #pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        adam_elem<T>(ep[k], eg[k], em[k], ev[k], s, has_inv, inv, has_clip,
-                     clip);
+      for (int e = 0; e < VEC; ++e)
+        adam_elem<T>(ep[e], eg[e], em[e], ev[e], s, k, has_inv, inv,
+                     has_clip, clip);
       __stcs(reinterpret_cast<uint4*>(p + j), rp);
       __stcs(reinterpret_cast<uint4*>(m + j), rm);
       __stcs(reinterpret_cast<uint4*>(v + j), rv);
@@ -326,7 +345,7 @@ __global__ void __launch_bounds__(kThreads) adam_kernel(
   }
   for (long long j = i + threadIdx.x; j < hi; j += kThreads) {
     T pe = p[j], me = m[j], ve = v[j];
-    adam_elem<T>(pe, g[j], me, ve, s, has_inv, inv, has_clip, clip);
+    adam_elem<T>(pe, g[j], me, ve, s, k, has_inv, inv, has_clip, clip);
     p[j] = pe;
     m[j] = me;
     v[j] = ve;
@@ -397,12 +416,15 @@ int pt_multi_tensor_sumsq_finite(const void* const* g, const long long* n,
 }
 
 // Returns 0 with nothing launched when every tensor is empty.
+// lr: a 0-dim fp32 device tensor; step: a 0-dim int32 device tensor.
 int pt_multi_tensor_adam(void* const* p, const void* const* g, void* const* m,
                          void* const* v, const long long* n, int count,
-                         int dtype, float lr, float b1, float omb1, float b2,
-                         float omb2, float bc1, float bc2, float eps, float wd,
-                         int decoupled, const float* inv, const float* clip,
+                         int dtype, float b1_32, float b2_32, float b1,
+                         float omb1, float b2, float omb2, float eps,
+                         float wd, int decoupled, const float* lr,
+                         const int* step, const float* inv, const float* clip,
                          const int* finite, void* stream) {
+  if (lr == nullptr || step == nullptr) return cudaErrorInvalidValue;
   if (count < 0 || count > kAdamMax) return cudaErrorInvalidValue;
   AdamTable tab;
   tab.count = count;
@@ -416,20 +438,21 @@ int pt_multi_tensor_adam(void* const* p, const void* const* g, void* const* m,
     tab.v[t] = v[t];
     tab.n[t] = n[t];
   }
-  const AdamScalars s{lr, b1, omb1, b2, omb2, bc1, bc2, eps, wd, decoupled};
+  const AdamScalars s{b1_32, b2_32, b1, omb1, b2, omb2, eps, wd, decoupled};
   const int grid = static_cast<int>(chunks);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      adam_kernel<float><<<grid, kThreads, 0, st>>>(tab, s, inv, clip,
-                                                    finite);
+      adam_kernel<float><<<grid, kThreads, 0, st>>>(tab, s, lr, step, inv,
+                                                    clip, finite);
       break;
     case kF16:
-      adam_kernel<__half><<<grid, kThreads, 0, st>>>(tab, s, inv, clip,
-                                                     finite);
+      adam_kernel<__half><<<grid, kThreads, 0, st>>>(tab, s, lr, step, inv,
+                                                     clip, finite);
       break;
     case kBF16:
-      adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(tab, s, inv, clip,
+      adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(tab, s, lr, step,
+                                                            inv, clip,
                                                             finite);
       break;
     default:

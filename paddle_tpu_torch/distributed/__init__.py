@@ -10,13 +10,14 @@ the ``sharding`` facade, sharded checkpoints (``checkpoint``) and their
 durable generations (``CheckpointManager``), crash and fault injection
 (``chaos``), and the elastic tier: the ``TCPStore`` on the host runtime,
 ``rpc``, live resharding (``reshard``), the elastic ``Supervisor`` and the
-launcher with its elastic membership (``launch``). The auto-parallel API,
-the sharded embedding and the gloo compat names wait for later slices
-(ROADMAP.md).
+launcher with its elastic membership (``launch``), and the row-sharded
+embedding tables (``embedding``). The auto-parallel API and the gloo
+compat names wait for later slices (ROADMAP.md).
 """
 from . import chaos  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import comms  # noqa: F401
+from . import embedding  # noqa: F401
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
 from .collective import (  # noqa: F401

@@ -17,6 +17,6 @@ from .quantize import (  # noqa: F401
     wire_bytes,
 )
 from .schedule import (  # noqa: F401
-    CommOp, CommSchedule, comm_clear, comm_info, current_schedule, record,
-    step_schedule,
+    CommOp, CommSchedule, comm_clear, comm_info, current_schedule,
+    held_records, observed_records, record, replay_records, step_schedule,
 )

@@ -216,16 +216,33 @@ _RED = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "avg": dist.ReduceOp.SUM}
 
 
-# what a backend says when a peer died (its socket closed or reset) or the
-# group's timeout fired while a collective waited on it
+# what a backend says when a peer died (its socket closed or reset; NCCL:
+# a remote error, the watchdog's abort) or the group's timeout fired while
+# a collective waited on it
 _PEER_LOST = re.compile(r"(?i)connection (closed|reset|refused)|by peer|"
-                        r"timed? ?out|broken pipe|aborted|socket")
+                        r"timed? ?out|timing out|broken pipe|aborted|socket|"
+                        r"remote process|ncclRemoteError")
+
+
+class _Issuing(threading.local):
+    depth = 0
+
+
+_issuing = _Issuing()
+
+
+def issuing() -> bool:
+    """Whether this thread is inside one of this layer's
+    ``torch.distributed`` calls (the capture tier's lint tells a routed
+    collective from an unscheduled one by it)."""
+    return _issuing.depth > 0
 
 
 @contextmanager
 def _peer_guard(kind: str, lk: Link):
     """Raise a backend's lost-peer error inside a collective as the typed
     ``CommTimeout`` (the process group's timeout is the budget)."""
+    _issuing.depth += 1
     try:
         yield
     except RuntimeError as e:
@@ -234,6 +251,8 @@ def _peer_guard(kind: str, lk: Link):
         raise CommTimeout(f"{kind} over {lk.label} ({lk.backend})",
                           comm_deadline(),
                           detail=f"a peer is gone: {str(e)[:300]}") from e
+    finally:
+        _issuing.depth -= 1
 
 
 def _t_all_reduce(t: torch.Tensor, lk: Link, op: str, st: _Stager):

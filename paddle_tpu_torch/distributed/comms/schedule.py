@@ -17,16 +17,25 @@ Counterpart of ``paddle_tpu/distributed/comms/schedule.py``:
 
 The JAX package records a collective once per trace; here every eager
 call records, so the counts are per call. Each rank keeps its own record.
+A captured step (``jit.capture.lower_step``) observes the records of its
+warm-up (``observed_records``), holds back those its graph capture issues
+(``held_records``: they run only when the graph replays) and adds them
+again at every replay (``replay_records``), so the counts stay per call.
+Both hooks are process-wide while they are open, not per thread: a step's
+backward runs on autograd's device thread on the card, and its
+collectives (an exchange's gradient push) belong to the step too.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 __all__ = ["CommOp", "CommSchedule", "current_schedule", "step_schedule",
-           "record", "comm_info", "comm_clear"]
+           "record", "comm_info", "comm_clear", "observed_records",
+           "held_records", "replay_records"]
 
 
 @dataclass
@@ -102,10 +111,58 @@ def step_schedule(label: str = "step"):
         _tls.schedule = prev
 
 
+class _Capture:
+    """The open capture hooks (any thread's records go to them)."""
+    observers: tuple = ()
+    held: Optional[List[CommOp]] = None
+
+
+@contextmanager
+def observed_records():
+    """A list that every CommOp recorded inside (by any thread) is also
+    appended to."""
+    seen: List[CommOp] = []
+    with _LOCK:
+        prev = _Capture.observers
+        _Capture.observers = prev + (seen,)
+    try:
+        yield seen
+    finally:
+        with _LOCK:
+            _Capture.observers = prev
+
+
+@contextmanager
+def held_records():
+    """A list that collects the CommOps issued inside (by any thread)
+    instead of recording them: a CUDA graph's capture issues collectives
+    that run only when it is replayed."""
+    held: List[CommOp] = []
+    with _LOCK:
+        prev = _Capture.held
+        _Capture.held = held
+    try:
+        yield held
+    finally:
+        with _LOCK:
+            _Capture.held = prev
+
+
+def replay_records(ops) -> None:
+    """Record each of ``ops`` again, as issued now (a graph replay)."""
+    for op in ops:
+        record(dataclasses.replace(op))
+
+
 def record(op: CommOp) -> CommOp:
     """Add one issued collective to the current schedule and the per-site
     aggregate, and emit a ``comm.op`` trace event."""
     with _LOCK:
+        if _Capture.held is not None:
+            _Capture.held.append(op)
+            return op
+        for seen in _Capture.observers:
+            seen.append(op)
         current_schedule().add(op)
         s = _SITES.setdefault(op.site, {
             "count": 0, "bytes_logical": 0, "bytes_wire": 0,

@@ -1,1 +1,3 @@
-"""Step capture (``jit.capture``): serving steps as CUDA graphs."""
+"""Step capture (``jit.capture``): serving steps and whole train steps as
+CUDA graphs; ``jit.program`` the record of a captured train step,
+``jit.passes`` its report and lint."""

@@ -1,4 +1,5 @@
-"""Step capture: one CUDA graph per call signature of a serving step.
+"""Step capture: one CUDA graph per call signature of a serving step,
+and one CUDA graph of a whole train step (``lower_step``).
 
 Counterpart of the step tier of ``paddle_tpu/jit/capture.py`` (:68-500).
 The JAX tier records a step once per input signature and lowers it to one
@@ -40,8 +41,46 @@ and never the CPU.
   ``eager_calls``. ``set_capture_backend`` substitutes another backend
   (the tests drive the signature, LRU and counter logic through one).
 
-Steps run under ``torch.inference_mode()``: a captured step is a serving
-step, not a training one.
+``capture_step`` steps run under ``torch.inference_mode()``: such a
+captured step is a serving step, not a training one.
+
+``lower_step(fn, example_args, inplace=(), name=None, *, hazards=())`` is
+the training tier (counterpart of capture.py:270-368, which
+``TrainStep`` builds through). The JAX function traces ``fn`` once over
+the example arguments without running it; an eager PyTorch step is only
+seen by running it, so here the example call IS the step's first call:
+
+- **warm-up**: ``fn(*example_args)`` runs eagerly, with autograd on, on
+  the capture stream under the sync guard, while a ``TorchDispatchMode``
+  records every op it dispatches, the kernel launches and the comms
+  records (``jit.program.StepRecord``). Its result is the dispatcher's
+  ``first_result``.
+- **capture**: the same call recorded as ONE ``torch.cuda.CUDAGraph``
+  (forward, backward, clip, update); later calls of that signature replay
+  it. ``inplace`` names the positional arguments held by address (a train
+  step's parameters, optimizer state, health scalars, learning rate and
+  step count: the caller writes the new lr and step into those tensors
+  before a call); every other tensor is copied into a static input. A
+  replay repeats the kernels' launch counts and the comms records the
+  capture held back.
+- **another signature** (the arguments' shapes, dtypes and devices, the
+  inplace addresses, Python values; and the comms regime, autocast and
+  grad mode the call runs under) runs eagerly, counted in
+  ``fallback_calls`` (the JAX plain-jit path), and the lint's
+  ``recompile-hazard`` records it.
+- **a failure** (a host sync in the warm-up, a capture error) is a
+  bailout with its reason in ``capture_info()``; the program is None and
+  the step runs eagerly from then on, on the card: never on the CPU or a
+  plain kernel. ``hazards`` are reasons the caller knows a CUDA graph
+  cannot hold the step (a gloo collective goes through the host); a
+  backend that records graphs refuses them before the warm-up, counted
+  the same way (a backend that re-runs the step, as the tests' does,
+  ignores them unless it sets ``holds_graphs``).
+
+It returns ``(dispatcher, program)``: the program is a
+``jit.program.CapturedProgram`` (record, ``jit.passes.PassReport``,
+shapes, donated positions), None after a bailout or with the tier off;
+the lint (``jit.passes.lint``) files its findings under ``name``.
 
 Env knobs:
 - ``PT_STEP_CAPTURE``      (default 1)  0 turns the tier off (eager)
@@ -57,12 +96,14 @@ from typing import Callable, Optional
 
 import torch
 from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..utils.deadline import env_int
 
 __all__ = ["capture_step", "CapturedStep", "CudaGraphBackend", "HostSync",
            "capture_info", "capture_clear", "set_step_capture_enabled",
-           "step_capture_enabled", "set_capture_backend"]
+           "step_capture_enabled", "set_capture_backend", "lower_step",
+           "LoweredStep"]
 
 _enabled = os.environ.get("PT_STEP_CAPTURE", "1").strip().lower() \
     not in ("0", "false", "off")
@@ -101,6 +142,8 @@ class _SyncGuard(TorchFunctionMode):
 class CudaGraphBackend:
     """The card's backend: warm-up on the capture stream, then
     ``torch.cuda.graph`` into one pool shared by the wrapper's graphs."""
+
+    holds_graphs = True
 
     def __init__(self):
         self._stream = None
@@ -289,7 +332,49 @@ def _clone(x):
     return x.clone() if isinstance(x, torch.Tensor) else x
 
 
-class CapturedStep:
+class _GraphHolder:
+    """What a serving wrapper and a lowered train step share: the backend
+    choice, the call signature and a replay. Needs ``_inplace`` and
+    ``_backend``."""
+
+    def _backend_for(self, leaves):
+        if not _enabled:
+            return None
+        if _backend_override is not None:
+            return _backend_override
+        t = next((x for x in leaves if isinstance(x, torch.Tensor)), None)
+        if t is None or t.device.type != "cuda":
+            return None
+        if self._backend is None:
+            self._backend = CudaGraphBackend()
+        return self._backend
+
+    def _signature(self, leaves, spans):
+        parts = [spans]
+        i = 0
+        for pos, span in enumerate(spans):
+            inplace = pos in self._inplace and not isinstance(span, tuple)
+            n = span[1] if isinstance(span, tuple) else span
+            for leaf in leaves[i:i + n]:
+                k = _leaf_key(leaf, inplace)
+                if k is None:
+                    return None
+                parts.append(k)
+            i += n
+        return tuple(parts)
+
+    def _replay(self, entry: _Entry, backend, leaves):
+        for p, static in entry.statics:
+            src = leaves[p]
+            if src.data_ptr() != static.data_ptr():
+                static.copy_(src)
+        backend.replay(entry.graph)
+        for c, d in entry.deltas:
+            c.launches += d
+        return entry.out
+
+
+class CapturedStep(_GraphHolder):
     """A step function with one CUDA graph per call signature.
 
     Call it exactly like ``fn``. ``inplace`` names the positional
@@ -352,31 +437,6 @@ class CapturedStep:
             _count(self, "hits")
             return self._replay(entry, backend, leaves)
 
-    def _backend_for(self, leaves):
-        if not _enabled:
-            return None
-        if _backend_override is not None:
-            return _backend_override
-        t = next((x for x in leaves if isinstance(x, torch.Tensor)), None)
-        if t is None or t.device.type != "cuda":
-            return None
-        if self._backend is None:
-            self._backend = CudaGraphBackend()
-        return self._backend
-
-    def _signature(self, leaves, spans):
-        parts = [spans]
-        i = 0
-        for pos, span in enumerate(spans):
-            inplace = pos in self._inplace and not isinstance(span, tuple)
-            n = span[1] if isinstance(span, tuple) else span
-            for leaf in leaves[i:i + n]:
-                k = _leaf_key(leaf, inplace)
-                if k is None:
-                    return None
-                parts.append(k)
-            i += n
-        return tuple(parts)
 
     def _fallback(self, args, kwargs):
         _count(self, "fallback_calls")
@@ -441,15 +501,6 @@ class CapturedStep:
             if isinstance(s, torch.Tensor) and s is not x)
         entry.deltas = tuple((c, d) for c, d in deltas if d)
 
-    def _replay(self, entry: _Entry, backend, leaves):
-        for p, static in entry.statics:
-            src = leaves[p]
-            if src.data_ptr() != static.data_ptr():
-                static.copy_(src)
-        backend.replay(entry.graph)
-        for c, d in entry.deltas:
-            c.launches += d
-        return entry.out
 
 
 def capture_step(fn: Optional[Callable] = None, *, inplace=(),
@@ -462,3 +513,251 @@ def capture_step(fn: Optional[Callable] = None, *, inplace=(),
     if fn is not None:
         return wrap(fn)
     return wrap
+
+
+# ---------------------------------------------------------------------------
+# the training tier: one CUDA graph of a whole step
+# ---------------------------------------------------------------------------
+
+class _Recorder(TorchDispatchMode):
+    """Logs every op a warm-up dispatches into a ``StepRecord``: its name,
+    a ``torch.distributed`` collective issued outside ``comms``, and an
+    in-place write to a tensor whose storage is one of ``copied`` (the
+    arguments a replay copies)."""
+
+    def __init__(self, record, copied):
+        super().__init__()
+        self.record = record
+        self.copied = copied
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = str(func.overloadpacket)
+        rec = self.record
+        rec.ops.append(name)
+        if func.namespace == "c10d":
+            from ..distributed.comms.api import issuing
+            if not issuing():
+                rec.unscheduled.append(name)
+        if self.copied and func._schema.is_mutable:
+            for i, a in enumerate(func._schema.arguments):
+                if a.alias_info is None or not a.alias_info.is_write:
+                    continue
+                v = args[i] if i < len(args) else kwargs.get(a.name)
+                if isinstance(v, torch.Tensor) and \
+                        v.untyped_storage().data_ptr() in self.copied:
+                    rec.copied_writes.append(name)
+        return func(*args, **kwargs)
+
+
+def _regime() -> tuple:
+    """What a captured train step depends on beyond its arguments: the
+    comms regime (a step captured exact must not serve a quantized call),
+    autocast and grad mode (the JAX tier keys its lowering on amp and
+    comms the same way)."""
+    from ..distributed.comms.api import comms_cache_key
+    return (comms_cache_key(), torch.is_grad_enabled(),
+            torch.is_autocast_enabled("cuda"),
+            torch.is_autocast_enabled("cpu"))
+
+
+def _storages(leaves) -> set:
+    return {x.untyped_storage().data_ptr() for x in leaves
+            if isinstance(x, torch.Tensor) and x.numel()}
+
+
+class LoweredStep(_GraphHolder):
+    """The dispatcher ``lower_step`` returns: call it as ``fn``. One CUDA
+    graph for the example's signature, eager for any other."""
+
+    def __init__(self, fn: Callable, example_args, inplace=(),
+                 name: Optional[str] = None, hazards=()):
+        self._fn = fn
+        self._inplace = frozenset(int(i) for i in inplace)
+        self._hazards = tuple(h for h in hazards if h)
+        self.__name__ = name or getattr(fn, "__name__", "step")
+        self.counts = dict.fromkeys(_COUNTS, 0)
+        self._backend = None
+        self._entry: Optional[_Entry] = None
+        self._sig = None
+        self._comm_ops: tuple = ()
+        self._other_sigs: set = set()
+        self.program = None
+        self.reason = ""
+        from .program import StepRecord
+        self.record = StepRecord()
+        _WRAPPERS.add(self)
+        self.first_result = self._lower(tuple(example_args))
+
+    # ---- observability (capture_info reads these) ----
+    def cache_info(self) -> dict:
+        with _LOCK:
+            counts = dict(self.counts)
+        return {"signatures": 1 + len(self._other_sigs), **counts}
+
+    def bailout_reason(self) -> str:
+        return self.reason
+
+    def graphs(self) -> int:
+        return int(self._entry is not None)
+
+    def pool_bytes(self) -> Optional[int]:
+        b = self._backend
+        return 0 if b is None else b.pool_bytes()
+
+    # ---- the first call ----
+    def _bail(self, reason: str) -> None:
+        self.reason = reason[:200]
+        self._entry = None
+        _count(self, "bailouts")
+        with _LOCK:
+            _TOTALS.last_bailout = f"{self.__name__}: {self.reason}"
+
+    def _full_signature(self, leaves, spans):
+        sig = self._signature(leaves, spans)
+        return None if sig is None else (sig, _regime())
+
+    def _lower(self, args):
+        leaves, spans = _flat_call(args, {})
+        backend = self._backend_for(leaves)
+        if backend is None:
+            _count(self, "eager_calls")
+            return self._fn(*args)
+        self._backend = backend
+        self._sig = self._full_signature(leaves, spans)
+        if self._sig is None:
+            self._bail("an argument is neither a tensor nor hashable")
+            return self._fallback(args)
+        if self._hazards and getattr(backend, "holds_graphs", False):
+            self._bail("; ".join(self._hazards))
+            return self._fallback(args)
+        from ..distributed.comms import observed_records
+        copied = _storages(leaves) - _storages(
+            [x for i, a in enumerate(args) if i in self._inplace
+             for x in _flat_call((a,), {})[0]])
+        counters = _kernel_counters()
+        before = [c.launches for c in counters]
+        try:
+            with observed_records() as seen, _SyncGuard(), \
+                    _Recorder(self.record, copied):
+                out = backend.warmup(self._fn, args, {})
+        except RuntimeError as e:   # HostSync, or the card's sync check
+            self.record.host_syncs.append(f"{type(e).__name__}: {e}"[:200])
+            self._bail(f"{type(e).__name__}: {e}")
+            self._lint()
+            return self._fallback(args)
+        self.record.kernels = {
+            c.__name__: c.launches - b for c, b in zip(counters, before)
+            if c.launches != b}
+        self.record.comm_ops = list(seen)
+        try:
+            self._capture(backend, args)
+        except RuntimeError as e:
+            self._bail(f"{type(e).__name__}: {e}")
+            self._lint()
+            return out
+        self.program = self._program(args, leaves, spans, out)
+        _count(self, "lowerings")
+        self._lint()
+        return out
+
+    def _capture(self, backend, args) -> None:
+        from ..distributed.comms import held_records
+        entry = _Entry()
+        s_args = tuple(a if i in self._inplace else _map(_clone, a)
+                       for i, a in enumerate(args))
+        s_leaves, _ = _flat_call(s_args, {})
+        leaves, _ = _flat_call(args, {})
+        counters = _kernel_counters()
+        before = [c.launches for c in counters]
+        try:
+            with held_records() as held:
+                graph, out = backend.capture(self._fn, s_args, {})
+        finally:
+            deltas = [(c, c.launches - b) for c, b in zip(counters, before)]
+            for c, b in zip(counters, before):
+                c.launches = b
+        entry.graph, entry.out = graph, out
+        entry.statics = tuple(
+            (p, st) for p, (st, x) in enumerate(zip(s_leaves, leaves))
+            if isinstance(st, torch.Tensor) and st is not x)
+        entry.deltas = tuple((c, d) for c, d in deltas if d)
+        self._comm_ops = tuple(held)
+        self._entry = entry
+
+    def _program(self, args, leaves, spans, out):
+        from .passes import PassReport
+        from .program import CapturedProgram
+        donated, i = [], 0
+        for pos, n in enumerate(spans):
+            if pos in self._inplace:
+                donated += [j for j in range(i, i + n)
+                            if isinstance(leaves[j], torch.Tensor)]
+            i += n
+        report = PassReport(
+            comm_tagged=len(self.record.comm_ops),
+            donated_args=tuple(donated), eqns_before=len(self.record.ops),
+            eqns_after=len(self.record.ops), passes_run=["comm"])
+        outs, _ = _flat_call((out,), {})
+        prog = CapturedProgram(
+            self.__name__, self.record, report,
+            in_shapes=tuple(tuple(x.shape) for x in leaves
+                            if isinstance(x, torch.Tensor)),
+            out_shapes=tuple(tuple(x.shape) for x in outs
+                             if isinstance(x, torch.Tensor)),
+            donate=tuple(donated))
+        prog.pool_bytes = self.pool_bytes()
+        return prog
+
+    def _lint(self) -> None:
+        from .passes import lint
+        if lint.lint_enabled():
+            lint.record_lint(self.__name__, self.program or self.record)
+
+    # ---- later calls ----
+    def _fallback(self, args):
+        _count(self, "fallback_calls")
+        return self._fn(*args)
+
+    def __call__(self, *args):
+        leaves, spans = _flat_call(args, {})
+        entry = self._entry
+        sig = self._full_signature(leaves, spans) \
+            if self._backend is not None else None
+        if entry is not None and sig == self._sig:
+            _count(self, "hits")
+            out = self._replay(entry, self._backend, leaves)
+            if self._comm_ops:
+                from ..distributed.comms import replay_records
+                replay_records(self._comm_ops)
+            return out
+        if self._backend is None:
+            _count(self, "eager_calls")
+            return self._fn(*args)
+        if sig != self._sig and sig not in self._other_sigs:
+            self._other_sigs.add(sig)
+            self.record.signatures += 1
+            self._lint()
+        return self._fallback(args)
+
+    def release(self) -> None:
+        """Drop the graph (its pool goes with the last reference); later
+        calls run eagerly."""
+        self._entry = None
+
+
+def lower_step(fn: Callable, example_args, inplace=(),
+               name: Optional[str] = None, *, hazards=()):
+    """Run ``fn(*example_args)`` as the step's first call (the eager
+    warm-up), capture it as one CUDA graph, and return ``(dispatcher,
+    program)``: ``dispatcher(*args)`` replays the graph for the example's
+    signature and runs ``fn`` eagerly for any other;
+    ``dispatcher.first_result`` is the warm-up's result. ``program`` is a
+    ``jit.program.CapturedProgram``, or None when the tier is off, the
+    tensors are on the CPU (no override backend) or the capture bailed
+    out (``dispatcher.reason``, ``capture_info()``). ``inplace``: the
+    positional arguments held by address; ``hazards``: reasons a CUDA
+    graph cannot hold this step, which a graph backend refuses."""
+    step = LoweredStep(fn, example_args, inplace=inplace, name=name,
+                       hazards=hazards)
+    return step, step.program

@@ -88,9 +88,20 @@ class LlamaConfig:
                            max_position_embeddings=seq)
 
 
+def _offset_tensor(position_offset, device, dtype) -> torch.Tensor:
+    """A position offset (a number or a tensor) as a tensor of ``dtype``
+    on ``device``; a number is written by a fill there, not copied from
+    the host (a copy would sync the stream inside a captured step)."""
+    if isinstance(position_offset, torch.Tensor):
+        return position_offset.to(device=device, dtype=dtype)
+    if np.ndim(position_offset) == 0:
+        return torch.full((), position_offset, dtype=dtype, device=device)
+    return torch.as_tensor(position_offset, device=device).to(dtype)
+
+
 def _offsets(position_offset, b: int, device) -> torch.Tensor:
     """A scalar or ``[B]`` offset as an int64 ``[B]`` tensor on device."""
-    off = torch.as_tensor(position_offset, device=device).to(torch.int64)
+    off = _offset_tensor(position_offset, device, torch.int64)
     return off.reshape(-1).expand(b) if off.numel() == 1 else off.reshape(b)
 
 
@@ -103,7 +114,7 @@ def _rope(q, k, theta: float, position_offset=0):
     dev = q.device
     inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                         device=dev) / d))
-    off = torch.as_tensor(position_offset, device=dev).to(torch.float32)
+    off = _offset_tensor(position_offset, dev, torch.float32)
     pos = torch.arange(s, dtype=torch.float32, device=dev)[None, :] \
         + off.reshape(-1, 1)
     freqs = pos[:, :, None] * inv[None, None, :]          # [1|B, S, D/2]

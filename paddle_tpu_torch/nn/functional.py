@@ -1,12 +1,14 @@
-"""The functionals the LLaMA serving and training paths run.
+"""The functionals the LLaMA serving and training paths and DeepFM run.
 
 Counterparts of ``paddle_tpu/nn/functional/{norm,activation,common,
-attention,loss}.py``: ``rms_norm``, ``silu``, ``gelu``, ``linear`` (weights in
-Paddle's ``[in, out]`` layout, ``y = x @ W``), ``embedding``;
+attention,loss}.py``: ``rms_norm``, ``silu``, ``gelu``, ``relu``,
+``sigmoid``, ``linear`` (weights in Paddle's ``[in, out]`` layout,
+``y = x @ W``), ``embedding``;
 ``scaled_dot_product_attention`` (flash attention without a mask, the
 plain ``sdpa_ref`` with one), ``sdp_attention_ref`` and the Paddle
-``flash_attention`` shim; and ``cross_entropy`` (hard and soft labels,
-class weights, label smoothing, any class axis).
+``flash_attention`` shim; ``cross_entropy`` (hard and soft labels,
+class weights, label smoothing, any class axis) and
+``binary_cross_entropy_with_logits``.
 """
 from __future__ import annotations
 
@@ -16,9 +18,11 @@ import torch
 
 from ..ops.kernels.flash_attention import flash_attention as _flash
 
-__all__ = ["rms_norm", "silu", "gelu", "linear", "embedding", "sdpa_ref",
-           "sdp_attention_ref", "scaled_dot_product_attention",
-           "flash_attention", "cross_entropy"]
+__all__ = ["rms_norm", "silu", "gelu", "relu", "sigmoid", "linear",
+           "embedding", "sdpa_ref", "sdp_attention_ref",
+           "scaled_dot_product_attention",
+           "flash_attention", "cross_entropy",
+           "binary_cross_entropy_with_logits"]
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -45,6 +49,14 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     (activation.py:67)."""
     return torch.nn.functional.gelu(x, approximate="tanh" if approximate
                                     else "none")
+
+
+def relu(x: torch.Tensor, name=None) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def sigmoid(x: torch.Tensor, name=None) -> torch.Tensor:
+    return torch.sigmoid(x)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -185,3 +197,32 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def _reduce(v: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return torch.mean(v)
+    if reduction == "sum":
+        return torch.sum(v)
+    return v
+
+
+def binary_cross_entropy_with_logits(logit: torch.Tensor,
+                                     label: torch.Tensor, weight=None,
+                                     reduction: str = "mean",
+                                     pos_weight=None) -> torch.Tensor:
+    """The numerically stable form of loss.py:96-122, in its op order:
+    ``(1 - y) z + m + log(exp(-m) + exp(-z - m))`` with ``m = max(-z,
+    0)``; ``pos_weight`` scales the log term by ``(pw - 1) y + 1``;
+    ``weight`` multiplies each element's loss before the reduction."""
+    z, y = logit, label
+    max_val = torch.clamp_min(-z, 0.0)
+    soft = torch.log(torch.exp(-max_val) + torch.exp(-z - max_val))
+    if pos_weight is not None:
+        log_w = (pos_weight - 1.0) * y + 1.0
+        loss = (1 - y) * z + log_w * (soft + max_val)
+    else:
+        loss = (1 - y) * z + max_val + soft
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)

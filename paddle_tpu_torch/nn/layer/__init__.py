@@ -1,7 +1,7 @@
 """Counterpart of ``paddle_tpu.nn.layer``, cut to what the fleet's MoE
-layer builds its experts from: ``Linear`` (Paddle's ``[in, out]``
-weight), ``GELU``, ``Sequential`` and ``LayerList``. The rest of
+layer and DeepFM are built from: ``Linear`` (Paddle's ``[in, out]``
+weight), ``Embedding``, ``GELU``, ``Sequential`` and ``LayerList``. The rest of
 ``nn/layer/`` waits for a later slice (ROADMAP.md Queue 1)."""
 from .activation import GELU  # noqa: F401
-from .common import Linear  # noqa: F401
+from .common import Embedding, Linear  # noqa: F401
 from .container import LayerList, Sequential  # noqa: F401

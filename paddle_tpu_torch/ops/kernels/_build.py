@@ -162,9 +162,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pt_multi_tensor_sumsq_finite.argtypes = [
         pv, pll, ctypes.POINTER(ci), ci, vp, vp, vp, vp, ci, vp,
         ctypes.c_longlong, vp]
-    # p, g, m, v, n, count, dtype, 9 scalars, decoupled, inv, clip, finite
+    # p, g, m, v, n, count, dtype, 8 scalars, decoupled, lr, step, inv,
+    # clip, finite
     lib.pt_multi_tensor_adam.argtypes = [pv] * 4 + [pll, ci, ci] \
-        + [ctypes.c_float] * 9 + [ci, vp, vp, vp, vp]
+        + [ctypes.c_float] * 8 + [ci, vp, vp, vp, vp, vp, vp]
     for name in ("pt_flash_attention_fwd", "pt_flash_attention_bwd_dq",
                  "pt_flash_attention_bwd_dkv", "pt_fused_ce_fwd",
                  "pt_fused_ce_fwd_splits", "pt_fused_ce_bwd_dh",

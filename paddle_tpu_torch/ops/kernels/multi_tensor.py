@@ -22,8 +22,12 @@ moments, so it rounds otherwise):
   (``paddle_tpu/optimizer/optimizers.py:63-76``) over lists p, g, m, v,
   in place, after multiplying the grads by the optional device scalars
   ``inv_scale`` and then ``clip_scale``; under a device ``finite`` flag of
-  0 it writes nothing. Every op rounds as the plain rule's, so on the card
-  U2 equals ``multi_tensor_adam_ref`` bit for bit.
+  0 it writes nothing. The learning rate and the step count are 0-dim
+  device tensors (fp32 and int32; a Python number is written into one),
+  and the bias corrections are taken from the step on the device, so a
+  CUDA graph that holds the update reads the values of each replay. Every
+  op rounds as the plain rule's, so on the card U2 equals
+  ``multi_tensor_adam_ref`` bit for bit.
 
 Each wrapper takes its plain version (``*_ref``) for tensors on the CPU,
 and launches its kernel for tensors on the card, or raises: there is no
@@ -44,7 +48,7 @@ import torch
 from .flash_attention import _DTYPE_CODE, _device_gate, _launch
 
 __all__ = ["AdamScalars", "adam_scalars", "adam_rule", "round_to_dtype",
-           "true_div", "multi_tensor_sumsq_finite",
+           "device_scalar", "multi_tensor_sumsq_finite",
            "multi_tensor_sumsq_finite_ref", "multi_tensor_adam",
            "multi_tensor_adam_ref"]
 
@@ -53,49 +57,76 @@ SUMSQ_MAX, ADAM_MAX = 128, 80
 
 
 def round_to_dtype(x, dtype: torch.dtype) -> float:
-    """The scalar x rounded to float32 and then to dtype, as a Python
-    float: how the JAX rule's weakly typed scalars enter an op in the
-    parameter's dtype."""
-    return float(torch.tensor(float(np.float32(x)),
-                              dtype=torch.float32).to(dtype))
+    """The scalar x rounded to float32 and then to dtype (round to
+    nearest even), as a Python float: how the JAX rule's weakly typed
+    scalars enter an op in the parameter's dtype. Host arithmetic only (no
+    tensor: a captured step's guard would take a tensor's read for a host
+    sync)."""
+    f = np.float32(x)
+    if dtype == torch.float32 or np.isnan(f):
+        return float(f)
+    if dtype == torch.float16:
+        with np.errstate(over="ignore"):
+            return float(np.float16(f))
+    if dtype == torch.bfloat16:
+        b = int(np.array(f).view(np.uint32))
+        b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+        return float(np.array(b, dtype=np.uint32).view(np.float32))
+    return float(torch.tensor(float(f), dtype=torch.float32).to(dtype))
 
 
-def true_div(t: torch.Tensor, s: float) -> torch.Tensor:
-    """``t / s`` rounded once. PyTorch divides a CUDA tensor by a Python
-    scalar as ``t * (1 / s)``, an ulp off the quotient at times; a 0-dim
-    divisor on t's device divides on every device."""
-    return t / torch.full((), s, dtype=t.dtype, device=t.device)
+def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a 0-dim tensor of ``dtype`` on ``device``: a tensor is cast
+    and moved (no copy when it is one already), a Python number is written
+    by a fill on the device (no host-to-device copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(()).to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def pow_from_step(beta, t: torch.Tensor) -> torch.Tensor:
+    """``beta ** t`` in float32 on t's device (t a float32 0-dim tensor):
+    the JAX rule's weakly typed beta to the float32 step."""
+    return torch.pow(torch.full((), float(np.float32(beta)),
+                                dtype=torch.float32, device=t.device), t)
 
 
 class AdamScalars(NamedTuple):
-    """The rule's host scalars, each rounded to the parameters' dtype."""
-    lr: float
+    """The rule's scalars, each rounded to the parameters' dtype: the
+    constants as Python floats, the step's ``lr``, ``bc1`` and ``bc2`` as
+    0-dim tensors on the step's device."""
+    lr: torch.Tensor
     b1: float
     omb1: float        # 1 - beta1, taken in double, then rounded
     b2: float
     omb2: float
-    bc1: float         # 1 - beta1 ** step, in float32
-    bc2: float
+    bc1: torch.Tensor  # 1 - beta1 ** step, in float32
+    bc2: torch.Tensor
     eps: float
     wd: float
     decoupled: bool
 
 
 def adam_scalars(dtype: torch.dtype, lr, beta1, beta2, epsilon,
-                 weight_decay, step, decoupled) -> AdamScalars:
-    """The constants of one step of the rule for parameters of dtype: the
-    bias corrections as float32 powers on the host (a tensor copied to the
-    card would sync the stream), every constant as the op in dtype sees
-    it."""
-    t = np.float32(step)
-    bc1 = 1 - np.float32(beta1) ** t
-    bc2 = 1 - np.float32(beta2) ** t
-
+                 weight_decay, step, decoupled,
+                 device=None) -> AdamScalars:
+    """The scalars of one step of the rule for parameters of dtype, each
+    as the op in dtype sees it. ``lr`` and ``step`` are 0-dim tensors (or
+    numbers, written into such on ``device``, default theirs or the CPU),
+    and the bias corrections are float32 ``torch.pow`` on their device:
+    no host read, so a captured step reads each replay's values."""
     def r(x):
         return round_to_dtype(x, dtype)
-    return AdamScalars(r(lr), r(beta1), r(1 - beta1), r(beta2), r(1 - beta2),
-                       r(bc1), r(bc2), r(epsilon), r(weight_decay or 0.0),
-                       bool(decoupled))
+    if device is None:
+        device = next((x.device for x in (lr, step)
+                       if isinstance(x, torch.Tensor)), "cpu")
+    t = device_scalar(step, torch.int32, device).to(torch.float32)
+    return AdamScalars(
+        device_scalar(lr, torch.float32, device).to(dtype), r(beta1),
+        r(1 - beta1), r(beta2), r(1 - beta2),
+        (1 - pow_from_step(beta1, t)).to(dtype),
+        (1 - pow_from_step(beta2, t)).to(dtype), r(epsilon),
+        r(weight_decay or 0.0), bool(decoupled))
 
 
 def adam_rule(p, g, m, v, sc: AdamScalars, inv_scale=None, clip_scale=None):
@@ -111,7 +142,10 @@ def adam_rule(p, g, m, v, sc: AdamScalars, inv_scale=None, clip_scale=None):
         g = g + sc.wd * p
     m = sc.b1 * m + sc.omb1 * g
     v = sc.b2 * v + sc.omb2 * torch.square(g)
-    upd = true_div(m, sc.bc1) / (torch.sqrt(true_div(v, sc.bc2)) + sc.eps)
+    # the bias corrections are 0-dim tensors of the dtype on the device:
+    # each division is rounded once (PyTorch divides a CUDA tensor by a
+    # Python scalar as a multiply by its reciprocal, an ulp off at times)
+    upd = (m / sc.bc1) / (torch.sqrt(v / sc.bc2) + sc.eps)
     if sc.wd and sc.decoupled:
         upd = upd + sc.wd * p
     return p - sc.lr * upd, m, v
@@ -144,8 +178,13 @@ def multi_tensor_adam_ref(params, grads, exp_avgs, exp_avg_sqs, *, lr, beta1,
                           beta2, epsilon, weight_decay, decoupled, step,
                           inv_scale=None, clip_scale=None, finite=None):
     """Plain U2: ``adam_rule`` per tensor, written into p, m and v in place;
-    with ``finite`` 0 every tensor keeps its value."""
+    with ``finite`` 0 every tensor keeps its value. ``lr`` and ``step``
+    are read from 0-dim tensors on the parameters' device (numbers are
+    written into such)."""
     keep = None if finite is None else finite.bool()
+    if params:
+        lr = device_scalar(lr, torch.float32, params[0].device)
+        step = device_scalar(step, torch.int32, params[0].device)
     with torch.no_grad():
         for p, g, m, v in zip(params, grads, exp_avgs, exp_avg_sqs):
             sc = adam_scalars(p.dtype, lr, beta1, beta2, epsilon,
@@ -225,7 +264,9 @@ def multi_tensor_adam(params: List[torch.Tensor], grads, exp_avgs,
                       decoupled, step, inv_scale=None, clip_scale=None,
                       finite=None) -> None:
     """The Adam (``decoupled=False``) or AdamW rule over every parameter, in
-    place, for step ``step`` (counted from 1). p, m and v are contiguous and
+    place, for step ``step`` (counted from 1). ``lr`` and ``step`` are
+    0-dim tensors (or numbers, written into such on the device) that the
+    launch reads on the card. p, m and v are contiguous and
     of one shape and dtype per parameter; a grad of another dtype is cast
     to its parameter's. ``inv_scale`` and ``clip_scale`` are one-element
     fp32 tensors and ``finite`` a one-element int32 tensor, all on the
@@ -266,9 +307,12 @@ def multi_tensor_adam(params: List[torch.Tensor], grads, exp_avgs,
     inv = _scalar_ptr(inv_scale, dev, torch.float32, "inv_scale")
     clip = _scalar_ptr(clip_scale, dev, torch.float32, "clip_scale")
     fin = _scalar_ptr(finite, dev, torch.int32, "finite")
+    lr_t = device_scalar(lr, torch.float32, dev)
+    step_t = device_scalar(step, torch.int32, dev)
+    b32 = [float(np.float32(beta1)), float(np.float32(beta2))]
     for dtype, rows in groups.items():
-        sc = adam_scalars(dtype, lr, beta1, beta2, epsilon, weight_decay,
-                          step, decoupled)
+        consts = b32 + [round_to_dtype(x, dtype) for x in (
+            beta1, 1 - beta1, beta2, 1 - beta2, epsilon, weight_decay or 0.0)]
         for base in range(0, len(rows), ADAM_MAX):
             part = rows[base:base + ADAM_MAX]
             ptrs = [_array(ctypes.c_void_p, [r[k].data_ptr() for r in part])
@@ -276,8 +320,8 @@ def multi_tensor_adam(params: List[torch.Tensor], grads, exp_avgs,
             n = [r[0].numel() for r in part]
             _launch("pt_multi_tensor_adam", params[0], *ptrs,
                     _array(ctypes.c_longlong, n), len(part),
-                    _DTYPE_CODE[dtype], *sc[:9], int(sc.decoupled), inv, clip,
-                    fin)
+                    _DTYPE_CODE[dtype], *consts, int(bool(decoupled)),
+                    lr_t.data_ptr(), step_t.data_ptr(), inv, clip, fin)
             multi_tensor_adam.launches += int(sum(n) > 0)
 
 

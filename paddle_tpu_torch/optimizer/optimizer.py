@@ -15,7 +15,11 @@ multi_tensor.py``). ``step()``, ``amp.GradScaler``,
 through it. ``functional_update()`` keeps the reference's pure form.
 
 ``learning_rate`` is a float or an ``optimizer.lr.LRScheduler``, read by
-``get_lr()`` at every step. ``parameters`` is a list of tensors or of
+``get_lr()`` at every step. ``_multi_update`` takes the step's learning
+rate and count as numbers or as 0-dim device tensors and hands the rules
+0-dim tensors on the parameters' device (fp32 and int32), so that a
+captured train step, which writes those tensors before each replay, never
+bakes one step's values in. ``parameters`` is a list of tensors or of
 parameter groups (dicts with ``"params"``), which are flattened as the
 reference flattens them (:28-31).
 """
@@ -26,9 +30,17 @@ from typing import Dict, List
 import torch
 
 from ..nn.clip import ClipGradByGlobalNorm
+from ..ops.kernels.multi_tensor import device_scalar
 from .lr import LRScheduler
 
-__all__ = ["Optimizer"]
+__all__ = ["Optimizer", "step_scalars"]
+
+
+def step_scalars(lr, step, device):
+    """The step's learning rate (fp32) and count (int32) as 0-dim tensors
+    on ``device``: tensors are moved, numbers written by a fill there."""
+    return (device_scalar(lr, torch.float32, device),
+            device_scalar(step, torch.int32, device))
 
 
 def _tree_map(fn, *trees):
@@ -97,7 +109,7 @@ class Optimizer:
         wd = self._weight_decay
         return 0.0 if wd is None or callable(wd) else float(wd)
 
-    def _multi_update(self, params, grads, states, lr: float, step: int, *,
+    def _multi_update(self, params, grads, states, lr, step, *,
                       grad_scale=None, clip_scale=None, finite=None) -> None:
         """One update of every parameter in ``params`` with its grad and
         state dict, in place (the moments keep their identity). Each grad
@@ -108,6 +120,8 @@ class Optimizer:
         ``_update_rule`` tensor by tensor."""
         wd = self._wd()
         keep = None if finite is None else finite.bool()
+        if params:
+            lr, step = step_scalars(lr, step, params[0].device)
         with torch.no_grad():
             for p, g, st in zip(params, grads, states):
                 g = g.to(p.dtype)

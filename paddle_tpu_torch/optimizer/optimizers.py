@@ -4,15 +4,18 @@ Adadelta, RMSProp, Lamb and Lars.
 Counterpart of ``paddle_tpu/optimizer/optimizers.py`` (:10-252), each rule
 in the reference's op order and dtype rounding: a Python scalar enters an
 op as the JAX rule's weakly typed scalar does (rounded to the tensor's
-dtype), ``lr.astype(val.dtype)`` becomes ``round_to_dtype(lr, dtype)``,
-and powers of the step count are taken in float32 on the host. Every
-division is rounded once on every device (``true_div`` for a scalar
-divisor). Adam's and AdamW's rule (:63-76), not ``torch.optim.AdamW``'s,
-which orders the decay differently: ``m = b1 m + (1 - b1) g``, ``v = b2 v
-+ (1 - b2) g^2``, ``upd = (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) +
-eps)``, plus ``wd * val`` for AdamW (Adam adds ``wd * val`` to the grad
-instead), and ``val - lr * upd``: one multi-tensor kernel launch (U2) for
-every parameter on the card; the others are plain per-tensor PyTorch.
+dtype). The learning rate and the step count are read as 0-dim tensors on the
+parameter's device (``parallel.TrainStep`` passes them so; a number is written
+into one): ``lr.astype(val.dtype)`` is the fp32 lr cast to the dtype, and
+powers of the step count are float32 ``torch.pow`` on the device, so a step
+captured in a CUDA graph reads each replay's values. Every division by such a
+scalar divides by the 0-dim tensor, rounded once on every device. Adam's and
+AdamW's rule (:63-76), not ``torch.optim.AdamW``'s, which orders the decay
+differently: ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g^2``, ``upd = (m
+/ (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``, plus ``wd * val`` for AdamW
+(Adam adds ``wd * val`` to the grad instead), and ``val - lr * upd``: one
+multi-tensor kernel launch (U2) for every parameter on the card; the others are
+plain per-tensor PyTorch.
 """
 from __future__ import annotations
 
@@ -20,17 +23,28 @@ import numpy as np
 import torch
 
 from ..ops.kernels.multi_tensor import (adam_rule, adam_scalars,
-                                        multi_tensor_adam, round_to_dtype,
-                                        true_div)
+                                        device_scalar, multi_tensor_adam,
+                                        pow_from_step)
 from .optimizer import Optimizer
 
 __all__ = ["SGD", "Momentum", "Adam", "AdamW", "Adamax", "Adagrad",
            "Adadelta", "RMSProp", "Lamb", "Lars"]
 
 
-def _lr(lr, val) -> float:
-    """``lr.astype(val.dtype)``: the float32 lr rounded to val's dtype."""
-    return round_to_dtype(lr, val.dtype)
+def _lr(lr, val) -> torch.Tensor:
+    """``lr.astype(val.dtype)``: the float32 lr rounded to val's dtype, a
+    0-dim tensor on val's device."""
+    return device_scalar(lr, torch.float32, val.device).to(val.dtype)
+
+
+def _lr32(lr, val) -> torch.Tensor:
+    return device_scalar(lr, torch.float32, val.device)
+
+
+def _t(state, val) -> torch.Tensor:
+    """The step count as a float32 0-dim tensor on val's device."""
+    return device_scalar(state["__step__"], torch.int32,
+                         val.device).to(torch.float32)
 
 
 class SGD(Optimizer):
@@ -89,7 +103,8 @@ class Adam(Optimizer):
 
     def _update_rule(self, val, grad, state, lr, wd):
         sc = adam_scalars(val.dtype, lr, self._beta1, self._beta2, self._eps,
-                          wd, state["__step__"], self._decoupled())
+                          wd, state["__step__"], self._decoupled(),
+                          device=val.device)
         new, m, v = adam_rule(val, grad, state["moment1"], state["moment2"],
                               sc)
         return new, {"moment1": m, "moment2": v}
@@ -136,13 +151,12 @@ class Adamax(Optimizer):
 
     def _update_rule(self, val, grad, state, lr, wd):
         b1, b2, eps = self._beta1, self._beta2, self._eps
-        t = np.float32(state["__step__"])
+        t = _t(state, val)
         if wd:
             grad = grad + wd * val
         m = b1 * state["moment"] + (1 - b1) * grad
         u = torch.maximum(b2 * state["inf_norm"], torch.abs(grad))
-        step = round_to_dtype(np.float32(lr) / (1 - np.float32(b1) ** t),
-                              val.dtype)
+        step = (_lr32(lr, val) / (1 - pow_from_step(b1, t))).to(val.dtype)
         return val - step * m / (u + eps), {"moment": m, "inf_norm": u}
 
 
@@ -255,11 +269,11 @@ class Lamb(Optimizer):
         if wd_scale is None:
             wd_scale = torch.ones((), dtype=torch.float32, device=val.device)
         wd = wd * wd_scale
-        t = np.float32(state["__step__"])
+        t = _t(state, val)
         m = b1 * state["moment1"] + (1 - b1) * grad
         v = b2 * state["moment2"] + (1 - b2) * torch.square(grad)
-        mhat = true_div(m, round_to_dtype(1 - np.float32(b1) ** t, val.dtype))
-        vhat = true_div(v, round_to_dtype(1 - np.float32(b2) ** t, val.dtype))
+        mhat = m / (1 - pow_from_step(b1, t)).to(val.dtype)
+        vhat = v / (1 - pow_from_step(b2, t)).to(val.dtype)
         r = mhat / (torch.sqrt(vhat) + eps) + wd * val
         w_norm, r_norm = _norm(val), _norm(r)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
@@ -298,11 +312,11 @@ class Lars(Optimizer):
         w_norm = _norm(val.float())
         g_norm = _norm(grad.float())
         denom = g_norm + wd * w_norm + eps
-        lr32 = float(np.float32(lr))
-        local_lr = torch.where(denom > 0,
-                               float(np.float32(lr32) * np.float32(coeff))
-                               * w_norm / denom,
-                               torch.full_like(denom, lr32))
+        lr32 = _lr32(lr, val)
+        coeff32 = torch.full((), float(np.float32(coeff)),
+                             dtype=torch.float32, device=val.device)
+        local_lr = torch.where(denom > 0, (lr32 * coeff32) * w_norm / denom,
+                               lr32.expand_as(denom))
         v = mu * state["velocity"] + local_lr.to(val.dtype) * (
             grad + wd.to(val.dtype) * val)
         return val - v, {"velocity": v, "wd_scale": state["wd_scale"]}

@@ -43,7 +43,8 @@ import torch.distributed as dist
 
 __all__ = ["DeviceMesh", "HYBRID_ORDER", "init_mesh", "set_mesh", "get_mesh",
            "has_mesh", "mesh_axis_size", "axis_index", "elastic_mesh_shape",
-           "elastic_mesh", "reform_world"]
+           "elastic_mesh", "reform_world", "leave_world",
+           "NCCL_ELASTIC_ENV"]
 
 # canonical hybrid-parallel axis order, outermost first (topology.py:30)
 HYBRID_ORDER = ("dp", "pp", "sharding", "sep", "mp")
@@ -279,26 +280,61 @@ def elastic_mesh(shape: Dict[str, int], rank: int, *, store, prefix: str,
     return mesh
 
 
+# Over NCCL an elastic job runs with these (set before its first process
+# group, and by ``reform_world`` for each new one): the watchdog aborts a
+# communicator whose collective outlives the group's timeout without
+# killing the process, and a blocked ``wait`` raises, so a collective on a
+# dead peer fails within the timeout and the comms layer raises it as
+# ``CommTimeout``.
+NCCL_ELASTIC_ENV = {"TORCH_NCCL_ASYNC_ERROR_HANDLING": "2",
+                    "TORCH_NCCL_BLOCKING_WAIT": "1"}
+
+
+def leave_world() -> None:
+    """Leave the current ``torch.distributed`` world. Over NCCL the
+    communicators are aborted first (``_abort_process_group``, else each
+    group's backend ``abort()``): a communicator that shares a dead peer
+    may be blocked in a collective or hold that peer's state, and
+    ``destroy_process_group`` would wait on it. Gloo's destroy returns at
+    once after a peer's death."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        c10d = dist.distributed_c10d
+        try:
+            c10d._abort_process_group()      # every group, one NCCL group call
+        except (AttributeError, NotImplementedError, RuntimeError):
+            for pg in list(c10d._world.pg_map):
+                if dist.get_backend(pg) == "nccl":
+                    pg._get_backend(torch.device("cuda")).abort()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def reform_world(mesh: DeviceMesh) -> DeviceMesh:
     """Leave the current process group and form ``mesh``'s world (an
     ``elastic_mesh``): ``torch.distributed`` cannot shrink or grow a
-    group, so the old one is destroyed (gloo's destroy returns at once
-    after a peer's death) and ``init_process_group`` runs again over a
-    ``PrefixStore`` with rank = position in the new roster; then the
-    mesh's groups are built and the mesh installed. Collective over the
-    new roster."""
+    group, so the old one is left (``leave_world``: over NCCL its
+    communicators are aborted before the destroy) and
+    ``init_process_group`` runs again over a ``PrefixStore`` with rank =
+    position in the new roster; then the mesh's groups are built and the
+    mesh installed. Collective over the new roster."""
     import datetime
+    import os
     from ..distributed import env
     if mesh.rendezvous is None:
         raise ValueError("reform_world needs a mesh from elastic_mesh()")
     store, prefix, timeout = mesh.rendezvous
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    leave_world()
     kw = dict(backend=mesh.backend, rank=mesh.rank, world_size=mesh.size,
               store=dist.PrefixStore(prefix, store),
               timeout=datetime.timedelta(seconds=timeout))
     if mesh.backend == "nccl":
-        kw["device_id"] = mesh.device
+        for k, v in NCCL_ELASTIC_ENV.items():
+            os.environ.setdefault(k, v)
+        dev = torch.device(mesh.device)     # NCCL binds an indexed card
+        kw["device_id"] = dev if dev.index is not None else torch.device(
+            dev.type, torch.cuda.current_device())
     dist.init_process_group(**kw)
     env._env["device"], env._env["backend"] = mesh.device, mesh.backend
     mesh.rendezvous = None

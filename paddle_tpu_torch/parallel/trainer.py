@@ -3,9 +3,15 @@ one device or over a mesh (dp, mp, sep, pp and sharding axes, ZeRO).
 
 Counterpart of ``paddle_tpu/parallel/trainer.py`` (:127-546), where the
 whole step (forward, backward, clip, update, the grad-finite skip and the
-dynamic loss scale) is one jitted program with donated buffers. Here the
-step runs eagerly and keeps everything that decides the step on the
-device, with no host read inside it:
+dynamic loss scale) is one jitted program with donated buffers, built
+through ``jit/capture.py``'s ``lower_step``. Here too: the first call is
+the eager warm-up of ``jit.capture.lower_step`` and the step is then one
+CUDA graph (forward, backward, U1, U2 or the rule's ops), replayed by
+every later call with the same batch signature (``captured_program``,
+``lower_text``, ``memory_stats``). To make that possible the step keeps
+everything that decides it on the device, with no host read inside it,
+and reads the learning rate and the step count from 0-dim device tensors
+that ``__call__`` writes before each call:
 
 - ``loss_fn(model, batch)`` gives the loss (a scalar, or a ``LossSum``);
   with a scaler it is multiplied
@@ -73,8 +79,22 @@ the old mesh's ``ZeroShards``. A value this rank does not hold comes from
 array this rank's block on the new mesh; the supervisor passes its
 resharded host state). ``supervised_state()`` gives those names with
 their ``SupervisedParam`` layouts and this rank's blocks as host arrays
-read on demand. ``lower_text`` and ``memory_stats`` wait for a later
-slice (ROADMAP.md Queue 1) and raise ``NotInThisSlice``.
+read on demand. ``reshard`` drops the captured graph (its addresses
+name the old tensors); the next call captures anew.
+
+What a CUDA graph cannot hold runs eagerly, counted as a capture bailout
+with its reason (``jit.capture.capture_info()``): a step over a gloo
+mesh (its collectives go through the host) and a ZeRO step (its gathers
+are not captured in this slice). ``PT_STEP_CAPTURE=0`` runs every step
+eagerly. On the CPU the step runs eagerly unless a capture backend is
+installed (the tests install one that re-runs the step).
+
+A row-sharded parameter (``row_sharded``, set by
+``distributed.embedding.ShardedEmbedding`` on a live axis) holds this
+rank's block of rows, and its grad is complete on its owner: the
+exchange's backward summed every rank's row gradients there. It is left
+out of the dp grad sync and of ZeRO; under a mean over dp its grad is
+divided by the axis size (the JAX step gets all this from GSPMD).
 """
 from __future__ import annotations
 
@@ -83,7 +103,6 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.errors import NotInThisSlice
 from ..distributed import comms
 from ..distributed.parallel import shard_batch
 from ..nn.clip import ClipGradByGlobalNorm, ClipGradByValue
@@ -91,7 +110,7 @@ from ..ops.kernels.multi_tensor import multi_tensor_sumsq_finite
 from . import mesh as mesh_mod
 
 __all__ = ["TrainStep", "compile_train_step", "LossSum", "MAX_LOSS_SCALE",
-           "ZeroShards", "param_value"]
+           "ZeroShards", "param_value", "StepMemoryStats"]
 
 # Dynamic loss scaling never grows past this: with tiny gradients the
 # overflow signal that normally bounds growth never fires, and a scale
@@ -106,6 +125,27 @@ class LossSum(NamedTuple):
     ``count`` (at least 1): the mean over the global batch's rows."""
     total: torch.Tensor
     count: torch.Tensor
+
+
+class StepMemoryStats(NamedTuple):
+    """``TrainStep.memory_stats``: bytes by XLA's field names."""
+    argument_size_in_bytes: int
+    alias_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: int
+
+
+def _array_leaves(tree, out: list) -> None:
+    """The tensor and numpy array leaves of nested dicts, lists and
+    tuples."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _array_leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _array_leaves(v, out)
+    elif isinstance(tree, (torch.Tensor, np.ndarray)):
+        out.append(tree)
 
 
 def _mesh_axes(mesh) -> dict:
@@ -183,6 +223,8 @@ def param_spec(p, mesh=None) -> tuple:
     (``shard_layer_params``) whose axes are on the mesh above 1 and divide
     the dim."""
     mesh = mesh if mesh is not None else mesh_mod.get_mesh()
+    if getattr(p, "row_sharded", None) is not None:
+        return tuple(p.dist_layout.spec)
     shape = dict(getattr(mesh, "shape", {}) or {})
     spec = [None] * p.dim()
     split = getattr(p, "split_axis", None)
@@ -196,7 +238,10 @@ def param_spec(p, mesh=None) -> tuple:
 
 
 def _global_shape(p, mp: int) -> tuple:
-    """A parameter's global shape: its ``split_axis`` dim times mp."""
+    """A parameter's global shape: its ``split_axis`` dim times mp; a
+    row-sharded table's from its ``dist_layout``."""
+    if getattr(p, "row_sharded", None) is not None:
+        return tuple(p.dist_layout.shape)
     shape = list(p.shape)
     split = getattr(p, "split_axis", None)
     if split is not None:
@@ -241,6 +286,8 @@ class ZeroShards:
             d = None if gd is None else local[gd]
             if d is not None and t.shape[d] % self.n:
                 d = None
+            if getattr(t, "row_sharded", None) is not None:
+                d, zspec = None, tuple(spec)   # its block is its own
             self.dims.append(d)
             self.state_specs.append(tuple(spec) if d is None else zspec)
         self.slices = [None] * len(self.tensors)
@@ -320,21 +367,28 @@ class ZeroShards:
                          self.state_specs)
 
     # ---- the step ----
-    def sync_grads(self, grads, data_axes, op: str, owner: str):
+    def sync_grads(self, grads, data_axes, op: str, owner: str, skip=()):
         """The grads each rank updates with: the data-parallel sync over
         ``data_axes`` (``op`` sum or avg), and at stage >= 2 this rank's
         slice of each sharded one (reduce-scattered when the ZeRO axis is
-        a data axis)."""
+        a data axis). The grads at the indices ``skip`` stay as given."""
         from ..distributed import comms
         grads = list(grads)
         if self.stage < 2:
-            return comms.grad_sync(grads, self.mesh, data_axes, owner,
-                                   op=op) if data_axes else grads
+            if not data_axes:
+                return grads
+            idx = [k for k in range(len(grads)) if k not in skip]
+            for k, g in zip(idx, comms.grad_sync([grads[k] for k in idx],
+                                                 self.mesh, data_axes, owner,
+                                                 op=op)):
+                grads[k] = g
+            return grads
         sharded = [k for k, d in enumerate(self.dims) if d is not None]
         scatter = self.axis in (data_axes or ())
         rest_axes = tuple(a for a in (data_axes or ()) if a != self.axis) \
             if scatter else data_axes
-        whole = [k for k in range(len(grads)) if k not in sharded]
+        whole = [k for k in range(len(grads))
+                 if k not in sharded and k not in skip]
         if data_axes and whole:
             synced = comms.grad_sync([grads[k] for k in whole], self.mesh,
                                      data_axes, owner, op=op)
@@ -569,6 +623,8 @@ class TrainStep:
         self._bind_mesh(mesh)
         self._step_count = 0
         self.captured_program = None
+        self._dispatcher = None
+        self._loss_bytes = 4          # a 0-dim fp32 loss until a step says
 
         inner = model
         for attr in ("_layers", "_layer"):
@@ -583,6 +639,8 @@ class TrainStep:
             raise ValueError("the model has no trainable parameter")
         self._sp = [i for i, p in enumerate(self._params)
                     if getattr(p, "sequence_parallel", False)]
+        self._rows = [i for i, p in enumerate(self._params)
+                      if getattr(p, "row_sharded", None) is not None]
         self._device = self._params[0].device
 
         base_opt = optimizer
@@ -616,6 +674,10 @@ class TrainStep:
             "bad_steps": torch.zeros((), dtype=torch.int32, device=dev),
             "skipped": torch.zeros((), dtype=torch.int32, device=dev),
         }
+        # the step's learning rate and count, written before each call
+        # and read on the device (a captured step replays with them)
+        self._lr_t = torch.zeros((), dtype=torch.float32, device=dev)
+        self._step_t = torch.zeros((), dtype=torch.int32, device=dev)
 
     def _bind_mesh(self, mesh) -> None:
         """The mesh and what the step derives from it: the dp sync axis,
@@ -664,6 +726,7 @@ class TrainStep:
             (("mp",) if getattr(p, "split_axis", None) is not None else ())
             + ((self._zero.axis,) if zsplit and self._zero.dims[k] is not None
                else ())
+            + ((p.row_sharded,) if getattr(p, "row_sharded", None) else ())
             for k, p in enumerate(self._params)]
 
     # ---- one step ----
@@ -707,6 +770,8 @@ class TrainStep:
         return total, grads, summed
 
     def _update_health(self, finite):
+        """The health scalars' next values, written into them in place (a
+        captured step replays into the same tensors)."""
         h, cfg = self._health, self._scale_cfg
         ok = finite.to(torch.int32)
         new = dict(h)
@@ -725,13 +790,46 @@ class TrainStep:
                                                   MAX_LOSS_SCALE), scale))
             new["good_steps"] = torch.where(grow, zero, good)
             new["bad_steps"] = torch.where(shrink, zero, bad)
-        self._health = new
+        with torch.no_grad():
+            for k, v in new.items():
+                if v is not h[k]:
+                    h[k].copy_(v)
+
+    def _capture_hazards(self) -> list:
+        """Why a CUDA graph cannot hold this step (empty when it can)."""
+        out = []
+        if self._big and getattr(self.mesh, "backend", None) == "gloo":
+            out.append("gloo collectives go through the host and cannot "
+                       "be held in a CUDA graph")
+        if self._zero is not None:
+            out.append(f"ZeRO stage {self._zero.stage}: its parameter "
+                       f"gathers are not captured in this slice")
+        return out
 
     def __call__(self, batch):
         batch = _to_device(batch, self._device)
         self._step_count += 1
-        lr = self._base_opt.get_lr()
-        scale = self._health["loss_scale"]
+        self._lr_t.fill_(self._base_opt.get_lr())
+        self._step_t.fill_(self._step_count)
+        args = (self._params, self._opt_state, self._health, batch,
+                self._lr_t, self._step_t)
+        if self._dispatcher is None:
+            from ..jit import capture
+            self._dispatcher, self.captured_program = capture.lower_step(
+                self._step, args, inplace=(0, 1, 2, 4, 5), name="TrainStep",
+                hazards=self._capture_hazards())
+            loss = self._dispatcher.first_result
+        else:
+            loss = self._dispatcher(*args)
+        self._loss_bytes = loss.element_size()
+        # a replay's loss is the graph's static buffer: hand out a copy
+        return loss.clone()
+
+    def _step(self, params, states, health, batch, lr, step):
+        """One step over the bound state (``params``, ``states`` and
+        ``health`` are the step's own lists, passed so that a capture
+        holds them by address); returns the loss."""
+        scale = health["loss_scale"]
         if self._zero is not None:
             self._zero.gather()
         loss, grads, summed = self._loss_and_grads(batch, scale)
@@ -753,11 +851,18 @@ class TrainStep:
             loss = comms.wire_all_reduce(loss, self._data_axes, op,
                                          exact=True, mesh=self.mesh,
                                          owner="trainer.loss")
+        rows = set(self._rows)
         if self._zero is not None:
             grads = self._zero.sync_grads(grads, self._data_axes, op,
-                                          "trainer.grad_sync")
+                                          "trainer.grad_sync", skip=rows)
         elif self._data_axes:
-            grads = _comms_grad_sync(grads, self.mesh, self._data_axes, op)
+            dense = [k for k in range(len(grads)) if k not in rows]
+            for k, g in zip(dense, _comms_grad_sync(
+                    [grads[k] for k in dense], self.mesh, self._data_axes,
+                    op)):
+                grads[k] = g
+        if rows and self._data_axes:
+            grads = self._sync_rows(grads, op)
         if self._sp:
             red = comms.grad_sync([grads[i] for i in self._sp], self.mesh,
                                   "mp", op="sum", exact=True,
@@ -784,15 +889,32 @@ class TrainStep:
                 grads = [torch.clamp(g, clip.min, clip.max) for g in grads]
         kw = dict(grad_scale=inv, clip_scale=clip_scale, finite=finite)
         if self._zero is not None:
-            self._zero.update(self._base_opt, grads, self._opt_state, lr,
-                              self._step_count, **kw)
+            self._zero.update(self._base_opt, grads, states, lr, step, **kw)
             self._zero.release()
         else:
-            self._base_opt._multi_update(self._params, grads,
-                                         self._opt_state, lr,
-                                         self._step_count, **kw)
+            self._base_opt._multi_update(params, grads, states, lr, step,
+                                         **kw)
         self._update_health(finite)
         return loss
+
+    def _sync_rows(self, grads, op: str):
+        """The grads of row-sharded parameters: complete on their owner
+        over their own axis (the exchange's backward summed every rank's
+        there); synced over the other data axes, and divided by the axis
+        size for a mean over it."""
+        grads = list(grads)
+        for k in self._rows:
+            axis = self._params[k].row_sharded
+            rest = tuple(a for a in self._data_axes if a != axis)
+            g = grads[k]
+            if rest:
+                g = comms.grad_sync([g], self.mesh, rest, op=op)[0]
+            if op == "avg" and axis in self._data_axes:
+                n = torch.full((), self._big.get(axis, 1), dtype=g.dtype,
+                               device=g.device)
+                g = g / n
+            grads[k] = g
+        return grads
 
     def write_back(self):
         """Make every parameter whole in the model (ZeRO stage 3 keeps
@@ -974,14 +1096,69 @@ class TrainStep:
         del old_states
         if "step" in state:
             self._step_count = int(np.asarray(state["step"]))
+        self._drop_capture()
+
+    def _drop_capture(self) -> None:
+        """Forget the captured graph (the next call captures anew)."""
+        if self._dispatcher is not None:
+            self._dispatcher.release()
+        self._dispatcher = None
         self.captured_program = None
 
-    # ---- legs of later slices ----
+    # ---- the captured program ----
     def lower_text(self, batch):
-        raise NotInThisSlice("whole-step capture", "TrainStep.lower_text")
+        """The captured program's ``describe()``: the ops the warm-up
+        dispatched, the kernels and collectives of one step, the pass
+        report. The program exists once a step has run (its first call is
+        the capture's warm-up); before that, and after a bailout, the text
+        says so and why. ``batch`` is the JAX method's argument (it builds
+        there); nothing runs here."""
+        del batch
+        if self.captured_program is not None:
+            return self.captured_program.describe()
+        if self._dispatcher is None:
+            return ("TrainStep: not captured yet (the first call is the "
+                    "capture's warm-up)")
+        return ("TrainStep: not captured, runs eagerly: "
+                + (self._dispatcher.reason or "step capture is off or the "
+                   "step runs on the CPU"))
 
-    def memory_stats(self, batch):
-        raise NotInThisSlice("whole-step capture", "TrainStep.memory_stats")
+    def memory_stats(self, batch) -> "StepMemoryStats":
+        """This rank's bytes of the step, by XLA's ``CompiledMemoryStats``
+        names where they mean something: ``argument_size_in_bytes`` the
+        step's inputs (this rank's parameters, their pieces under ZeRO-3
+        and row sharding; its optimizer state; the health scalars, the
+        learning rate and step count; its block of ``batch``),
+        ``alias_size_in_bytes`` those it updates in place (all but the
+        batch), ``output_size_in_bytes`` the 0-dim loss,
+        ``temp_size_in_bytes``
+        the captured graph's memory pool (0 before the capture and when
+        the step runs eagerly)."""
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts
+                       if isinstance(t, torch.Tensor))
+        params = [self._param_piece(k)[0] for k in range(len(self._params))]
+        states = [v for st in self._opt_state for v in st.values()]
+        scalars = list(self._health.values()) + [self._lr_t, self._step_t]
+        inplace = nbytes(params) + nbytes(states) + nbytes(scalars)
+        leaves = []
+        _array_leaves(batch, leaves)
+        split = 1
+        if self._sync_axis is not None:
+            split *= self._big.get(self._sync_axis, 1)
+        local = 0
+        for t in leaves:
+            b = (t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+                 else t.nbytes) // split
+            if self._sep and t.ndim >= 2:
+                b //= self._big.get("sep", 1)
+            local += b
+        pool = 0 if self._dispatcher is None else \
+            (self._dispatcher.pool_bytes() or 0)
+        return StepMemoryStats(argument_size_in_bytes=inplace + local,
+                               alias_size_in_bytes=inplace,
+                               output_size_in_bytes=self._loss_bytes,
+                               temp_size_in_bytes=int(pool))
 
 
 def compile_train_step(model, loss_fn, optimizer, mesh=None,

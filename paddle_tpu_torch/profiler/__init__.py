@@ -1,4 +1,6 @@
 """paddle_tpu_torch.profiler: counterpart of ``paddle_tpu/profiler``,
-cut to the elastic tier's summaries (``reshard_summary``,
+cut to the capture tier's summaries (``step_capture_summary``,
+``lint_summary``) and the elastic tier's (``reshard_summary``,
 ``supervisor_summary``)."""
-from .statistic import reshard_summary, supervisor_summary  # noqa: F401
+from .statistic import (lint_summary, reshard_summary,  # noqa: F401
+                        step_capture_summary, supervisor_summary)

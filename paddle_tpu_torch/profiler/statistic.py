@@ -1,14 +1,16 @@
-"""Summaries of the elastic tier: counterpart of the JAX package's
-``profiler/statistic.py`` cut to ``reshard_summary`` and
-``supervisor_summary`` (statistic.py:278-347); the rest of the profiler
-waits for a later slice (ROADMAP.md Queue 1).
+"""Summaries of the capture tier and the elastic tier: counterpart of the
+JAX package's ``profiler/statistic.py`` cut to ``step_capture_summary``
+and ``lint_summary`` (statistic.py:76-131), ``reshard_summary`` and
+``supervisor_summary`` (:278-347); the rest of the profiler waits for a
+later slice (ROADMAP.md Queue 1).
 
 Each renders from what its subsystem recorded in this process and never
 imports the subsystem itself: in a process that did not load it, it says
 so."""
 from __future__ import annotations
 
-__all__ = ["reshard_summary", "supervisor_summary"]
+__all__ = ["step_capture_summary", "lint_summary", "reshard_summary",
+           "supervisor_summary"]
 
 
 def _subsystem(modname: str):
@@ -22,6 +24,64 @@ def _subsystem(modname: str):
 def _no_data(label: str) -> str:
     """The shared no-data rendering (subsystem never imported)."""
     return f"{label}: no data (subsystem not loaded)"
+
+
+def step_capture_summary() -> str:
+    """The capture tier's counters (jit/capture.py) as text: the steps
+    captured as CUDA graphs (``lowerings``), the calls their replays
+    served (``hits``), the captures abandoned (``bailouts``, with the last
+    reason) and the calls that ran eagerly instead (``fallback_calls``;
+    ``eager_calls`` where no graph backend applies, as on the CPU), the
+    live graphs and their pools' MiB. A healthy training loop pins
+    ``lowerings`` at one per step signature with ``hits`` climbing; a
+    climbing ``fallback_calls`` means a step runs eagerly (a gloo mesh,
+    ZeRO, a host sync, a second signature: see the reason). The JAX
+    summary's pass totals (inlined calls, CSE folds, constants deduped,
+    dead values removed, donated buffers) have no counterpart here
+    (jit/passes/__init__.py) and are not printed."""
+    capture = _subsystem("paddle_tpu_torch.jit.capture")
+    if capture is None:
+        return _no_data("step capture")
+
+    info = capture.capture_info()
+    pool = info["pool_mib"]
+    lines = [
+        f"step capture: enabled={info['enabled']} "
+        f"lowerings={info['lowerings']} hits={info['hits']} "
+        f"bailouts={info['bailouts']} "
+        f"fallback_calls={info['fallback_calls']} "
+        f"eager_calls={info['eager_calls']}",
+        f"graphs: {info['graphs']} live, pool "
+        f"{'unknown' if pool is None else f'{pool:.1f} MiB'}",
+    ]
+    if info["last_bailout"]:
+        lines.append(f"last bailout: {info['last_bailout']}")
+    return "\n".join(lines)
+
+
+def lint_summary() -> str:
+    """The capture lint's records (jit/passes/lint.py) as text: for every
+    recently captured step, the ops its warm-up dispatched and the
+    hazards found (recompile-hazard / donation-miss /
+    unscheduled-collective / dead-compute / host-callback). A healthy
+    step shows ``clean``."""
+    lint = _subsystem("paddle_tpu_torch.jit.passes.lint")
+    if lint is None:
+        return _no_data("capture lint")
+
+    records = lint.lint_records()
+    if not records:
+        return "capture lint: no recorded captures"
+    head = f"{'Step':<28} {'Ops':>6} {'Findings':>9}  Rules"
+    lines = [f"capture lint: {len(records)} step(s) "
+             f"(enabled={lint.lint_enabled()})", head, "-" * len(head)]
+    for name, rec in records.items():
+        rules = ",".join(rec["rules_hit"]) or "clean"
+        lines.append(f"{name[:28]:<28} {rec['eqns']:>6} "
+                     f"{len(rec['findings']):>9}  {rules}")
+        for f in rec["findings"][:8]:
+            lines.append(f"    {f['rule']}: {f['message'][:100]}")
+    return "\n".join(lines)
 
 
 def reshard_summary() -> str:

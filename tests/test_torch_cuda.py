@@ -906,8 +906,12 @@ def test_host_sync_in_a_step_bails_out_on_card(cuda_device, sync):
         step = capture.capture_step(fn, inplace=(1,))
         args = [(tok, caches)] * 3
     else:
-        # cached_step with a Python int offset copies it to the card
-        step = capture.capture_step(m._cached_step, inplace=(1,))
+        # a Python int offset copied to the card (the model's own steps
+        # write such numbers with a fill, which is not a sync)
+        def fn(t, c, off):
+            return t + torch.as_tensor(off, device=t.device)
+
+        step = capture.capture_step(fn, inplace=(1,))
         args = [(tok, caches, 5)] * 3
     outs = [step(*a).clone() for a in args]
     info = step.cache_info()
@@ -1119,3 +1123,105 @@ def test_build_file_lock_builds_once_for_two_processes(cuda_device):
     left = [p.name for p in _build.LIB_PATH.parent.iterdir()
             if ".tmp" in p.name]
     assert not left, left
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_u2_reads_lr_and_step_from_device_tensors(cuda_device, dtype):
+    """U2 with the learning rate and the step count as 0-dim device
+    tensors, rewritten between launches as a captured train step rewrites
+    them before each replay: bit for bit the plain version (which takes
+    the bias corrections by torch.pow on the card) over 300 steps and a
+    changing lr; a CUDA graph of one launch replayed with new values does
+    the same."""
+    ps, gs, ms, vs = _mt_lists("model_div64", dtype, cuda_device, seed=2)
+    ref = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    lr = torch.zeros((), device=cuda_device)
+    step = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    kw = dict(ADAM_KW, lr=lr)
+    for t in (1, 2, 3, 50, 300):
+        lr.fill_(0.01 / t)
+        step.fill_(t)
+        mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=True, step=step, **kw)
+        mt.multi_tensor_adam_ref(ref[0], gs, ref[1], ref[2], decoupled=True,
+                                 step=step, **kw)
+    torch.cuda.synchronize()
+    for got, want in zip(ps + ms + vs, ref[0] + ref[1] + ref[2]):
+        assert torch.equal(got, want), dtype
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=True, step=step, **kw)
+    torch.cuda.current_stream().wait_stream(s)
+    mt.multi_tensor_adam_ref(ref[0], gs, ref[1], ref[2], decoupled=True,
+                             step=step, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mt.multi_tensor_adam(ps, gs, ms, vs, decoupled=True, step=step, **kw)
+    for t in (301, 302, 1000):
+        lr.fill_(1e-3 * t / 300)
+        step.fill_(t)
+        graph.replay()
+        mt.multi_tensor_adam_ref(ref[0], gs, ref[1], ref[2], decoupled=True,
+                                 step=step, **kw)
+    torch.cuda.synchronize()
+    for got, want in zip(ps + ms + vs, ref[0] + ref[1] + ref[2]):
+        assert torch.equal(got, want), dtype
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hi", [7, 1000, 1 << 30])
+def test_static_unique_on_card_equals_the_plain_one(cuda_device, hi):
+    """The exchange's static-size unique (sort, first-occurrence mask,
+    scatter) on the card: the CPU's uniques and inverse, and what
+    ``torch.unique`` finds (its sorted values, then zeros)."""
+    from paddle_tpu_torch.distributed.embedding import unique_static
+    flat = torch.from_numpy(np.random.RandomState(hi % 97).randint(
+        0, hi, 13312))
+    u, inv = unique_static(flat.to(cuda_device))
+    cu, cinv = unique_static(flat)
+    assert torch.equal(u.cpu(), cu) and torch.equal(inv.cpu(), cinv)
+    want = torch.unique(flat)
+    assert torch.equal(cu[:want.numel()], want)
+    assert not cu[want.numel():].any()
+    assert torch.equal(cu[cinv], flat)
+
+
+@pytest.mark.cuda
+def test_sharded_lookup_scatter_add_on_card_equals_the_plain_one(
+        cuda_device):
+    """The owner's scatter-add of the returned row gradients (one
+    ``index_add_`` per sending rank, empty slots to a dropped row): bit
+    for bit the plain loop on the CPU, as no row takes two additions in
+    one call. Under the deduplicating gather's backward (rows that several
+    lookups share, summed in another order on the card) the whole grad
+    within rtol 1e-6 of the CPU's."""
+    from paddle_tpu_torch.distributed.embedding.sharded import _RowGather
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(rng.randn(1000, 9).astype(np.float32))
+    lidx = torch.from_numpy(rng.randint(0, 1000, (4, 300)))
+    for j in range(4):                 # a sender's rows are distinct
+        lidx[j] = torch.from_numpy(rng.permutation(1000)[:300])
+    valid = torch.from_numpy(rng.rand(4, 300) > 0.2)
+    g = torch.from_numpy(rng.randn(4, 300, 9).astype(np.float32))
+    inv = torch.from_numpy(rng.randint(0, 1200, 5000))
+    got = {}
+    for dev in ("cpu", cuda_device):
+        wt = w.clone().to(dev).requires_grad_()
+        served = _RowGather.apply(wt, lidx.to(dev), valid.to(dev))
+        flat = served.reshape(-1, 9)
+        out = torch.nn.functional.embedding(inv.to(dev), flat)
+        (out * g.to(dev).reshape(-1, 9)[inv.to(dev) % 1200]
+         ).sum().backward()
+        got[dev] = wt.grad.cpu()
+    torch.testing.assert_close(got[cuda_device], got["cpu"], rtol=1e-6,
+                               atol=1e-6)
+    wt = w.clone().to(cuda_device).requires_grad_()
+    _RowGather.apply(wt, lidx.to(cuda_device),
+                     valid.to(cuda_device)).backward(g.to(cuda_device))
+    plain = torch.zeros(1001, 9)
+    dest = torch.where(valid, lidx, torch.full_like(lidx, 1000))
+    for j in range(4):
+        plain.index_add_(0, dest[j], g[j])
+    assert torch.equal(wt.grad.cpu(), plain[:1000])

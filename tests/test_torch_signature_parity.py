@@ -30,6 +30,16 @@ ALLOWED = {
     "jit.capture.capture_step":
         "as CapturedStep: `inplace` instead of `donate`; no baked-RNG "
         "check or jaxpr passes",
+    "jit.capture.lower_step":
+        "a CUDA graph holds the step's state by address (`inplace`) where "
+        "XLA donates buffers (`donate_argnums`); there are no shardings to "
+        "pin (each rank is a process) and no jaxpr `passes` "
+        "(jit/passes/__init__.py)",
+    "jit.passes.lint.analyze":
+        "reads the warm-up's record of the step (`program`), where the JAX "
+        "rule reads a closed jaxpr (`closed`)",
+    "jit.passes.lint.record_lint":
+        "as analyze: the step's record (`program`), not a closed jaxpr",
 }
 
 
@@ -123,7 +133,19 @@ def test_enough_shared_names_are_checked():
                  "distributed.fleet.meta_parallel.sharding_optimizer."
                  "group_sharded_parallel",
                  "inference.serving.request.Request.finish",
-                 "nn.functional.linear", "nn.functional.embedding"):
+                 "nn.functional.linear", "nn.functional.embedding",
+                 "nn.functional.relu", "nn.functional.sigmoid",
+                 "nn.functional.binary_cross_entropy_with_logits",
+                 "nn.layer.common.Embedding", "models.deepfm.DeepFM",
+                 "models.deepfm.DeepFM.predict",
+                 "distributed.embedding.sharded.ShardedEmbedding",
+                 "distributed.embedding.sharded.sharded_lookup",
+                 "distributed.embedding.sharded.hash_bucket",
+                 "distributed.embedding.sharded.table_param_spec",
+                 "jit.capture.lower_step", "jit.passes.PassReport",
+                 "jit.passes.lint.analyze",
+                 "profiler.statistic.step_capture_summary",
+                 "profiler.statistic.lint_summary"):
         assert must in keys, must
 
 

@@ -34,7 +34,6 @@ from paddle_tpu.parallel.trainer import compile_train_step as jax_compile
 import paddle_tpu_torch.optimizer as popt
 import paddle_tpu_torch.optimizer.lr as plr
 from paddle_tpu_torch.amp import GradScaler
-from paddle_tpu_torch.core.errors import NotInThisSlice
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      build_hybrid_train_step,
                                      load_paddle_tpu_state)
@@ -117,12 +116,17 @@ def test_compile_train_step_five_steps_match_jax(variant):
 
 
 def test_train_step_legs_of_later_slices_raise():
-    """The mesh legs are ported (tests/test_torch_zero.py); what still
-    waits for later slices raises ``NotInThisSlice``: ``lower_text`` and
-    ``memory_stats`` (whole-step capture). ``reshard`` is ported (its
-    dp2 -> dp1 case is in tests/test_torch_elastic_trainer.py): it refuses
-    no mesh, as the JAX one, and onto the same one-rank mesh it keeps
-    every value."""
+    """Every leg is ported now: the mesh legs (tests/test_torch_zero.py),
+    ``reshard`` (its dp2 -> dp1 case in tests/test_torch_elastic_trainer.py)
+    and the capture tier's ``lower_text`` and ``memory_stats`` (the capture
+    itself through a replay backend in tests/test_torch_train_capture.py).
+    What still raises: a plain dict mesh with an axis above 1 (a
+    DeviceMesh is needed) and ``reshard(None)``, as the JAX one. Before a
+    step, and on the CPU with no capture backend, ``lower_text`` says the
+    step is not captured and ``memory_stats`` counts the step's inputs
+    (the parameters and SGD's empty state, the health scalars, lr and
+    step count, the batch) with no graph pool; onto the same one-rank
+    mesh ``reshard`` keeps every value and drops no state."""
     _, pm = _llamas()
     opt = popt.SGD(parameters=pm.parameters())
     with pytest.raises(TypeError):          # every mesh leg: a DeviceMesh
@@ -131,9 +135,18 @@ def test_train_step_legs_of_later_slices_raise():
         compile_train_step(pm, _llama_loss, opt, mesh={"dp": 2})
     step = compile_train_step(pm, _llama_loss, opt, mesh={"dp": 1})
     assert isinstance(step, TrainStep) and step.captured_program is None
-    for fn in (step.lower_text, step.memory_stats):
-        with pytest.raises(NotInThisSlice):
-            fn(None)
+    assert "not captured yet" in step.lower_text(None)
+    ids, labels = _ids(0)
+    batch = {"input_ids": ids, "labels": labels}
+    params = sum(p.numel() * 4 for p in pm.parameters())
+    stats = step.memory_stats(batch)
+    assert stats.argument_size_in_bytes == params + 4 * 6 + ids.nbytes \
+        + labels.nbytes
+    assert stats.alias_size_in_bytes == params + 4 * 6
+    assert (stats.output_size_in_bytes, stats.temp_size_in_bytes) == (4, 0)
+    step(batch)                             # eager on the CPU: no program
+    assert step.captured_program is None
+    assert "runs eagerly" in step.lower_text(batch)
     with pytest.raises(ValueError):
         step.reshard(None)
     before = [p.detach().clone() for p in pm.parameters()]

@@ -928,6 +928,114 @@ def _lost_peer(payload):
             "reform_s": reform_s, "again": again}
 
 
+def _table_block(w, mesh, axis="dp"):
+    """This rank's rows of the table ``w`` as a row-sharded parameter."""
+    from paddle_tpu_torch.distributed.checkpoint import set_layout
+    n, r = mesh.shape[axis], mesh.coords[axis]
+    rows = w.shape[0] // n
+    p = torch.nn.Parameter(_t(w[r * rows:(r + 1) * rows]).clone())
+    return set_layout(p, w.shape, (axis, None), mesh)
+
+
+def _embedding(payload):
+    """The dp2 exchange: this rank's half of the ids through
+    ``sharded_lookup`` on its block of each table, out and the block's
+    grad of ``sum(tanh(out) * scale)``, exact and inside
+    ``comms.quantized("int8")``, and the capacity-1 overflow case; the
+    comms sites each leaves."""
+    from paddle_tpu_torch.distributed import comms
+    from paddle_tpu_torch.distributed.embedding import sharded_lookup
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.get_mesh()
+    r, n = mesh.coords["dp"], mesh.shape["dp"]
+    ids = payload["ids"]
+    mine = ids[r * (len(ids) // n):(r + 1) * (len(ids) // n)]
+    scale = _t(payload["scale"][r * (len(ids) // n):(r + 1) *
+                                (len(ids) // n)])
+    out = {}
+    for regime in ("exact", "int8"):
+        comms.comm_clear()
+        w = _table_block(payload["w"], mesh)
+        if regime == "int8":
+            with comms.quantized("int8"):
+                got = sharded_lookup(_t(mine), w, hash_ids=payload["hash"])
+                (torch.tanh(got) * scale[:, None, None]).sum().backward()
+        else:
+            got = sharded_lookup(_t(mine), w, hash_ids=payload["hash"])
+            (torch.tanh(got) * scale[:, None, None]).sum().backward()
+        out[regime] = {"out": _np(got), "grad": _np(w.grad),
+                       "sites": comms.comm_info()["sites"]}
+    small = _table_block(payload["w_small"], mesh)
+    out["overflow"] = _np(sharded_lookup(_t(payload["ids_small"][r:r + 1]),
+                                         small, capacity=1))
+    return out
+
+
+def _deepfm_dp(payload):
+    """DeepFM on the payload's mesh (the JAX model's weights, each rank
+    its rows of the tables) trained by ``compile_train_step`` through the
+    graph-replay capture backend: the losses, the captured program's
+    report and lint, the comms sites, the grad sync's bytes, and the
+    same steps inside ``comms.quantized("int8")`` (eager) when asked."""
+    from torch_replay import GraphReplayBackend
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.distributed import comms
+    from paddle_tpu_torch.jit import capture
+    from paddle_tpu_torch.jit.passes import lint
+    from paddle_tpu_torch.models.deepfm import (DeepFM,
+                                                load_paddle_tpu_state,
+                                                paddle_tpu_state)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.parallel import compile_train_step
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.get_mesh()
+
+    def loss_fn(m, b):
+        return F.binary_cross_entropy_with_logits(
+            m(b["sparse"], b["dense"]), b["y"])
+
+    def run(backend):
+        model = DeepFM(**payload["cfg"], device="cpu", mesh=mesh)
+        load_paddle_tpu_state(model, payload["state"])
+        opt = popt.Adam(learning_rate=payload["lr"],
+                        parameters=model.parameters())
+        capture.set_capture_backend(backend)
+        try:
+            step = compile_train_step(model, loss_fn, opt, mesh=mesh)
+            losses = [float(step({k: _t(v) for k, v in b.items()}))
+                      for b in payload["batches"]]
+        finally:
+            capture.set_capture_backend(None)
+        return model, step, losses
+
+    comms.comm_clear()
+    lint.clear_lint_records()
+    model, step, losses = run(GraphReplayBackend())
+    prog = step.captured_program
+    out = {"losses": losses, "state": paddle_tpu_state(model),
+           "rows": [n for n, p in model.named_parameters()
+                    if getattr(p, "row_sharded", None)],
+           "report": None if prog is None else prog.pass_report.as_dict(),
+           "lint": lint.lint_records().get("TrainStep"),
+           "info": step._dispatcher.cache_info(),
+           "sites": comms.comm_info()["sites"],
+           "dense_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()
+                              if getattr(p, "row_sharded", None) is None)}
+    if payload.get("gloo_bailout"):
+        refusing = GraphReplayBackend()
+        refusing.holds_graphs = True
+        _, s2, _ = run(refusing)
+        out["refused"] = (s2.captured_program is None,
+                          s2._dispatcher.cache_info(), s2._dispatcher.reason)
+    if payload.get("quantized"):
+        comms.comm_clear()
+        with comms.quantized("int8"):
+            _, _, out["quant_losses"] = run(None)
+        out["quant_sites"] = comms.comm_info()["sites"]
+    return out
+
+
 SCENARIOS = {"mesh": _mesh, "collective": _collective, "comms": _comms,
              "mp_layers": _mp_layers, "tp_ce": _tp_ce, "cp": _cp,
              "hybrid": _hybrid, "finite_skip": _finite_skip,
@@ -936,4 +1044,5 @@ SCENARIOS = {"mesh": _mesh, "collective": _collective, "comms": _comms,
              "zero_reads": _zero_reads, "ckpt_hybrid": _ckpt_hybrid,
              "moe_ep": _moe_ep, "rng_tracker": _rng_tracker,
              "fleet_util": _fleet_util, "elastic_reshard": _elastic_reshard,
-             "lost_peer": _lost_peer}
+             "lost_peer": _lost_peer, "embedding": _embedding,
+             "deepfm_dp": _deepfm_dp}
