@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out PATH] [--mesh-backend gloo|nccl]
-                          [--mesh-only | --deepfm-only | --elastic-only]
+                          [--mesh-only | --deepfm-only | --elastic-only |
+                           --eager-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -192,12 +193,33 @@ fails:
    nccl`` (4 cards) each worker holds a card of its own over NCCL (the
    crash fleet cards 0-1, the drain fleet 2-3), and the survivor aborts
    the old world's communicators before it forms the new one.
+13. the eager core (``phase_eager``): every case of the op table
+   (``tests/torch_op_cases.py``, one per public name of the JAX op
+   modules, and the ``Tensor`` method where the op is one) on card
+   tensors against the same port op on CPU tensors (float32 rtol 1e-4,
+   atol 1e-5; factors by reconstruction), every output on the card, the
+   count printed; then Paddle's dygraph loop at llama_7b width cut to
+   EAGER_LAYERS (B=2, S=2048): ``to_tensor`` inputs, ``auto_cast(O1,
+   bf16)``, ``logits``, ``mean(cross_entropy)``, ``backward()``,
+   ``AdamW.step()``, ``clear_grad()``, 2 warm-up and 5 timed steps. The
+   step must equal the same step with ``sdpa_ref`` under the same casts
+   (loss within 1e-2, each grad within 5e-2 relative L2); the operator
+   stats show linear/sdpa in bf16 and rms_norm/cross_entropy/mean in fp32
+   (matmul bf16, softmax fp32 in the sdpa_ref step); launches are exactly
+   K2 = K3 = K4 = layers and U2 1 a step; an inf planted in a weight
+   raises naming the op with FLAGS_check_nan_inf on, and with it off no
+   scan runs; the loss falls. Printed: step ms p50 beside
+   ``build_hybrid_train_step(amp=True)`` at the same size, ops a step,
+   host us an op, peak GiB, and host us a call of an add on plain
+   tensors, on port Tensors and through the op library. ``--eager-only``
+   runs the build and this phase alone.
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"recompute": ...}``,
-``{"deepfm": ...}``, ``{"mesh": ...}``, ``{"elastic": ...}``,
+``{"deepfm": ...}``, ``{"eager": ...}``, ``{"mesh": ...}``,
+``{"elastic": ...}``,
 ``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
 launches),
 ``{"serving": ...}``, the total run time, the card's
@@ -1961,6 +1983,295 @@ MESH_WARMUP, MESH_STEPS = 2, 5
 SEP_SEQ, SEP_WARMUP, SEP_STEPS = 4096, 1, 1
 QUANT_LAYERS, QUANT_SEQ, QUANT_STEPS = 2, 1024, 3
 TP_N, TP_H, TP_V = 4096, 4096, 32000
+EAGER_LAYERS, EAGER_BATCH, EAGER_SEQ = 2, 2, 2048
+EAGER_WARMUP, EAGER_STEPS = 2, 5
+# the step with flash attention against the same step with sdpa_ref under
+# the same O1 bf16 casts: the loss, and each grad's relative L2 error (bf16
+# attention rounds its probabilities and outputs, 2**-8 each, and the two
+# sum in different orders)
+EAGER_LOSS_RTOL = 1e-2
+EAGER_GRAD_RTOL = 5e-2
+
+
+def phase_eager_sweep(torch, P):
+    """Every case of the op table (tests/torch_op_cases.py: one per public
+    name of the JAX op modules, and the Tensor method where the op is one)
+    on card tensors against the same port op on CPU tensors; every output
+    on the card."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_op_cases import CASES, SWEEP_TOL, sweep_case
+    t0 = time.perf_counter()
+    n = 0
+    for name in sorted(CASES):
+        try:
+            n += sweep_case(P, name, DEVICE)
+        except Exception as e:  # noqa: BLE001 — name the op, then fail
+            raise SmokeFailure(f"op sweep: {name} on the card: "
+                               f"{type(e).__name__}: {e}") from e
+    # the Tensor's own methods (not from the op tables) on the card
+    x = P.to_tensor(np.arange(6, dtype=np.float32).reshape(2, 3),
+                    place=DEVICE, stop_gradient=False)
+    seen = []
+    x.register_hook(lambda g: seen.append(g.place) or g)
+    h = x * 2.0
+    h.retain_grads()
+    P.sum(h * h).backward()
+    check(x.grad.place.startswith(DEVICE) and isinstance(x.grad, P.Tensor)
+          and seen and seen[0].startswith(DEVICE),
+          f"grad of a card tensor: {x.grad.place}, hooks saw {seen}")
+    check(np.allclose(x.gradient(), 8 * np.arange(6).reshape(2, 3))
+          and np.allclose(h.grad.numpy(), 4 * np.arange(6).reshape(2, 3)),
+          "Tensor.gradient / retain_grads on the card")
+    d = x.detach()
+    d.set_value(np.ones((2, 3)))
+    d.copy_(P.to_tensor(np.full((2, 3), 2.0, np.float32), place=DEVICE))
+    check(d.place.startswith(DEVICE) and float(d.sum().item()) == 12.0
+          and x.astype("bfloat16").place.startswith(DEVICE)
+          and d.astype("int32").numpy().dtype == np.int32,
+          "detach / set_value / copy_ / astype / numpy on the card")
+    x.clear_grad()
+    x.detach_()
+    check(x.grad is None and x.stop_gradient, "clear_grad / detach_")
+    n += len(("register_hook", "retain_grads", "backward", "gradient",
+              "detach", "set_value", "copy_", "astype", "numpy",
+              "clear_grad", "detach_"))
+    log(f"eager op sweep: {n} op and method calls on the card held against "
+        f"the CPU (float32 rtol {SWEEP_TOL[0]}, atol {SWEEP_TOL[1]}; "
+        f"factors by reconstruction) in {time.perf_counter() - t0:.1f}s")
+    return {"ops_checked": n, "cases": len(CASES),
+            "seconds": time.perf_counter() - t0}
+
+
+def eager_config(LlamaConfig):
+    base = LlamaConfig.llama_7b()
+    return LlamaConfig(vocab_size=base.vocab_size,
+                       hidden_size=base.hidden_size,
+                       intermediate_size=base.intermediate_size,
+                       num_hidden_layers=EAGER_LAYERS,
+                       num_attention_heads=base.num_attention_heads,
+                       max_position_embeddings=EAGER_SEQ)
+
+
+def eager_loss(P, F, model, ids, labels):
+    """The dygraph loop's forward and loss: logits, the per-token cross
+    entropy, their mean."""
+    logits = model.logits(ids)
+    return P.mean(F.cross_entropy(logits, labels, reduction="none"))
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30))
+
+
+def host_us_per_op(torch, P):
+    """Host µs a call, a small card tensor, 2000 calls: torch's add on
+    plain tensors, torch's add on port Tensors (the subclass), and the op
+    library's add on port Tensors (dispatch and promotion too)."""
+    a = torch.ones(8, device=DEVICE)
+    b = torch.ones(8, device=DEVICE)
+    pa, pb = P.Tensor(a), P.Tensor(b)
+    out = {}
+    for label, fn in (("torch_plain", lambda: torch.add(a, b)),
+                      ("torch_subclass", lambda: torch.add(pa, pb)),
+                      ("op_library", lambda: P.add(pa, pb))):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        out[label] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def phase_eager(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
+                fa, mt):
+    """The Paddle dygraph loop on the eager core at llama_7b width, cut to
+    EAGER_LAYERS: inputs from ``to_tensor``, ``auto_cast(level="O1",
+    dtype="bfloat16")``, forward, loss, ``loss.backward()``,
+    ``AdamW.step()``, ``clear_grad()``. Gates: the op sweep; the step equal
+    to the same step with sdpa_ref under the same casts; the operator
+    stats' dtypes as ``amp_dtype_for`` rules; launches exact (K2 = K3 = K4
+    = layers, U2 once a step); an inf planted in a weight raises naming
+    the op with FLAGS_check_nan_inf on, and no scan runs with it off; the
+    loss finite and falling."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import dispatch
+    out = {"sweep": phase_eager_sweep(torch, P)}
+    out["host_us_per_call"] = host_us_per_op(torch, P)
+    cfg = eager_config(LlamaConfig)
+    model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.float32,
+                             seed=args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    rng = np.random.RandomState(args.seed + 1)
+    tok = rng.randint(0, cfg.vocab_size, (EAGER_BATCH, EAGER_SEQ + 1))
+    ids = P.to_tensor(tok[:, :-1])
+    labels = P.to_tensor(tok[:, 1:])
+    check(ids.place.startswith(DEVICE) and isinstance(ids, P.Tensor)
+          and str(ids.dtype) == "torch.int64",
+          f"to_tensor put the batch on {ids.place} as {ids.dtype}")
+
+    def amp():
+        return P.amp.auto_cast(level="O1", dtype="bfloat16")
+
+    # the step against the same step with the plain attention, same casts
+    with amp(), debugging.collect_operator_stats() as st_flash:
+        loss_a = eager_loss(P, F, model, ids, labels)
+    loss_a.backward()
+    grads_a = {n: p.grad.clone() for n, p in model.named_parameters()}
+    opt.clear_grad()
+    flash = F._flash
+    F._flash = lambda q, k, v, causal, scale: F.sdpa_ref(
+        q, k, v, causal=causal, scale=scale)
+    try:
+        with amp(), debugging.collect_operator_stats() as st_ref:
+            loss_b = eager_loss(P, F, model, ids, labels)
+        loss_b.backward()
+    finally:
+        F._flash = flash
+    grad_err = {n: rel_l2(grads_a[n], p.grad)
+                for n, p in model.named_parameters()}
+    opt.clear_grad()
+    del grads_a
+    la, lb = float(loss_a.detach()), float(loss_b.detach())
+    worst = max(grad_err, key=grad_err.get)
+    check(abs(la - lb) <= EAGER_LOSS_RTOL * abs(lb),
+          f"eager step: loss {la} with flash, {lb} with sdpa_ref")
+    check(grad_err[worst] <= EAGER_GRAD_RTOL,
+          f"eager step: grad of {worst} differs from the sdpa_ref step's "
+          f"by {grad_err[worst]:.3g} (relative L2)")
+    want = {"linear": "bfloat16", "sdpa": "bfloat16", "embedding": "float32",
+            "rms_norm": "float32", "cross_entropy": "float32",
+            "mean": "float32"}
+    for name, dt in want.items():
+        check(st_flash.dtypes.get(name) and set(st_flash.dtypes[name])
+              == {dt}, f"operator stats: {name} output "
+              f"{st_flash.dtypes.get(name)}, want {dt} only")
+    for name, dt in (("matmul", "bfloat16"), ("softmax", "float32")):
+        check(set(st_ref.dtypes.get(name, ())) == {dt},
+              f"operator stats of the sdpa_ref step: {name} output "
+              f"{st_ref.dtypes.get(name)}, want {dt} only")
+    check(st_flash.stats["sdpa"] == EAGER_LAYERS
+          and st_flash.stats["linear"] == 7 * EAGER_LAYERS + 1,
+          f"operator counts {st_flash.stats}")
+
+    # FLAGS_check_nan_inf: an inf planted in a weight names its op
+    w = model.llama.layers[0].mlp.down_proj.weight
+    keep = w.detach()[0, 0].clone()
+    with torch.no_grad():
+        w[0, 0] = float("inf")
+    P.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        with amp():
+            eager_loss(P, F, model, ids, labels)
+        raised = ""
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        P.set_flags({"FLAGS_check_nan_inf": False})
+        with torch.no_grad():
+            w[0, 0] = keep
+    check("'linear'" in raised,
+          f"inf in down_proj's weight with FLAGS_check_nan_inf: {raised!r}")
+    opt.clear_grad()
+
+    scans = []
+    scan = dispatch._scan_nan_inf
+    dispatch._scan_nan_inf = lambda o, n: scans.append(n) or scan(o, n)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
+    losses, step_ms, fwd_host_ms = [], [], []
+    try:
+        for i in range(EAGER_WARMUP + EAGER_STEPS):
+            if i == EAGER_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for kern in kernels:
+                    kern.launches = 0    # the main path's run starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp():
+                loss = eager_loss(P, F, model, ids, labels)
+            t1 = time.perf_counter()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            if i >= EAGER_WARMUP:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                fwd_host_ms.append((t1 - t0) * 1e3)
+            losses.append(float(loss.detach()))
+    finally:
+        dispatch._scan_nan_inf = scan
+    launches = [kern.launches for kern in kernels]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_l = [EAGER_STEPS * EAGER_LAYERS] * 3 + [EAGER_STEPS]
+    check(launches == want_l,
+          f"eager loop launched K2, K3, K4, U2 {launches} times in "
+          f"{EAGER_STEPS} steps, want {want_l}")
+    check(not scans and dispatch._quiet,
+          f"with FLAGS_check_nan_inf off the dispatch scanned {len(scans)} "
+          f"outputs")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"eager loss not finite or not falling: {losses}")
+
+    # ops a step and host µs per dispatched op (the forward's host time
+    # over its ops: the backward is torch's engine, not the dispatch)
+    with amp(), debugging.collect_operator_stats() as st:
+        torch.cuda.synchronize()
+        eager_loss(P, F, model, ids, labels)
+    n_ops = sum(st.stats.values())
+    opt.clear_grad()
+    p50 = float(np.percentile(step_ms, 50))
+    fwd_p50 = float(np.percentile(fwd_host_ms, 50))
+    out.update({
+        "layers": EAGER_LAYERS, "batch": EAGER_BATCH, "seq": EAGER_SEQ,
+        "hidden": cfg.hidden_size, "params": n_params,
+        "warmup_steps": EAGER_WARMUP, "steps": EAGER_STEPS,
+        "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+        "forward_host_ms_p50": fwd_p50, "ops_per_step": n_ops,
+        "op_counts": st.stats, "op_dtypes": st_flash.dtypes,
+        "ref_op_dtypes": {k: st_ref.dtypes[k] for k in ("matmul", "softmax")},
+        "host_us_per_op": fwd_p50 * 1e3 / n_ops,
+        "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "multi_tensor_adam"), (n // EAGER_STEPS for n in launches))),
+        "peak_mem_gib": peak, "ref_loss_flash": la, "ref_loss_sdpa_ref": lb,
+        "ref_grad_rel_l2_max": grad_err[worst], "ref_grad_worst": worst,
+        "nan_check_error": raised[:160]})
+    # the same size through build_hybrid_train_step(amp=True), no remat
+    del opt
+    hopt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = build(model, hopt, remat=False, amp=True)
+    batch = {"input_ids": ids.as_subclass(torch.Tensor),
+             "labels": labels.as_subclass(torch.Tensor)}
+    hyb_ms = []
+    for i in range(EAGER_WARMUP + EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(batch))
+        if i >= EAGER_WARMUP:
+            hyb_ms.append((time.perf_counter() - t0) * 1e3)
+    out["hybrid_step_ms"] = hyb_ms
+    out["hybrid_step_ms_p50"] = float(np.percentile(hyb_ms, 50))
+    del step, hopt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"eager O1 loop, {EAGER_LAYERS} layers at llama_7b width, "
+        f"B={EAGER_BATCH} S={EAGER_SEQ}: step p50 {p50:.2f} ms "
+        f"(build_hybrid_train_step(amp=True) {out['hybrid_step_ms_p50']:.2f}"
+        f" ms), {n_ops} ops dispatched a step, "
+        f"{out['host_us_per_op']:.1f} host us an op, peak {peak:.2f} GiB, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return out
+
+
 RANK_TIMEOUT_S = 600
 MESH_LABEL = {"gloo": "gloo, ranks share one card",
               "nccl": "nccl, one card a rank"}
@@ -3888,6 +4199,8 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic-only", action="store_true",
                     help="build the kernels and run the elastic phase "
                          "alone")
+    ap.add_argument("--eager-only", action="store_true",
+                    help="build the kernels and run the eager phase alone")
     ap.add_argument("--deepfm-only", action="store_true",
                     help="build the kernels and run the DeepFM phase "
                          "alone (with --elastic-only: both)")
@@ -3932,6 +4245,21 @@ def main(argv=None) -> int:
     _build.library()
     log(f"built {', '.join(_build.SOURCES)} -> {_build.LIB_PATH} with nvcc "
         f"(sm_90a, one process per source) in {build_s:.1f}s")
+    if args.eager_only:
+        eager = phase_eager(torch, args, LlamaConfig, LlamaForCausalLM,
+                            build_hybrid_train_step, AdamW, fa, mt)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump({"card": card, "kind": kind, "build_s": build_s,
+                           "eager": eager}, f, indent=1)
+        log(json.dumps({"eager": eager}))
+        log(f"chip_smoke --eager-only total "
+            f"{time.perf_counter() - t_start:.1f}s")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.elastic_only or args.deepfm_only:
         alone = {}
         if args.deepfm_only:
@@ -4055,6 +4383,8 @@ def main(argv=None) -> int:
               <= 2 * trainstep["eager_spread"],
               f"captured TrainStep losses {trainstep['losses']} vs eager "
               f"{eager_ts['losses']}: beyond two eager runs' spread")
+    eager = phase_eager(torch, args, LlamaConfig, LlamaForCausalLM,
+                        build_hybrid_train_step, AdamW, fa, mt)
     deepfm = phase_deepfm(torch, args)
     recompute = phase_recompute(torch, args, LlamaConfig, LlamaForCausalLM,
                                 fa)
@@ -4106,6 +4436,8 @@ def main(argv=None) -> int:
                 **pp_launches(mesh, name.replace("attention_", "")),
                 "ckpt_dp_mp_each_rank": mesh["ckpt_dp_mp"][
                     "launches_per_step"][name.replace("attention_", "")]},
+            "eager_launches_per_step": eager["launches_per_step"][
+                name.replace("attention_", "")],
             "recompute_launches": {
                 "recompute": recompute["launches"][
                     name.replace("attention_", "")],
@@ -4159,6 +4491,8 @@ def main(argv=None) -> int:
             "launches": trainstep["launches"][name.replace("_finite", "")],
             "train_launches": per_step[name.replace("_finite", "")]
             * training["steps"],
+            "eager_launches_per_step": eager["launches_per_step"].get(
+                name.replace("_finite", ""), 0),
             "deepfm_launches": deepfm["dp1"]["launches"][
                 name.replace("_finite", "")],
             "mesh_launches_per_step": {
@@ -4193,6 +4527,7 @@ def main(argv=None) -> int:
                        "spec": spec, "prefix": prefix, "chunked": chunked,
                        "gateway": gateway, "mesh": mesh,
                        "elastic": elastic, "deepfm": deepfm,
+                       "eager": eager,
                        "recompute": recompute, **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
@@ -4200,6 +4535,7 @@ def main(argv=None) -> int:
     log(json.dumps({"trainstep": trainstep}))
     log(json.dumps({"recompute": recompute}))
     log(json.dumps({"deepfm": deepfm}))
+    log(json.dumps({"eager": eager}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"elastic": elastic}))
     log(json.dumps(kernels))

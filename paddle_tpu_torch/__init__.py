@@ -14,9 +14,34 @@ Ported so far: serving LLaMA (``models.llama.LlamaForCausalLM``,
 LBFGS of ``optimizer``, the clips of ``nn.clip`` and ``amp.GradScaler``,
 on one card or over a mesh of ranks with dp, mp (with sequence
 parallelism) and sep (ring or Ulysses) axes (``distributed``,
-``parallel.mesh``).
+``parallel.mesh``); and the Paddle-style eager core: ``Tensor`` (a
+``torch.Tensor`` subclass), ``Parameter``, the op library
+(``to_tensor``, the creation, math, manipulation, linalg and random ops)
+through a dispatch that applies ``amp.auto_cast``'s lists, autograd over
+torch's engine (``backward``, ``grad``, ``PyLayer``, the functional
+transforms), ``nn.Layer``, flags, ``save``/``load``.
 """
 from .core.device import get_device, resolve_device, set_device  # noqa: F401
-from .core.generator import seed  # noqa: F401
+from .core.generator import Generator, default_generator, seed  # noqa: F401
+from .core.dtype import (  # noqa: F401
+    bool_, uint8, int8, int16, int32, int64, float16, bfloat16, float32,
+    float64, complex64, complex128, set_default_dtype, get_default_dtype,
+)
+from .core.tensor import Parameter, Tensor, is_tensor  # noqa: F401
+from .autograd.grad_mode import (enable_grad, is_grad_enabled,  # noqa: F401
+                                 no_grad)
+from .autograd.backward import grad  # noqa: F401
 
-__all__ = ["get_device", "set_device", "resolve_device", "seed"]
+from .ops import *  # noqa: F401,F403
+from .ops import linalg  # noqa: F401
+from . import autograd  # noqa: F401
+from . import amp  # noqa: F401
+from . import nn  # noqa: F401
+from . import optimizer  # noqa: F401
+from .utils.flags import get_flags, set_flags  # noqa: F401
+from .framework_io import load, save  # noqa: F401
+from .framework_compat import (  # noqa: F401
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, ParamAttr, TPUPlace, dtype,
+    finfo, get_cuda_rng_state, get_rng_state, iinfo, set_cuda_rng_state,
+    set_grad_enabled, set_rng_state,
+)

@@ -1,10 +1,13 @@
-"""AMP: dynamic loss scaling (``GradScaler`` / ``AmpScaler``).
-
-Counterpart of ``paddle_tpu/amp/``'s scaler alone. ``auto_cast``,
-``decorate``, the white and black lists and ``amp.debugging`` hook the op
-dispatch, which the port has not got yet: they wait for the slice that
-ports it (ROADMAP.md Queue 1).
-"""
+"""AMP: counterpart of ``paddle_tpu/amp/``: ``auto_cast`` with the port's
+own white and black lists, ``decorate``, ``debugging``, and dynamic loss
+scaling (``GradScaler`` / ``AmpScaler``)."""
+from .auto_cast import (  # noqa: F401
+    amp_guard, amp_state, auto_cast, black_list, decorate,
+    is_bfloat16_supported, is_float16_supported, white_list,
+)
 from .grad_scaler import AmpScaler, GradScaler  # noqa: F401
+from . import debugging  # noqa: F401,E402
 
-__all__ = ["AmpScaler", "GradScaler"]
+__all__ = ["AmpScaler", "GradScaler", "auto_cast", "amp_guard", "decorate",
+           "white_list", "black_list", "amp_state", "is_float16_supported",
+           "is_bfloat16_supported", "debugging"]

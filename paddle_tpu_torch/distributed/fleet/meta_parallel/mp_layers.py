@@ -63,6 +63,7 @@ import torch
 from torch import nn
 
 from ....nn import functional as F
+from ....nn.layer.layers import Layer
 from ....nn.layers import _param, xavier_normal_
 from ....parallel import mesh as mesh_mod
 from ... import comms
@@ -309,7 +310,7 @@ def _matmul(x, w, b, fuse: bool):
     return F.linear(x, w, b)
 
 
-class VocabParallelEmbedding(nn.Module):
+class VocabParallelEmbedding(Layer):
     """Embedding with the vocab rows split over mp; ids outside the rank's
     range look up zeros, and the rows are all-reduced."""
 
@@ -341,7 +342,7 @@ class VocabParallelEmbedding(nn.Module):
         return reduce_from_mp(out, self.mesh)
 
 
-class ColumnParallelLinear(nn.Module):
+class ColumnParallelLinear(Layer):
     """``y = x W (+ b)`` with W's output columns split over mp. The input
     is copied to mp (its grad all-reduced); with ``gather_output`` the
     output columns are all-gathered, else each rank keeps its own."""
@@ -376,7 +377,7 @@ class ColumnParallelLinear(nn.Module):
             else out
 
 
-class RowParallelLinear(nn.Module):
+class RowParallelLinear(Layer):
     """``y = x W (+ b)`` with W's input rows split over mp: each rank's
     partial product is all-reduced, then the (replicated) bias added. With
     ``input_is_parallel=False`` the input is first sliced along its last
@@ -459,7 +460,7 @@ class _ParallelCE(torch.autograd.Function):
         return grad.to(ctx.dtype), None, None, None
 
 
-class ParallelCrossEntropy(nn.Module):
+class ParallelCrossEntropy(Layer):
     """Per-row CE over mp-sharded logits (``reduction='none'``); rows whose
     label is ``ignore_index`` give 0."""
 

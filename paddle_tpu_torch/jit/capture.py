@@ -16,7 +16,8 @@ and never the CPU.
 
 - **Signature.** Every tensor leaf's shape, stride, dtype and device, and
   every Python leaf's value (an ``int`` offset makes one signature per
-  value: pass a tensor). Tensors of the ``inplace`` arguments (the KV
+  value: pass a tensor), and ``amp.auto_cast``'s regime
+  (``amp_cache_key``). Tensors of the ``inplace`` arguments (the KV
   caches) are read and written where they lie: the graph holds their
   addresses, so their ``data_ptr`` joins the signature and a moved cache
   is a new signature, never a replay on stale addresses. Every other
@@ -350,7 +351,7 @@ class _GraphHolder:
         return self._backend
 
     def _signature(self, leaves, spans):
-        parts = [spans]
+        parts = [spans, _amp_key()]
         i = 0
         for pos, span in enumerate(spans):
             inplace = pos in self._inplace and not isinstance(span, tuple)
@@ -548,6 +549,13 @@ class _Recorder(TorchDispatchMode):
                         v.untyped_storage().data_ptr() in self.copied:
                     rec.copied_writes.append(name)
         return func(*args, **kwargs)
+
+
+def _amp_key():
+    """``amp.auto_cast``'s regime (``amp_cache_key``): a step captured
+    under one cast regime must not serve a call under another."""
+    from ..amp.auto_cast import amp_cache_key
+    return amp_cache_key()
 
 
 def _regime() -> tuple:

@@ -25,11 +25,12 @@ from ..distributed.embedding import ShardedEmbedding
 from ..nn import functional as F
 from ..nn.layer.common import Linear
 from ..nn.layer.container import LayerList
+from ..nn.layer.layers import Layer
 
 __all__ = ["DeepFM", "load_paddle_tpu_state", "paddle_tpu_state"]
 
 
-class DeepFM(nn.Module):
+class DeepFM(Layer):
     """``sparse_field_num`` categorical fields and ``dense_feature_dim``
     numeric features: ``forward(sparse_ids [B, F], dense [B, D]) -> logits
     [B, 1]``.

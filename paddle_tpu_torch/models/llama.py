@@ -37,6 +37,7 @@ from ..distributed.fleet.recompute import recompute
 from ..jit.capture import capture_step
 from ..nn import functional as F
 from ..nn.clip import ClipGradByGlobalNorm
+from ..nn.layer.layers import Layer
 from ..nn.layers import RMSNorm
 from ..ops.kernels.decode_attention import ragged_decode_attention
 from ..ops.kernels.fused_ce import fused_linear_cross_entropy
@@ -144,7 +145,7 @@ def _mp_out(y, sp: bool, mesh):
         reduce_from_mp(y, mesh)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     """q/k/v column-parallel and o row-parallel over the mesh's mp axis:
     each rank holds ``H / mp`` query and ``Hkv / mp`` kv heads (JAX
     llama.py:100-113); ``num_key_value_heads`` must divide by mp."""
@@ -221,7 +222,7 @@ class LlamaAttention(nn.Module):
                        self.mesh)
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
                  generator=None, mesh=None):
         super().__init__()
@@ -241,7 +242,7 @@ class LlamaMLP(nn.Module):
         return _mp_out(self.down_proj.local(y), self.sp, self.mesh)
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
                  generator=None, mesh=None):
         super().__init__()
@@ -265,7 +266,7 @@ class LlamaDecoderLayer(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     """The decoder stack. ``config.recompute`` runs each layer of the
     cache-free forward through the fleet's ``recompute`` (as the reference
     does, llama.py:272-274). Over a mesh: the layers are
@@ -320,7 +321,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """``LlamaForCausalLM(cfg, device=None, dtype=torch.float32, seed=0,
     mesh=None)``.
 

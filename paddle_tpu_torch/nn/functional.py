@@ -8,7 +8,11 @@ attention,loss}.py``: ``rms_norm``, ``silu``, ``gelu``, ``relu``,
 plain ``sdpa_ref`` with one), ``sdp_attention_ref`` and the Paddle
 ``flash_attention`` shim; ``cross_entropy`` (hard and soft labels,
 class weights, label smoothing, any class axis) and
-``binary_cross_entropy_with_logits``.
+``binary_cross_entropy_with_logits``. Each runs through
+``ops.dispatch.apply`` under the JAX package's op name (``rms_norm``,
+``silu``, ``linear``, ``sdpa``, ``cross_entropy``, ...), so
+``amp.auto_cast`` casts its inputs as the JAX package's does; with amp
+and the dispatch hooks off that is one direct call.
 """
 from __future__ import annotations
 
@@ -16,10 +20,13 @@ from typing import Optional
 
 import torch
 
+from ..core import dtype as dtypes
+from ..ops.dispatch import apply
+from ..ops.math import matmul as _matmul
 from ..ops.kernels.flash_attention import flash_attention as _flash
 
 __all__ = ["rms_norm", "silu", "gelu", "relu", "sigmoid", "linear",
-           "embedding", "sdpa_ref", "sdp_attention_ref",
+           "embedding", "softmax", "sdpa_ref", "sdp_attention_ref",
            "scaled_dot_product_attention",
            "flash_attention", "cross_entropy",
            "binary_cross_entropy_with_logits"]
@@ -32,6 +39,12 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     """fp32 mean square over ``axis`` (an int or a tuple), ``x * rsqrt(ms
     + eps)`` cast back to the input dtype, *then* times the weight
     (norm.py:108-119)."""
+    if weight is not None:
+        return apply(_rms_norm, x, weight, epsilon, axis, op_name="rms_norm")
+    return apply(_rms_norm, x, None, epsilon, axis, op_name="rms_norm")
+
+
+def _rms_norm(x, weight, epsilon, axis):
     xf = x.float()
     ms = xf.square().mean(dim=axis, keepdim=True)
     out = (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
@@ -41,27 +54,33 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
 
 
 def silu(x: torch.Tensor, name=None) -> torch.Tensor:
-    return torch.nn.functional.silu(x)
+    return apply(torch.nn.functional.silu, x, op_name="silu")
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     """GELU: exact (erf) by default, the tanh form with ``approximate``
     (activation.py:67)."""
-    return torch.nn.functional.gelu(x, approximate="tanh" if approximate
-                                    else "none")
+    return apply(torch.nn.functional.gelu, x, op_name="gelu",
+                 approximate="tanh" if approximate else "none")
 
 
 def relu(x: torch.Tensor, name=None) -> torch.Tensor:
-    return torch.relu(x)
+    return apply(torch.relu, x, op_name="relu")
 
 
 def sigmoid(x: torch.Tensor, name=None) -> torch.Tensor:
-    return torch.sigmoid(x)
+    return apply(torch.sigmoid, x, op_name="sigmoid")
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, name=None) -> torch.Tensor:
     """``x @ W (+ b)`` with W ``[in, out]`` (common.py:25-30)."""
+    if bias is None:
+        return apply(_linear, x, weight, op_name="linear")
+    return apply(_linear, x, weight, bias, op_name="linear")
+
+
+def _linear(x, weight, bias=None):
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -71,6 +90,10 @@ def embedding(x: torch.Tensor, weight: torch.Tensor, padding_idx=None,
     """Rows of ``weight`` at the ids ``x``; rows at ``padding_idx`` are
     zeros (common.py:33-40). ``sparse`` asks Paddle for a sparse grad;
     the JAX function and this one take the dense one."""
+    return apply(_embedding, x, weight, padding_idx, op_name="embedding")
+
+
+def _embedding(x, weight, padding_idx):
     out = weight[x]
     if padding_idx is not None:
         out = out.masked_fill((x == padding_idx)[..., None], 0.0)
@@ -84,7 +107,9 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (attention.py:22-44): logits ``q·kᵀ·scale`` in the input dtype, the
     causal fill with the dtype's min, the additive mask cast to the logits'
     dtype, softmax in >= fp32 with the probabilities cast back to q's
-    dtype, then ``@ v``. GQA repeats the kv heads."""
+    dtype, then ``@ v``. GQA repeats the kv heads. The two products and
+    the softmax run as the op library's ``matmul`` and ``softmax`` (under
+    ``auto_cast``: bf16 and float32, as ``sdpa``'s own casts)."""
     qT = q.transpose(1, 2)     # [B, H, S, D]
     kT = k.transpose(1, 2)
     vT = v.transpose(1, 2)
@@ -93,7 +118,7 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rep = qT.shape[1] // kT.shape[1]
         kT = kT.repeat_interleave(rep, dim=1)
         vT = vT.repeat_interleave(rep, dim=1)
-    logits = torch.matmul(qT, kT.transpose(-1, -2)) * s
+    logits = _matmul(qT, kT.transpose(-1, -2)) * s
     if causal:
         qlen, klen = logits.shape[-2], logits.shape[-1]
         cmask = torch.ones(qlen, klen, dtype=torch.bool,
@@ -102,9 +127,17 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         logits = logits + mask.to(logits.dtype)
     acc = torch.promote_types(logits.dtype, torch.float32)
-    probs = torch.softmax(logits.to(acc), dim=-1).to(q.dtype)
-    out = torch.matmul(probs, vT)
+    probs = softmax(logits.to(acc), axis=-1).to(q.dtype)
+    out = _matmul(probs, vT)
     return out.transpose(1, 2)
+
+
+def softmax(x: torch.Tensor, axis: int = -1, dtype=None, name=None):
+    """Softmax over ``axis`` (activation.py:123), in ``dtype`` if given."""
+    def f(v):
+        return torch.softmax(v if dtype is None else v.to(
+            dtypes.convert_dtype(dtype)), dim=axis)
+    return apply(f, x, op_name="softmax")
 
 
 def sdp_attention_ref(q, k, v, mask=None, dropout_p: float = 0.0,
@@ -136,6 +169,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     :51-57); with a mask, or another dtype, the plain ``sdpa_ref``. The
     flash causal mask is top-left, ``sdpa_ref``'s bottom-right: they agree
     when Sq == Sk."""
+    if attn_mask is None:
+        return apply(_sdpa, query, key, value, None, is_causal, scale,
+                     op_name="sdpa")
+    return apply(_sdpa, query, key, value, attn_mask, is_causal, scale,
+                 op_name="sdpa")
+
+
+def _sdpa(query, key, value, attn_mask, is_causal, scale):
     if attn_mask is None and query.dtype in _FLASH_DTYPES:
         # the kernels read contiguous [B, S, H, D]; any strided view is
         # copied here, as the reference's _prep transposes and pads
@@ -164,6 +205,13 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
       row ignored and no weight; ``mean`` over the rows.
 
     ``sum`` and ``none`` as named."""
+    return apply(_cross_entropy, input, label, weight, ignore_index,
+                 reduction, soft_label, axis, use_softmax, label_smoothing,
+                 op_name="cross_entropy")
+
+
+def _cross_entropy(input, label, weight, ignore_index, reduction,
+                   soft_label, axis, use_softmax, label_smoothing):
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none, got "
                          f"{reduction!r}")
@@ -215,6 +263,11 @@ def binary_cross_entropy_with_logits(logit: torch.Tensor,
     ``(1 - y) z + m + log(exp(-m) + exp(-z - m))`` with ``m = max(-z,
     0)``; ``pos_weight`` scales the log term by ``(pw - 1) y + 1``;
     ``weight`` multiplies each element's loss before the reduction."""
+    return apply(_bce_with_logits, logit, label, weight, reduction,
+                 pos_weight, op_name="bce_with_logits")
+
+
+def _bce_with_logits(logit, label, weight, reduction, pos_weight):
     z, y = logit, label
     max_val = torch.clamp_min(-z, 0.0)
     soft = torch.log(torch.exp(-max_val) + torch.exp(-z - max_val))

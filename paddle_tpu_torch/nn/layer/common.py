@@ -11,15 +11,15 @@ zeros; ``bias_attr=False`` leaves it out. ``Embedding``'s weight is
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 from ..layers import _param, xavier_normal_
 
 __all__ = ["Linear", "Embedding", "normal_"]
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, device=None,
                  dtype=torch.float32, generator=None):
@@ -58,7 +58,7 @@ def normal_(w: torch.Tensor, generator, mean: float = 0.0,
     return w
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, device=None,
                  dtype=torch.float32, generator=None):

@@ -11,10 +11,12 @@ from collections import OrderedDict
 
 from torch import nn
 
+from .layers import Layer
+
 __all__ = ["Sequential", "LayerList"]
 
 
-class Sequential(nn.Module):
+class Sequential(Layer):
     def __init__(self, *layers):
         super().__init__()
         if len(layers) == 1 and isinstance(layers[0], OrderedDict):
@@ -44,9 +46,11 @@ class Sequential(nn.Module):
         return x
 
 
-class LayerList(nn.ModuleList):
+class LayerList(Layer, nn.ModuleList):
     """``nn.ModuleList`` under Paddle's name (``sublayers`` as the
-    constructor's parameter)."""
+    constructor's parameter), a ``Layer``."""
 
     def __init__(self, sublayers=None):
-        super().__init__(sublayers)
+        Layer.__init__(self)
+        if sublayers is not None:
+            self.extend(sublayers)

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from . import functional as F
+from .layer.layers import Layer
 
 __all__ = ["RMSNorm", "xavier_normal_"]
 
@@ -41,7 +42,7 @@ def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     def __init__(self, hidden_size: int, epsilon: float = 1e-6,
                  device=None, dtype=torch.float32):
         super().__init__()

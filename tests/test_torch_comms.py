@@ -193,13 +193,18 @@ def _inputs(world):
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("comms")
-    out = {}
+    jobs = []
     for world, (mesh, axis) in WORLDS.items():
         x, blocks, grads = _inputs(world)
-        out[world] = torch_dist.spawn("comms", world, tmp, {
-            "mesh": mesh, "axis": axis, "x": x, "blocks": blocks,
-            "grads": [grads] * world, "block": BLOCK})
-    return out
+        payload = {"mesh": mesh, "axis": axis, "x": x, "blocks": blocks,
+                   "grads": [grads] * world, "block": BLOCK}
+
+        def job(world=world, payload=payload):
+            return {world: torch_dist.spawn("comms", world, tmp, payload)}
+        jobs.append(([world], job))
+    runs = torch_dist.Background(jobs)      # spawns beside the JAX side
+    yield runs
+    runs.join()
 
 
 _JAX = {}

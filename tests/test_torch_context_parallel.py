@@ -121,9 +121,12 @@ NAMES = [c["name"] for c in _cases(2)]
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cp")
-    return {n: torch_dist.spawn("cp", n, tmp, {"mesh": {"sep": n},
-                                               "cases": _cases(n)})
-            for n in (2, 4)}
+    jobs = [([n], lambda n=n: {n: torch_dist.spawn(
+        "cp", n, tmp, {"mesh": {"sep": n}, "cases": _cases(n)})})
+        for n in (2, 4)]
+    runs = torch_dist.Background(jobs)      # spawns beside the JAX side
+    yield runs
+    runs.join()
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -174,9 +177,14 @@ DIRECT = _direct_cases()
 @pytest.fixture(scope="module")
 def port_direct(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cp_direct")
-    res = torch_dist.spawn("cp_direct", 2, tmp, {"mesh": {"sep": 2},
-                                                 "cases": DIRECT})
-    return {c["name"]: [rk[c["name"]] for rk in res] for c in DIRECT}
+
+    def job():
+        res = torch_dist.spawn("cp_direct", 2, tmp, {"mesh": {"sep": 2},
+                                                     "cases": DIRECT})
+        return {c["name"]: [rk[c["name"]] for rk in res] for c in DIRECT}
+    runs = torch_dist.Background([([c["name"] for c in DIRECT], job)])
+    yield runs
+    runs.join()
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in DIRECT])

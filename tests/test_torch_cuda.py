@@ -1225,3 +1225,70 @@ def test_sharded_lookup_scatter_add_on_card_equals_the_plain_one(
     for j in range(4):
         plain.index_add_(0, dest[j], g[j])
     assert torch.equal(wt.grad.cpu(), plain[:1000])
+
+
+# ---- the eager core on the card ----
+
+def _op_cases():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_op_cases
+    return torch_op_cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_op_cases().CASES))
+def test_eager_op_on_card_matches_cpu(cuda_device, name):
+    """Each op of the table on card tensors against the same port op on
+    CPU tensors (tests/torch_op_cases.py: float32 rtol 1e-4, atol 1e-5),
+    every output on the card."""
+    import paddle_tpu_torch as P
+    assert _op_cases().sweep_case(P, name, "cuda") >= 1
+
+
+@pytest.mark.cuda
+def test_creation_ops_and_to_tensor_land_on_the_card(cuda_device):
+    import numpy as np
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as pdev
+    pdev._state.device = None                     # no device named
+    made = [P.to_tensor([1.0, 2.0]), P.to_tensor(np.ones(3)),
+            P.to_tensor(torch.ones(2)), P.zeros([2]), P.ones([2]),
+            P.full([2], 1.0), P.empty([2]), P.arange(4), P.linspace(0, 1, 3),
+            P.logspace(0, 1, 3), P.eye(2), P.tril_indices(3),
+            P.triu_indices(3), P.rand([2]), P.randn([2]),
+            P.randint(0, 3, [2]), P.uniform([2]), P.normal(0.0, 1.0, [2]),
+            P.randperm(4), P.create_parameter([2, 2], "float32"),
+            P.fill_constant([2], "float32", 1.0), P.create_tensor("float32"),
+            P.create_global_var([2], 1.0, "float32"),
+            P.gaussian([2]), P.zeros_like(P.zeros([2]))]
+    for t in made:
+        assert t.device.type == "cuda" and isinstance(t, P.Tensor), t.place
+    assert P.to_tensor([1.0], place="cpu").place == "cpu"
+
+
+@pytest.mark.cuda
+def test_port_tensors_through_a_captured_step_equal_eager(cuda_device):
+    """A step over port Tensors, captured once and replayed, equals the
+    same step run eagerly."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.jit import capture
+    w = P.randn([64, 64])
+    x = P.randn([8, 64])
+
+    def fn(a, out):
+        y = P.tanh(P.matmul(a, w)) * 2.0 + 1.0
+        out.copy_(P.sum(y, axis=1))
+        return out
+    out = P.zeros([8])
+    step = capture.capture_step(fn, inplace=(1,))
+    got = [step(x, out).clone() for _ in range(3)]
+    assert step.cache_info()["lowerings"] == 1
+    capture.set_step_capture_enabled(False)
+    try:
+        want = fn(x, P.zeros([8]))
+    finally:
+        capture.set_step_capture_enabled(True)
+    for g in got:
+        assert torch.equal(g, want)

@@ -77,14 +77,20 @@ def port(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("fleet")
     state = {n: np.asarray(p._value) for n, p in _jax_model()
              .named_parameters()}
-    out = {}
+    jobs = []
     for name, (world, hybrid, stage, sched, M) in CASES.items():
-        out[name] = torch_dist.spawn("fleet", world, tmp, {
+        payload = {
             "mesh": {"dp": world}, "hybrid": hybrid, "stage": stage,
             "config": TINY, "state": state, "lr": LR, "eps": EPS,
-            "micro": M, "schedule": sched, "batches": _batches()},
-            timeout=120)
-    return out
+            "micro": M, "schedule": sched, "batches": _batches()}
+
+        def job(name=name, world=world, payload=payload):
+            return {name: torch_dist.spawn("fleet", world, tmp, payload,
+                                           timeout=120)}
+        jobs.append(([name], job))
+    runs = torch_dist.Background(jobs)      # spawns beside the JAX steps
+    yield runs
+    runs.join()
 
 
 @functools.lru_cache(maxsize=None)

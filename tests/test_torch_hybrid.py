@@ -20,6 +20,8 @@ valid tokens only if the ranks all-reduce their valid count. ``TrainStep``
 on dp gets that from a ``LossSum`` (``LlamaForCausalLM.loss_sum``), with
 and without accumulation; on mp it takes the scalar ``compute_loss``.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -111,20 +113,27 @@ def _payload_config(name):
 
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
-    """Every configuration on the port's ranks: name -> rank results."""
+    """Every configuration on the port's ranks: name -> rank results (the
+    spawns run on a background thread while the tests compute the JAX
+    steps)."""
     tmp = tmp_path_factory.mktemp("hybrid")
     two = [n for n, c in CONFIGS.items() if c[0] == 2] + list(QUANT)
-    res2 = torch_dist.spawn("hybrid", 2, tmp, {
-        "mesh": {"dp": 2}, "configs": [_payload_config(n) for n in two]},
-        timeout=90)
-    res4 = torch_dist.spawn("hybrid", 4, tmp, {
-        "mesh": {"dp": 4}, "configs": [_payload_config("dp2_mp2")]},
-        timeout=90)
-    out = {n: [r[n] for r in res2] for n in two}
-    out["dp2_mp2"] = [r["dp2_mp2"] for r in res4]
-    return out
+    pay2 = {"mesh": {"dp": 2}, "configs": [_payload_config(n) for n in two]}
+    pay4 = {"mesh": {"dp": 4}, "configs": [_payload_config("dp2_mp2")]}
+
+    def job2():
+        res2 = torch_dist.spawn("hybrid", 2, tmp, pay2, timeout=90)
+        return {n: [r[n] for r in res2] for n in two}
+
+    def job4():
+        res4 = torch_dist.spawn("hybrid", 4, tmp, pay4, timeout=90)
+        return {"dp2_mp2": [r["dp2_mp2"] for r in res4]}
+    runs = torch_dist.Background([(two, job2), (["dp2_mp2"], job4)])
+    yield runs
+    runs.join()
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_run(name, quant=None):
     world, mesh_shape, knobs, step = CONFIGS[name]
     jm = _jax_model(knobs)

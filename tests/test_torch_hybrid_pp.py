@@ -102,16 +102,23 @@ def _payload(name):
 
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
+    """name -> rank results; the spawns run on a background thread while
+    the tests compute the JAX steps."""
     tmp = tmp_path_factory.mktemp("hybrid_pp")
-    out = {}
+    jobs = []
     for world in sorted({c[0] for c in CONFIGS.values()}):
         names = [n for n, c in CONFIGS.items() if c[0] == world]
-        res = torch_dist.spawn("hybrid", world, tmp, {
-            "mesh": {"dp": world},
-            "configs": [_payload(n) for n in names]}, timeout=240)
-        for n in names:
-            out[n] = [r[n] for r in res]
-    return out
+        payload = {"mesh": {"dp": world},
+                   "configs": [_payload(n) for n in names]}
+
+        def job(world=world, names=names, payload=payload):
+            res = torch_dist.spawn("hybrid", world, tmp, payload,
+                                   timeout=240)
+            return {n: [r[n] for r in res] for n in names}
+        jobs.append((names, job))
+    runs = torch_dist.Background(jobs)
+    yield runs
+    runs.join()
 
 
 def _jax_run(name):

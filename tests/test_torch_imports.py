@@ -5,7 +5,7 @@
   already imported ``paddle_tpu`` in this process).
 - No file of the port, and not ``chip_smoke.py`` or the port processes'
   helpers (``tests/torch_dist.py``, ``tests/torch_supervisor_member.py``,
-  ``tests/torch_no_hang_child.py``), imports ``jax``, ``ml_dtypes`` or a
+  ``tests/torch_no_hang_child.py``, ``tests/torch_op_cases.py``), imports ``jax``, ``ml_dtypes`` or a
   ``paddle_tpu`` module.
 - The entry points run on the card by default and raise without CUDA
   rather than carry on quietly on the CPU; ``chip_smoke.py`` fails
@@ -93,8 +93,12 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.distributed.launch.elastic\n"
         "import paddle_tpu_torch.io, paddle_tpu_torch.io.streaming\n"
         "import paddle_tpu_torch.profiler\n"
+        "import paddle_tpu_torch.autograd, paddle_tpu_torch.linalg\n"
+        "import paddle_tpu_torch.amp.debugging, paddle_tpu_torch.ops.math\n"
+        "import paddle_tpu_torch.framework_io\n"
+        "import paddle_tpu_torch.framework_compat\n"
         "sys.path.insert(0, 'tests')\n"
-        "import torch_dist\n"
+        "import torch_dist, torch_op_cases\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
         "             None and (m == 'paddle_tpu' or m.startswith(\n"
         "             'paddle_tpu.') or m.split('.')[0] in ('jax',\n"
@@ -115,7 +119,8 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "fce_variants.py", "tests/torch_dist.py",
-       "tests/torch_supervisor_member.py", "tests/torch_no_hang_child.py"]))
+       "tests/torch_supervisor_member.py", "tests/torch_no_hang_child.py",
+       "tests/torch_op_cases.py"]))
 def test_source_imports_neither_jax_nor_paddle_tpu(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path

@@ -78,15 +78,19 @@ PAIR = dict(CASES[3], name="gpipe_as_1f1b_pp2_m2", schedule="gpipe")
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pipeline")
-    out = {}
+    jobs = []
     for S in (2, 4):
         cases = [c for c in CASES + [PAIR] if c["S"] == S]
-        res = torch_dist.spawn("pipeline", S, tmp, {"mesh": {"pp": S},
-                                                     "cases": cases},
-                               timeout=90)
-        for c in cases:
-            out[c["name"]] = [r[c["name"]] for r in res]
-    return out
+
+        def job(S=S, cases=cases):
+            res = torch_dist.spawn("pipeline", S, tmp, {"mesh": {"pp": S},
+                                                         "cases": cases},
+                                   timeout=90)
+            return {c["name"]: [r[c["name"]] for r in res] for c in cases}
+        jobs.append(([c["name"] for c in cases], job))
+    runs = torch_dist.Background(jobs)      # spawns beside the JAX side
+    yield runs
+    runs.join()
 
 
 # ---- the JAX side ---------------------------------------------------------

@@ -1,7 +1,8 @@
 """Run the port's multi-rank paths as spawned gloo processes on the CPU.
 
 ``spawn(scenario, world, tmp_path, payload)`` starts ``world`` processes
-(the ``spawn`` start method), each joins a gloo process group through a
+(forked from a ``forkserver`` that has imported torch and the port once),
+each joins a gloo process group through a
 ``FileStore`` under ``tmp_path`` (so parallel test workers never share a
 port), runs ``SCENARIOS[scenario](payload)`` and pickles what it returns;
 the parent gets the list of per-rank results. Every process has a time
@@ -69,14 +70,29 @@ def _rank_main(rank: int, world: int, root: str, scenario: str,
     os._exit(0)
 
 
+_PRELOAD = ["torch_dist", "paddle_tpu_torch", "paddle_tpu_torch.distributed",
+            "paddle_tpu_torch.models.llama", "paddle_tpu_torch.parallel"]
+
+
+def _context():
+    """The ``forkserver`` start method: one server per test process
+    imports torch and the port once (the preload), and every rank forks
+    from it, instead of each rank importing them afresh (``spawn``: ~3 s
+    of CPU a rank). The server is a fresh interpreter, so no rank sees
+    the test process's JAX."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    return ctx
+
+
 def spawn(scenario: str, world: int, tmp_path, payload: dict,
           timeout: float = TIMEOUT_S) -> list:
     """Per-rank results of ``scenario`` on ``world`` gloo CPU ranks."""
-    import torch.multiprocessing as mp
     root = Path(tmp_path) / f"{scenario}_{world}_{time.monotonic_ns()}"
     root.mkdir(parents=True)
     (root / "payload.pkl").write_bytes(pickle.dumps(payload))
-    ctx = mp.get_context("spawn")
+    ctx = _context()
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, str(root), scenario, timeout),
                          daemon=True)
@@ -102,6 +118,51 @@ def spawn(scenario: str, world: int, tmp_path, payload: dict,
                 f"--- rank {r} ---\n{e}" for r, e in errs.items()))
     return [pickle.loads((root / f"out{r}.pkl").read_bytes())
             for r in range(world)]
+
+
+class Background:
+    """Spawns run one after another on a background thread while the test
+    module computes its JAX references on the main one. ``jobs`` is a
+    list of ``(keys, fn)``: ``fn()`` returns a dict holding ``keys``;
+    ``runs[key]`` waits for the job that makes ``key`` (and re-raises its
+    failure)."""
+
+    def __init__(self, jobs):
+        import threading
+        self._jobs = [(set(keys), fn, threading.Event()) for keys, fn in jobs]
+        self._out, self._err = {}, {}
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for i, (_, fn, done) in enumerate(self._jobs):
+            try:
+                self._out.update(fn())
+            except BaseException as e:  # noqa: BLE001 — re-raised by a reader
+                self._err[i] = e
+            done.set()
+
+    def _job(self, key):
+        for i, (keys, _, done) in enumerate(self._jobs):
+            if key in keys:
+                return i, done
+        raise KeyError(key)
+
+    def __getitem__(self, key):
+        i, done = self._job(key)
+        done.wait()
+        if i in self._err:
+            raise self._err[i]
+        return self._out[key]
+
+    def join(self):
+        self._thread.join()
+        for e in self._err.values():
+            raise e
+
+    def items(self):
+        self.join()
+        return self._out.items()
 
 
 def _np(t):
