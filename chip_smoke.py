@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--out PATH] [--mesh-backend gloo|nccl]
                           [--mesh-only | --deepfm-only | --elastic-only |
-                           --eager-only]
+                           --eager-only | --nn-only | --gpt-only |
+                           --measure-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -213,12 +214,36 @@ fails:
    host us an op, peak GiB, and host us a call of an add on plain
    tensors, on port Tensors and through the op library. ``--eager-only``
    runs the build and this phase alone.
+15. ``phase_nn_sweep``: every ported breadth op and in-place op (true
+   in-place ones keep their storage), every functional, layer and
+   initializer of ``tests/torch_nn_cases.py`` on card tensors against the
+   CPU (float32 rtol 1e-4, atol 1e-5), BatchNorm2D's running statistics
+   after 3 steps equal to the CPU's; the count of names checked printed.
+   ``phase_gpt``: GPT-2 small (``GPTConfig()``) trained at full width and
+   depth, B=8, S=1024, AdamW(1e-4), O1 bf16, dropout as configured, 2
+   warm-up and 5 timed steps: the loss falls, K2-K4 launch 0 times (the
+   causal mask takes ``sdpa_ref``) and U2 once per 80 tensors a step, the
+   operator dtypes follow the amp lists, and a 2-layer fp32 copy with
+   dropout 0 gives the same step (the losses before and after one AdamW
+   step at rtol 1e-5; each grad within 1e-4 of its L2 norm plus 1e-6
+   sqrt(numel)) and the same 16 greedy ids on the card as on the CPU.
+   ``phase_measure``: the measurement API over phase_eager's loop: a
+   ``Profiler`` (closed 1, ready 1, record 3) with RecordEvents exports a
+   Chrome trace whose recorded steps hold their 3 user spans and the
+   dispatch's ops; ``device``'s counters equal ``torch.cuda``'s, an Event
+   times a step within 10% of the wall p50, a side Stream's matmul equals
+   the default stream's, ``benchmark().ips`` equals the steps' rate.
+   Printed: GPT step p50, tokens/s, peak GiB, ops a step, host us an op;
+   the LLaMA step p50 with the profiler recording and closed.
+   ``--nn-only``, ``--gpt-only`` and ``--measure-only`` run the build and
+   the phases named (together: all three).
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"recompute": ...}``,
-``{"deepfm": ...}``, ``{"eager": ...}``, ``{"mesh": ...}``,
+``{"deepfm": ...}``, ``{"eager": ...}``, ``{"nn_sweep": ...}``,
+``{"gpt": ...}``, ``{"measure": ...}``, ``{"mesh": ...}``,
 ``{"elastic": ...}``,
 ``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
 launches),
@@ -1624,7 +1649,9 @@ def phase_fce_timing(torch, fce, N, H, V):
 # U1 and U2 size classes (tests/test_torch_cuda.py's MT_SIZES): one
 # element; an empty tensor beside one element; odd sizes 1-1031 (no multiple
 # of a 16-byte vector); a view 2 or 4 bytes past a 16-byte boundary; the
-# 8-layer training model's 75 shapes at 1/64 of each dim.
+# 8-layer training model's 75 shapes at 1/64 of each dim; a 20-layer
+# model's 183 at 1/64, more than 2 x 80 tensors, so U2 launches 3 times and
+# U1 twice.
 def model_shapes(layers, hidden=4096, inter=11008, vocab=32000, div=1):
     """LlamaForCausalLM's parameter shapes at llama_7b width (each dim
     divided by div), in named_parameters order: 2 + 9 x layers + 1."""
@@ -1641,6 +1668,7 @@ MT_SIZES = {
                            1023, 1031)],
     "misaligned": "misaligned",
     "model_div64": model_shapes(TRAIN_LAYERS, div=64),
+    "model20_div64": model_shapes(20, div=64),
 }
 # U1's per-tensor fp32 sums against float64 sums: each CTA adds up to 2**16
 # squares in 4-8 running sums a thread, then in fixed trees, so the relative
@@ -2269,6 +2297,443 @@ def phase_eager(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
         f" ms), {n_ops} ops dispatched a step, "
         f"{out['host_us_per_op']:.1f} host us an op, peak {peak:.2f} GiB, "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return out
+
+
+# ---- this slice's phases: the nn sweep, GPT-2 small, the measurement API
+
+
+def _tests_path():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def phase_nn_sweep(torch, P):
+    """Every ported breadth op and in-place op (the op table's cases, the
+    in-place ones also keeping their storage, all but the ones of
+    INPLACE_REBINDS, whose dtype or shape changes), every new functional,
+    layer and initializer of tests/torch_nn_cases.py on card tensors
+    against the same port call on CPU tensors (float32 rtol 1e-4, atol
+    1e-5), every output and parameter on the card, dropout's keep rate
+    there, and BatchNorm2D's running statistics after 3 training steps
+    equal to the CPU's."""
+    _tests_path()
+    from torch_nn_cases import SWEEP_TOL, sweep_nn
+    from torch_op_cases import (CASES, INPLACE_REBINDS,
+                                inplace_keeps_storage, module_of, sweep_case)
+    t0 = time.perf_counter()
+    breadth = sorted(n for n in CASES
+                     if module_of(n, P.ops)[0] == "breadth")
+    n_ops = n_true = 0
+    for name in breadth:
+        try:
+            n_ops += sweep_case(P, name, DEVICE)
+            if name.endswith("_"):
+                n_true += inplace_keeps_storage(P, name, DEVICE)
+        except Exception as e:  # noqa: BLE001 — name the op, then fail
+            raise SmokeFailure(f"nn sweep: {name} on the card: "
+                               f"{type(e).__name__}: {e}") from e
+    try:
+        n_nn = sweep_nn(P, DEVICE)
+    except Exception as e:  # noqa: BLE001 — the message names the case
+        raise SmokeFailure(f"nn sweep: {type(e).__name__}: {e}") from e
+    n_inplace = sum(n.endswith("_") for n in breadth)
+    check(n_true == n_inplace - len(INPLACE_REBINDS),
+          f"{n_true} of {n_inplace} in-place ops wrote in place, want all "
+          f"but the {len(INPLACE_REBINDS)} that rebind")
+    out = {"breadth_cases": len(breadth), "breadth_calls": n_ops,
+           "inplace": n_inplace, "inplace_kept_storage": n_true,
+           "nn_names": n_nn, "names_checked": len(breadth) + n_nn,
+           "tol": SWEEP_TOL, "seconds": time.perf_counter() - t0}
+    log(f"nn sweep: {out['names_checked']} names checked on the card "
+        f"against the CPU ({len(breadth)} breadth ops with {n_inplace} "
+        f"in-place, {n_true} of them keeping their storage; {n_nn} "
+        f"functionals, layers and initializers) in {out['seconds']:.1f}s")
+    return out
+
+
+GPT_BATCH, GPT_SEQ, GPT_WARMUP, GPT_STEPS = 8, 1024, 2, 5
+GPT_SMALL_LAYERS, GPT_SMALL_BATCH, GPT_SMALL_SEQ = 2, 2, 128
+GPT_LOSS_RTOL = 1e-5          # fp32 card vs CPU, dropout 0, amp off
+# each grad card vs CPU: |a - b| <= 1e-4 |b| + 1e-6 sqrt(numel) (L2); the
+# absolute term holds grads that are rounding noise in both (the key
+# projection's bias: softmax ignores a shift shared by a row's logits)
+GPT_GRAD_RTOL, GPT_GRAD_ATOL = 1e-4, 1e-6
+
+
+def gpt_small_step(torch, P, G, model, ids):
+    """One fp32 AdamW step of the small copy: the loss before and after
+    it, and every grad."""
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    _, loss = model(ids, labels=ids)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu().clone()
+             for n, p in model.named_parameters()}
+    opt.step()
+    opt.clear_grad()
+    with torch.no_grad():
+        _, after = model(ids, labels=ids)
+    return [float(loss.detach()), float(after)], grads
+
+
+def grad_excess(a, b) -> float:
+    """How far ``a`` is from ``b`` in units of GPT's grad tolerance (<= 1
+    passes)."""
+    return float((a - b).norm() / (GPT_GRAD_RTOL * b.norm()
+                                   + GPT_GRAD_ATOL * b.numel() ** 0.5))
+
+
+def phase_gpt(torch, args, P, fa, mt):
+    """GPT-2 small (GPTConfig(): vocab 50304, hidden 768, 12 layers, 12
+    heads, intermediate 3072, 1024 positions) trained on the card: B=8,
+    S=1024, seeded ids, AdamW(1e-4), auto_cast O1 bf16, dropout as
+    configured, 2 warm-up and 5 timed steps on a repeated batch. Gates:
+    the loss finite and falling; K2-K4 launched 0 times (the causal mask
+    takes sdpa_ref, as in the JAX package) and U2 once per 80 tensors a
+    step; U2 over the model's own params, grads and moments bit for bit
+    its plain version (Adam and AdamW, 3 steps each); the operator stats'
+    dtypes as the amp lists rule; a 2-layer fp32 copy with dropout 0 gives
+    the same step on the card as on the CPU port (the losses before and
+    after one AdamW step at rtol 1e-5, each grad within 1e-4 of its L2
+    norm plus 1e-6 sqrt(n), for grads that are rounding noise in both) and
+    the same 16 greedy ids."""
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.ops.kernels.multi_tensor import ADAM_MAX
+    t_phase = time.perf_counter()
+    P.seed(args.seed, DEVICE)
+    cfg = G.GPTConfig()
+    model = G.GPTForCausalLM(cfg, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(model.parameters())
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    rng = np.random.RandomState(args.seed + 2)
+    ids = P.to_tensor(rng.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ)))
+    check(ids.place.startswith(DEVICE), f"ids on {ids.place}")
+
+    def amp():
+        return P.amp.auto_cast(level="O1", dtype="bfloat16")
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
+    losses, step_ms, fwd_ms = [], [], []
+    for i in range(GPT_WARMUP + GPT_STEPS):
+        if i == GPT_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels:
+                kern.launches = 0    # the main path's run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with amp():
+            _, loss = model(ids, labels=ids)
+        t1 = time.perf_counter()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        if i >= GPT_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            fwd_ms.append((t1 - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    launches = [k.launches for k in kernels]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    u2_per_step = -(-n_tensors // ADAM_MAX)
+    want = [0, 0, 0, GPT_STEPS * u2_per_step]
+    check(launches == want, f"GPT launched K2, K3, K4, U2 {launches} times "
+          f"in {GPT_STEPS} steps, want {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"GPT loss not finite or not falling: {losses}")
+    # U2 over the model's own tensors, chunked as the step chunks them,
+    # against its plain version on clones of this run's params, grads and
+    # moments (plain tensors), Adam and AdamW, bit for bit
+    with amp():
+        _, loss = model(ids, labels=ids)
+    loss.backward()
+    params = model.parameters()
+    check(all(p.grad is not None for p in params), "GPT: a grad is missing")
+    states = [opt._states[id(p)] for p in params]
+
+    def plain(ts):
+        return [t.detach().as_subclass(torch.Tensor).clone() for t in ts]
+    u2_err = u2_check(torch, mt, plain(params), plain(p.grad for p in params),
+                      plain(s["moment1"] for s in states),
+                      plain(s["moment2"] for s in states), None, None,
+                      f"GPT-2 small's {n_tensors} tensors")
+    opt.clear_grad()
+    del params, states
+    with amp(), debugging.collect_operator_stats() as st:
+        model(ids, labels=ids)
+    opt.clear_grad()
+    dts = {"linear": "bfloat16", "matmul": "bfloat16", "sdpa": "bfloat16",
+           "layer_norm": "float32", "softmax": "float32",
+           "gpt_logits": "float32", "gpt_lm_loss": "float32"}
+    for name, dt in dts.items():
+        check(set(st.dtypes.get(name, ())) == {dt},
+              f"GPT operator stats: {name} output {st.dtypes.get(name)}, "
+              f"want {dt} only")
+    n_ops = sum(st.stats.values())
+    p50 = float(np.percentile(step_ms, 50))
+    del opt, model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 2-layer fp32 copy, dropout 0, amp off: the card against the CPU
+    small = G.GPTConfig(num_hidden_layers=GPT_SMALL_LAYERS,
+                        hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    P.seed(args.seed, "cpu")
+    cpu_m = G.GPTForCausalLM(small, device="cpu")
+    card_m = G.GPTForCausalLM(small, device=DEVICE)
+    G.load_paddle_tpu_state(card_m, G.paddle_tpu_state(cpu_m))
+    sids = rng.randint(0, small.vocab_size,
+                       (GPT_SMALL_BATCH, GPT_SMALL_SEQ))
+    prompt = sids[:, :8]
+    want_ids = cpu_m.generate(P.to_tensor(prompt, place="cpu"),
+                              max_new_tokens=16).numpy()
+    got_ids = card_m.generate(P.to_tensor(prompt, place=DEVICE),
+                              max_new_tokens=16).numpy()
+    check(np.array_equal(got_ids, want_ids),
+          f"GPT greedy ids on the card {got_ids.tolist()} != CPU "
+          f"{want_ids.tolist()}")
+    lc, gc_ = gpt_small_step(torch, P, G, card_m,
+                             P.to_tensor(sids, place=DEVICE))
+    lw, gw = gpt_small_step(torch, P, G, cpu_m,
+                            P.to_tensor(sids, place="cpu"))
+    check(all(abs(a - b) <= GPT_LOSS_RTOL * abs(b) for a, b in zip(lc, lw)),
+          f"GPT fp32 step: losses {lc} on the card, {lw} on the CPU")
+    excess = {n: grad_excess(gc_[n], gw[n]) for n in gw}
+    errs = {n: rel_l2(gc_[n], gw[n]) for n in gw}
+    worst = max(excess, key=excess.get)
+    check(excess[worst] <= 1.0,
+          f"GPT fp32 step: grad of {worst} off by {errs[worst]:.3g} "
+          f"relative L2 ({excess[worst]:.3g}x the tolerance) card vs CPU")
+    del cpu_m, card_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {
+        "config": "GPTConfig() (GPT-2 small)", "params": n_params,
+        "tensors": n_tensors, "batch": GPT_BATCH, "seq": GPT_SEQ,
+        "warmup_steps": GPT_WARMUP, "steps": GPT_STEPS, "losses": losses,
+        "step_ms": step_ms, "step_ms_p50": p50,
+        "tokens_per_s": GPT_BATCH * GPT_SEQ / (p50 / 1e3),
+        "forward_host_ms_p50": float(np.percentile(fwd_ms, 50)),
+        "ops_per_step": n_ops, "op_counts": st.stats,
+        "op_dtypes": {k: st.dtypes[k] for k in dts},
+        "host_us_per_op": float(np.percentile(fwd_ms, 50)) * 1e3 / n_ops,
+        "peak_mem_gib": peak,
+        "u2_model_check": {"tensors": n_tensors,
+                           "launches_per_call": u2_per_step,
+                           "max_abs_err": u2_err},
+        "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "multi_tensor_adam"), (n // GPT_STEPS for n in launches))),
+        "small_check": {"layers": GPT_SMALL_LAYERS,
+                        "batch": GPT_SMALL_BATCH, "seq": GPT_SMALL_SEQ,
+                        "losses_card": lc, "losses_cpu": lw,
+                        "grad_worst": worst,
+                        "grad_worst_rel_l2": errs[worst],
+                        "grad_worst_of_tolerance": excess[worst],
+                        "grad_rel_l2_max_above_1e-3_norm": max(
+                            e for n, e in errs.items()
+                            if float(gw[n].norm()) > 1e-3),
+                        "greedy_ids_equal": True},
+        "seconds": time.perf_counter() - t_phase}
+    log(f"GPT-2 small, B={GPT_BATCH} S={GPT_SEQ}, O1 bf16: step p50 "
+        f"{p50:.2f} ms, {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB, {n_ops} ops a step, {out['host_us_per_op']:.1f} "
+        f"host us an op, loss {losses[0]:.4f} -> {losses[-1]:.4f}; U2 on "
+        f"its {n_tensors} tensors ({u2_per_step} launches) bit for bit the "
+        f"plain version, Adam and AdamW; fp32 "
+        f"2-layer step card vs CPU: loss {lc[0]:.6f} / {lw[0]:.6f}, worst "
+        f"grad {worst} at {excess[worst]:.3g}x the tolerance")
+    return out
+
+
+MEASURE_STEPS = 5             # closed, ready, then 3 recorded
+MEASURE_AFTER = 3             # closed steps after the profiler stops
+EVENT_WALL_RTOL = 0.10        # Event-timed step against the wall p50
+
+
+def phase_measure(torch, args, LlamaConfig, LlamaForCausalLM, P, fa, mt):
+    """The measurement API over phase_eager's loop (llama_7b width, 2
+    layers, B=2, S=2048, O1 bf16): Profiler(make_scheduler(closed=1,
+    ready=1, record=3), export_chrome_tracing) around 5 steps with
+    RecordEvents for forward, backward and the optimizer. Gates: the
+    exported file loads; each recorded step holds its 3 user spans and
+    the dispatch's ops of a step (counted by collect_operator_stats),
+    each op inside a user span; summary() lists sdpa; device's counters
+    equal torch.cuda's; an Event-timed step within 10% of the wall p50;
+    a matmul on a side Stream under stream_guard, after wait_stream,
+    equal to the default stream's; get_device_properties().name equal to
+    nvidia-smi's; benchmark().ips equal to B*S over the steps' time;
+    launches K2 = K3 = K4 = layers and U2 once a step."""
+    import glob
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import device as D
+    from paddle_tpu_torch import profiler as prof_mod
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import dispatch
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = eager_config(LlamaConfig)
+    model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.float32,
+                             seed=args.seed)
+    opt = P.optimizer.AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    rng = np.random.RandomState(args.seed + 1)
+    tok = rng.randint(0, cfg.vocab_size, (EAGER_BATCH, EAGER_SEQ + 1))
+    ids, labels = P.to_tensor(tok[:, :-1]), P.to_tensor(tok[:, 1:])
+    RE = prof_mod.RecordEvent
+
+    def step():
+        with RE("forward"):
+            with P.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = eager_loss(P, F, model, ids, labels)
+        with RE("backward"):
+            loss.backward()
+        with RE("optimizer"):
+            opt.step()
+            opt.clear_grad()
+        return loss
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    timed()                                      # warm-up
+    with debugging.collect_operator_stats() as st:
+        timed()
+    ops_per_step = sum(st.stats.values())
+    check(dispatch._quiet, "the dispatch hook stayed on after the stats")
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
+    for kern in kernels:
+        kern.launches = 0            # the main path's run starts here
+    prof = prof_mod.Profiler(
+        scheduler=prof_mod.make_scheduler(closed=1, ready=1, record=3),
+        on_trace_ready=prof_mod.export_chrome_tracing(trace_dir))
+    states, ms, marks = [], [], []
+    prof.start()
+    for _ in range(MEASURE_STEPS):
+        states.append(prof._state.name)
+        ms.append(timed())
+        marks.append(time.perf_counter())
+        prof.step(num_samples=EAGER_BATCH * EAGER_SEQ)
+    prof.stop()
+    launches = [k.launches for k in kernels]
+    want_l = [MEASURE_STEPS * EAGER_LAYERS] * 3 + [MEASURE_STEPS]
+    check(launches == want_l, f"profiled loop launched K2, K3, K4, U2 "
+          f"{launches} times, want {want_l}")
+    check(dispatch._quiet, "the dispatch hook stayed on after stop()")
+    bench = prof_mod.benchmark()
+    intervals = np.diff(marks)
+    want_ips = EAGER_BATCH * EAGER_SEQ * len(intervals) / intervals.sum()
+    check(abs(bench.ips() - want_ips) <= 0.01 * want_ips,
+          f"benchmark().ips {bench.ips():.1f}, steps give {want_ips:.1f}")
+    closed = [m for m, s in zip(ms, states) if s in ("CLOSED", "READY")]
+    recorded = [m for m, s in zip(ms, states) if s.startswith("RECORD")]
+    closed += [timed() for _ in range(MEASURE_AFTER)]
+    check(len(recorded) == 3, f"recorded steps: {states}")
+
+    files = glob.glob(os.path.join(trace_dir, "*.paddle_trace.json"))
+    try:
+        check(len(files) == 1, f"trace files: {files}")
+        events = prof_mod.load_profiler_result(files[0])["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    user = sorted((e for e in events if e["cat"] == "UserDefined"),
+                  key=lambda e: e["ts"])
+    ops = [e for e in events if e["cat"] == "op"]
+    check([e["name"] for e in user] == ["forward", "backward",
+                                        "optimizer"] * 3,
+          f"user spans {[e['name'] for e in user]}")
+    per_step = []
+    for k in range(3):
+        a = user[3 * k]["ts"]
+        b = user[3 * k + 2]["ts"] + user[3 * k + 2]["dur"]
+        mine = [e for e in ops if a <= e["ts"] <= b]
+        per_step.append(len(mine))
+        spans = user[3 * k:3 * k + 3]
+        check(all(any(s["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                      <= s["ts"] + s["dur"] for s in spans) for e in mine),
+              f"recorded step {k}: an op span outside its user spans")
+    check(per_step == [ops_per_step] * 3 and len(ops) == 3 * ops_per_step,
+          f"op spans per recorded step {per_step} (total {len(ops)}), the "
+          f"dispatch counts {ops_per_step} ops a step")
+    table = prof.summary()
+    check(any(line.split()[:1] == ["sdpa"] for line in table.splitlines()),
+          "summary() lists no sdpa row")
+
+    torch.cuda.synchronize()
+    counters = {"memory_allocated": (D.memory_allocated(),
+                                     torch.cuda.memory_allocated()),
+                "max_memory_allocated": (D.max_memory_allocated(),
+                                         torch.cuda.max_memory_allocated()),
+                "memory_reserved": (D.memory_reserved(),
+                                    torch.cuda.memory_reserved())}
+    check(all(a == b for a, b in counters.values()),
+          f"device counters against torch.cuda: {counters}")
+    e0, e1 = D.Event(enable_timing=True), D.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    step()
+    e1.record()
+    e1.synchronize()
+    event_ms = e0.elapsed_time(e1)
+    closed_p50 = float(np.percentile(closed, 50))
+    check(abs(event_ms - closed_p50) <= EVENT_WALL_RTOL * closed_p50,
+          f"Event-timed step {event_ms:.2f} ms, wall p50 {closed_p50:.2f}")
+    x = torch.randn(4096, 4096, device=DEVICE)
+    ref = x @ x
+    side = D.Stream()
+    side.wait_stream(D.current_stream())
+    with D.stream_guard(side):
+        check(D.current_stream() == side, "stream_guard did not switch")
+        got = x @ x
+    D.current_stream().wait_stream(side)
+    D.synchronize()
+    stream_err = float((got - ref).abs().max())
+    check(stream_err <= 1e-5 * float(ref.abs().max()),
+          f"matmul on a side stream differs by {stream_err}")
+    name = D.cuda.get_device_properties().name
+    smi_name = args.card.split(",")[0].strip()
+    check(name == smi_name, f"device name {name!r}, nvidia-smi {smi_name!r}")
+    peak = D.max_memory_allocated() / 2 ** 30
+    del x, ref, got, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_p50 = float(np.percentile(recorded, 50))
+    out = {"layers": EAGER_LAYERS, "batch": EAGER_BATCH, "seq": EAGER_SEQ,
+           "states": states, "step_ms": ms, "closed_step_ms": closed,
+           "recorded_step_ms": recorded, "step_ms_p50_closed": closed_p50,
+           "step_ms_p50_recording": rec_p50,
+           "profiler_cost_ms": rec_p50 - closed_p50,
+           "ops_per_step": ops_per_step, "op_spans_per_step": per_step,
+           "user_spans": len(user), "event_step_ms": event_ms,
+           "benchmark_ips": bench.ips(), "steps_ips": want_ips,
+           "stream_matmul_max_abs_diff": stream_err,
+           "stream_bitwise": stream_err == 0.0,
+           "device_counters": counters, "device_name": name,
+           "peak_mem_gib": peak,
+           "launches_per_step": dict(zip(
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "multi_tensor_adam"),
+               (n // MEASURE_STEPS for n in launches))),
+           "seconds": time.perf_counter() - t_phase}
+    log(f"measurement API over the eager O1 loop ({EAGER_LAYERS} layers at "
+        f"llama_7b width, B={EAGER_BATCH} S={EAGER_SEQ}): step p50 "
+        f"{closed_p50:.2f} ms closed, {rec_p50:.2f} ms recording, "
+        f"{ops_per_step} op spans a recorded step, Event {event_ms:.2f} "
+        f"ms, ips {bench.ips():.0f}, peak {peak:.2f} GiB")
     return out
 
 
@@ -4201,6 +4666,13 @@ def main(argv=None) -> int:
                          "alone")
     ap.add_argument("--eager-only", action="store_true",
                     help="build the kernels and run the eager phase alone")
+    ap.add_argument("--nn-only", action="store_true",
+                    help="build the kernels and run the nn sweep alone")
+    ap.add_argument("--gpt-only", action="store_true",
+                    help="build the kernels and run the GPT phase alone")
+    ap.add_argument("--measure-only", action="store_true",
+                    help="build the kernels and run the measurement-API "
+                         "phase alone")
     ap.add_argument("--deepfm-only", action="store_true",
                     help="build the kernels and run the DeepFM phase "
                          "alone (with --elastic-only: both)")
@@ -4245,6 +4717,29 @@ def main(argv=None) -> int:
     _build.library()
     log(f"built {', '.join(_build.SOURCES)} -> {_build.LIB_PATH} with nvcc "
         f"(sm_90a, one process per source) in {build_s:.1f}s")
+    if args.nn_only or args.gpt_only or args.measure_only:
+        import paddle_tpu_torch as P
+        alone = {}
+        if args.nn_only:
+            alone["nn_sweep"] = phase_nn_sweep(torch, P)
+        if args.gpt_only:
+            alone["gpt"] = phase_gpt(torch, args, P, fa, mt)
+        if args.measure_only:
+            alone["measure"] = phase_measure(torch, args, LlamaConfig,
+                                             LlamaForCausalLM, P, fa, mt)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump({"card": card, "kind": kind, "build_s": build_s,
+                           **alone}, f, indent=1)
+        for key, val in alone.items():
+            log(json.dumps({key: val}))
+        log(f"chip_smoke {' '.join(argv)} total "
+            f"{time.perf_counter() - t_start:.1f}s")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.eager_only:
         eager = phase_eager(torch, args, LlamaConfig, LlamaForCausalLM,
                             build_hybrid_train_step, AdamW, fa, mt)
@@ -4385,6 +4880,11 @@ def main(argv=None) -> int:
               f"{eager_ts['losses']}: beyond two eager runs' spread")
     eager = phase_eager(torch, args, LlamaConfig, LlamaForCausalLM,
                         build_hybrid_train_step, AdamW, fa, mt)
+    import paddle_tpu_torch as P
+    nn_sweep = phase_nn_sweep(torch, P)
+    gpt = phase_gpt(torch, args, P, fa, mt)
+    measure = phase_measure(torch, args, LlamaConfig, LlamaForCausalLM, P,
+                            fa, mt)
     deepfm = phase_deepfm(torch, args)
     recompute = phase_recompute(torch, args, LlamaConfig, LlamaForCausalLM,
                                 fa)
@@ -4437,6 +4937,10 @@ def main(argv=None) -> int:
                 "ckpt_dp_mp_each_rank": mesh["ckpt_dp_mp"][
                     "launches_per_step"][name.replace("attention_", "")]},
             "eager_launches_per_step": eager["launches_per_step"][
+                name.replace("attention_", "")],
+            "gpt_launches_per_step": gpt["launches_per_step"][
+                name.replace("attention_", "")],
+            "measure_launches_per_step": measure["launches_per_step"][
                 name.replace("attention_", "")],
             "recompute_launches": {
                 "recompute": recompute["launches"][
@@ -4493,6 +4997,10 @@ def main(argv=None) -> int:
             * training["steps"],
             "eager_launches_per_step": eager["launches_per_step"].get(
                 name.replace("_finite", ""), 0),
+            "gpt_launches_per_step": gpt["launches_per_step"].get(
+                name.replace("_finite", ""), 0),
+            "measure_launches_per_step": measure["launches_per_step"].get(
+                name.replace("_finite", ""), 0),
             "deepfm_launches": deepfm["dp1"]["launches"][
                 name.replace("_finite", "")],
             "mesh_launches_per_step": {
@@ -4527,7 +5035,8 @@ def main(argv=None) -> int:
                        "spec": spec, "prefix": prefix, "chunked": chunked,
                        "gateway": gateway, "mesh": mesh,
                        "elastic": elastic, "deepfm": deepfm,
-                       "eager": eager,
+                       "eager": eager, "nn_sweep": nn_sweep, "gpt": gpt,
+                       "measure": measure,
                        "recompute": recompute, **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
@@ -4536,6 +5045,9 @@ def main(argv=None) -> int:
     log(json.dumps({"recompute": recompute}))
     log(json.dumps({"deepfm": deepfm}))
     log(json.dumps({"eager": eager}))
+    log(json.dumps({"nn_sweep": nn_sweep}))
+    log(json.dumps({"gpt": gpt}))
+    log(json.dumps({"measure": measure}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"elastic": elastic}))
     log(json.dumps(kernels))

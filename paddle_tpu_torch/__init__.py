@@ -19,9 +19,17 @@ parallelism) and sep (ring or Ulysses) axes (``distributed``,
 (``to_tensor``, the creation, math, manipulation, linalg and random ops)
 through a dispatch that applies ``amp.auto_cast``'s lists, autograd over
 torch's engine (``backward``, ``grad``, ``PyLayer``, the functional
-transforms), ``nn.Layer``, flags, ``save``/``load``.
+transforms), ``nn.Layer``, flags, ``save``/``load``; the measurement
+API (``device``: counters, streams, events; ``profiler``: ``Profiler``,
+``RecordEvent``, the summaries, ``benchmark()``), the op library's
+breadth and its in-place ``*_`` family, ``nn``'s functionals,
+initializers and the activation, common, norm, loss, container and
+transformer layers, ``regularizer``, and GPT (``models.gpt``).
 """
-from .core.device import get_device, resolve_device, set_device  # noqa: F401
+from .core.device import (  # noqa: F401
+    device_count, get_device, is_compiled_with_tpu, resolve_device,
+    set_device,
+)
 from .core.generator import Generator, default_generator, seed  # noqa: F401
 from .core.dtype import (  # noqa: F401
     bool_, uint8, int8, int16, int32, int64, float16, bfloat16, float32,
@@ -38,6 +46,24 @@ from . import autograd  # noqa: F401
 from . import amp  # noqa: F401
 from . import nn  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import io  # noqa: F401
+from . import device  # noqa: F401
+from . import profiler  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import jit  # noqa: F401
+from . import utils  # noqa: F401
+from . import observability  # noqa: F401
+
+
+def __getattr__(name):
+    # loaded on first use, as in the JAX package
+    if name == "distributed":
+        import importlib
+        return importlib.import_module(".distributed", __name__)
+    if name == "DataParallel":
+        from .distributed.parallel import DataParallel
+        return DataParallel
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 from .utils.flags import get_flags, set_flags  # noqa: F401
 from .framework_io import load, save  # noqa: F401
 from .framework_compat import (  # noqa: F401

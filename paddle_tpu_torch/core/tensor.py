@@ -48,7 +48,9 @@ def as_torch(value, dtype=None, device=None) -> torch.Tensor:
         elif arr.dtype.type not in _NP_OK:
             arr = arr.astype(np.float64 if arr.dtype.kind == "f" else
                              np.int64)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if not arr.flags.c_contiguous:
+            arr = np.ascontiguousarray(arr)   # (>= 1-d: only for arrays)
+        t = torch.from_numpy(arr)
     if device is not None or dt is not None:
         t = t.to(device=device, dtype=dt)
     return t

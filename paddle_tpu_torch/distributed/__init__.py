@@ -18,6 +18,7 @@ from . import chaos  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import comms  # noqa: F401
 from . import embedding  # noqa: F401
+from .embedding import ShardedEmbedding  # noqa: F401
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
 from .collective import (  # noqa: F401

@@ -1,7 +1,10 @@
-"""Models: LLaMA and DeepFM."""
+"""Models: LLaMA, GPT and DeepFM."""
 from .deepfm import DeepFM  # noqa: F401
-from .llama import (LlamaConfig, LlamaForCausalLM,  # noqa: F401
-                    build_hybrid_train_step, load_paddle_tpu_state)
+from .gpt import GPTConfig, GPTForCausalLM, GPTModel  # noqa: F401
+from .llama import (LlamaConfig, LlamaDecoderLayer,  # noqa: F401
+                    LlamaForCausalLM, LlamaModel, build_hybrid_train_step,
+                    load_paddle_tpu_state)
 
-__all__ = ["DeepFM", "LlamaConfig", "LlamaForCausalLM",
-           "build_hybrid_train_step", "load_paddle_tpu_state"]
+__all__ = ["DeepFM", "GPTConfig", "GPTForCausalLM", "GPTModel",
+           "LlamaConfig", "LlamaDecoderLayer", "LlamaForCausalLM",
+           "LlamaModel", "build_hybrid_train_step", "load_paddle_tpu_state"]

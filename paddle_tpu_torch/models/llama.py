@@ -247,11 +247,12 @@ class LlamaDecoderLayer(Layer):
                  generator=None, mesh=None):
         super().__init__()
         eps = config.rms_norm_eps
-        self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, device=device,
+                                       dtype=dtype)
         self.self_attn = LlamaAttention(config, device, dtype, generator,
                                         mesh)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
-                                                device, dtype)
+                                                device=device, dtype=dtype)
         self.mlp = LlamaMLP(config, device, dtype, generator, mesh)
         if self.self_attn.sp:
             mark_as_sequence_parallel_parameter(self.input_layernorm.weight)
@@ -291,8 +292,8 @@ class LlamaModel(Layer):
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, device, dtype, generator, mesh)
              for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device,
-                            dtype)
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            device=device, dtype=dtype)
         if self.sp:
             mark_as_sequence_parallel_parameter(self.norm.weight)
 

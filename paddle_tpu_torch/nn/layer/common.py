@@ -1,22 +1,41 @@
-"""``Linear`` in Paddle's layout, and ``Embedding``.
+"""Common layers: counterpart of ``paddle_tpu/nn/layer/common.py``.
 
-Counterpart of ``paddle_tpu/nn/layer/common.py:18-58``. ``Linear``'s
-weight is ``[in_features, out_features]`` (``y = x @ W + b``), drawn
-XavierNormal from an explicit generator on the layer's device, the bias
-zeros; ``bias_attr=False`` leaves it out. ``Embedding``'s weight is
-``[num_embeddings, embedding_dim]`` drawn Normal(0, 1) the same way, its
-``padding_idx`` row zeroed. The parameter names are ``weight`` and
-``bias``, so a JAX state dict loads by name without transposes.
+``Linear``'s weight is ``[in_features, out_features]`` (``y = x @ W +
+b``), drawn XavierNormal from an explicit generator on the layer's device,
+the bias zeros; ``bias_attr=False`` leaves it out. ``Embedding``'s weight
+is ``[num_embeddings, embedding_dim]`` drawn Normal(0, 1) the same way,
+its ``padding_idx`` row zeroed. An initializer given by ``weight_attr``,
+else one set by ``initializer.set_global_initializer``, replaces the
+default draw. The parameter names are ``weight`` and ``bias``, so a JAX
+state dict loads by name without transposes. Every layer with parameters
+takes a keyword-only ``device`` (default: the card).
 """
 from __future__ import annotations
 
 import torch
 
 from .. import functional as F
+from ..initializer import XavierNormal, _global_initializer
 from .layers import Layer
 from ..layers import _param, xavier_normal_
 
-__all__ = ["Linear", "Embedding", "normal_"]
+__all__ = ["Identity", "Linear", "Embedding", "Dropout", "Dropout2D",
+           "Dropout3D", "AlphaDropout", "Flatten", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "Pad1D", "Pad2D",
+           "Pad3D", "ZeroPad2D", "CosineSimilarity", "Bilinear",
+           "PixelShuffle", "PixelUnshuffle", "ChannelShuffle", "Unfold",
+           "Fold", "normal_"]
+
+
+def _init_of(attr, is_bias=False):
+    init = getattr(attr, "initializer", None)
+    return init if init is not None else \
+        _global_initializer["bias" if is_bias else "weight"]
+
+
+class Identity(Layer):
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -27,7 +46,7 @@ class Linear(Layer):
         self.in_features = in_features
         self.out_features = out_features
         self.weight = _param([in_features, out_features], device, dtype)
-        init = getattr(weight_attr, "initializer", None)
+        init = _init_of(weight_attr)
         if init is not None:
             init(self.weight)
         else:
@@ -36,8 +55,12 @@ class Linear(Layer):
             self.bias = None
         else:
             self.bias = _param([out_features], device, dtype)
-            with torch.no_grad():
-                self.bias.zero_()
+            init = _init_of(bias_attr, is_bias=True)
+            if init is not None:
+                init(self.bias)
+            else:
+                with torch.no_grad():
+                    self.bias.zero_()
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -81,3 +104,191 @@ class Embedding(Layer):
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+class Dropout(Layer):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        from ...ops.manip import flatten
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners,
+                             data_format=self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True,
+                         data_format=data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False,
+                         data_format=data_format)
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__()
+        self.padding, self.mode = padding, mode
+        self.value, self.data_format = value, data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value,
+                     self.data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format, name)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format, name)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format, name)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr,
+            device=device)
+        XavierNormal(fan_in=in1_features + in2_features,
+                     fan_out=out_features)(self.weight)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True, device=device)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.r, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.r, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.r, self.data_format = downscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.r, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, dilations=1, paddings=0, strides=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, dilations=1, paddings=0,
+                 strides=1, name=None):
+        super().__init__()
+        self.args = (output_sizes, kernel_sizes, strides, paddings,
+                     dilations)
+
+    def forward(self, x):
+        return F.fold(x, *self.args)

@@ -1,9 +1,10 @@
-"""``Sequential`` and ``LayerList``.
+"""``Sequential``, ``LayerList``, ``LayerDict`` and ``ParameterList``.
 
 Counterpart of ``paddle_tpu/nn/layer/container.py``: sublayers are named
 ``"0"``, ``"1"``, ... (or by the names of an ``OrderedDict`` / the
-``(name, layer)`` pairs given), so the state-dict keys are the
-reference's (``experts.0.0.weight``, ...).
+``(name, layer)`` pairs given), parameters of a ``ParameterList`` ``"0"``,
+``"1"``, ..., so the state-dict keys are the reference's
+(``experts.0.0.weight``, ...).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from torch import nn
 
 from .layers import Layer
 
-__all__ = ["Sequential", "LayerList"]
+__all__ = ["Sequential", "LayerList", "LayerDict", "ParameterList"]
 
 
 class Sequential(Layer):
@@ -54,3 +55,69 @@ class LayerList(Layer, nn.ModuleList):
         Layer.__init__(self)
         if sublayers is not None:
             self.extend(sublayers)
+
+
+class LayerDict(Layer):
+    """Sublayers by name, in insertion order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._modules[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._modules[key]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+    def __contains__(self, key):
+        return key in self._modules
+
+    def keys(self):
+        return self._modules.keys()
+
+    def values(self):
+        return self._modules.values()
+
+    def items(self):
+        return self._modules.items()
+
+    def update(self, sublayers):
+        items = sublayers.items() if isinstance(sublayers, dict) \
+            else sublayers
+        for name, layer in items:
+            self.add_sublayer(name, layer)
+        return self
+
+
+class ParameterList(Layer):
+    """Parameters named ``"0"``, ``"1"``, ..."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            for i, p in enumerate(parameters):
+                self.add_parameter(str(i), p)
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self._parameters)), parameter)
+        return self

@@ -71,14 +71,17 @@ class Layer(nn.Module):
                          attr=None, is_bias=False, *, device=None):
         """A port ``Parameter`` on ``device`` (default: the card): zeros
         for a bias, XavierNormal for a weight, unless an initializer is
-        given (``default_initializer`` or ``attr.initializer``, a callable
-        on the parameter). ``attr.name`` names it; ``attr.trainable=False``
+        given (``attr.initializer``, else ``default_initializer``, else
+        the one ``initializer.set_global_initializer`` set: a callable on
+        the parameter). ``attr.name`` names it; ``attr.trainable=False``
         sets its ``stop_gradient``."""
         from ...ops.creation import create_parameter
+        from ..initializer import _global_initializer
         dt = dtypes.convert_dtype(dtype) if dtype else self._dtype
-        p = create_parameter(shape, dt, attr=attr, is_bias=is_bias,
-                             default_initializer=default_initializer,
-                             place=device)
+        init = getattr(attr, "initializer", None) or default_initializer \
+            or _global_initializer["bias" if is_bias else "weight"]
+        p = create_parameter(shape, dt, is_bias=is_bias,
+                             default_initializer=init, place=device)
         if attr is not None:
             if getattr(attr, "name", None):
                 p.name = attr.name

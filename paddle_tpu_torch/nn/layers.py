@@ -1,14 +1,12 @@
-"""``RMSNorm`` and the parameter helpers the layers share.
+"""The parameter helpers the port's layers share, and ``RMSNorm`` (which
+lives in ``nn/layer/norm.py``, re-exported here for LLaMA's import).
 
-Counterpart of ``paddle_tpu/nn/layer/norm.py::RMSNorm``. The embedding and
-the projections LLaMA is built from are the tensor-parallel layers of
-``distributed/fleet/meta_parallel/mp_layers.py`` (at mp=1 plain
-single-device layers). Weights keep Paddle's ``[in, out]`` layout and the
-parameter name ``weight``, so a JAX state dict loads without transposes.
-Initialisation follows the JAX package: XavierNormal
-(``std = sqrt(2 / (fan_in + fan_out))``, fans from the ``[in, out]``
-shape) for projections and the embedding, ones for the norm weights, drawn
-from an explicit generator on the parameter's device.
+Weights keep Paddle's ``[in, out]`` layout and the parameter name
+``weight``, so a JAX state dict loads without transposes. Initialisation
+follows the JAX package: XavierNormal (``std = sqrt(2 / (fan_in +
+fan_out))``, fans from the ``[in, out]`` shape) for projections and the
+embedding, ones for the norm weights, drawn from an explicit generator on
+the parameter's device.
 """
 from __future__ import annotations
 
@@ -18,8 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from . import functional as F
-from .layer.layers import Layer
+from ..core.device import resolve_device
 
 __all__ = ["RMSNorm", "xavier_normal_"]
 
@@ -37,19 +34,11 @@ def xavier_normal_(w: torch.Tensor,
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
-    """A trainable parameter. Serving never builds a graph: its entry
-    points run under ``torch.inference_mode()``."""
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+    """A trainable parameter on ``device`` (default: the card). Serving
+    never builds a graph: its entry points run under
+    ``torch.inference_mode()``."""
+    return nn.Parameter(torch.empty(shape, device=resolve_device(device),
+                                    dtype=dtype))
 
 
-class RMSNorm(Layer):
-    def __init__(self, hidden_size: int, epsilon: float = 1e-6,
-                 device=None, dtype=torch.float32):
-        super().__init__()
-        self.epsilon = epsilon
-        self.weight = _param([hidden_size], device, dtype)
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-
-    def forward(self, x):
-        return F.rms_norm(x, self.weight, self.epsilon)
+from .layer.norm import RMSNorm  # noqa: E402,F401

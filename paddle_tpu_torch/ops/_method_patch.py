@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.tensor import Tensor
-from . import creation, linalg, manip, math
+from . import breadth, creation, linalg, manip, math
 from . import random as random_ops
 from .dispatch import apply
 
@@ -47,7 +47,7 @@ def _install():
     T.__truediv__ = lambda s, o: math.divide(s, o)
     T.__rtruediv__ = _rev(torch.div, "rdiv", inexact=True)
     T.__floordiv__ = lambda s, o: math.floor_divide(s, o)
-    T.__rfloordiv__ = _rev(torch.floor_divide, "rfloordiv")
+    T.__rfloordiv__ = _rev(math._floor_divide, "rfloordiv")
     T.__mod__ = lambda s, o: math.mod(s, o)
     T.__rmod__ = _rev(torch.remainder, "rmod")
     T.__pow__ = lambda s, o: math.pow(s, o)
@@ -70,7 +70,7 @@ def _install():
     T.__gt__ = lambda s, o: math.greater_than(s, o)
     T.__ge__ = lambda s, o: math.greater_equal(s, o)
 
-    for mod in (math, manip, creation, linalg, random_ops):
+    for mod in (math, manip, creation, linalg, breadth, random_ops):
         for name in getattr(mod, "__all__", []):
             if name in _SKIP or hasattr(T, name):
                 continue

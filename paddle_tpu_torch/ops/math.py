@@ -102,7 +102,21 @@ divide = _binop("divide", torch.div, inexact=True, scalars=True)
 mod = _binop("mod", torch.remainder, scalars=True)
 remainder = _export("remainder", mod)
 floor_mod = _export("floor_mod", mod)
-floor_divide = _binop("floor_divide", torch.floor_divide, scalars=True)
+def _floor_divide(a, b):
+    """Integers: torch's floor division. Floats: ``jnp.floor_divide``'s
+    divmod, ``(a - fmod(a, b)) / b`` corrected toward -inf, so a division
+    by 0.0 gives nan as there (torch's gives +-inf)."""
+    if not a.is_floating_point():
+        return torch.floor_divide(a, b)
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    sb = torch.sign(b) if isinstance(b, torch.Tensor) else float(
+        (b > 0) - (b < 0))
+    fix = (mod != 0) & (sb != torch.sign(mod))
+    return torch.round(torch.where(fix, div - 1, div))
+
+
+floor_divide = _binop("floor_divide", _floor_divide, scalars=True)
 pow = _binop("pow", torch.pow, scalars=True)
 maximum = _binop("maximum", torch.maximum)
 minimum = _binop("minimum", torch.minimum)
@@ -113,7 +127,7 @@ hypot = _binop("hypot", torch.hypot, inexact=True)
 logaddexp = _binop("logaddexp", torch.logaddexp, inexact=True)
 nextafter = _binop("nextafter", torch.nextafter, inexact=True)
 copysign = _binop("copysign", torch.copysign, inexact=True)
-heaviside = _binop("heaviside", torch.heaviside)
+heaviside = _binop("heaviside", torch.heaviside, inexact=True)
 gcd = _binop("gcd", torch.gcd)
 lcm = _binop("lcm", torch.lcm)
 inner = _binop("inner", torch.inner)
@@ -290,13 +304,6 @@ def stanh(x, scale_a=0.67, scale_b=1.7159):
 
 
 _export("stanh", stanh)
-
-
-def rsqrt_(x):
-    return rsqrt(x)
-
-
-_export("rsqrt_", rsqrt_)
 
 
 # ---------- matmul family ----------

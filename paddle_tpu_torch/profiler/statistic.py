@@ -1,16 +1,24 @@
-"""Summaries of the capture tier and the elastic tier: counterpart of the
-JAX package's ``profiler/statistic.py`` cut to ``step_capture_summary``
-and ``lint_summary`` (statistic.py:76-131), ``reshard_summary`` and
-``supervisor_summary`` (:278-347); the rest of the profiler waits for a
-later slice (ROADMAP.md Queue 1).
+"""Summary statistics: counterpart of ``paddle_tpu/profiler/statistic.py``.
 
-Each renders from what its subsystem recorded in this process and never
-imports the subsystem itself: in a process that did not load it, it says
-so."""
+``aggregate`` and ``summary`` read a profiler's events (per-name calls,
+total / avg / max / min µs and share); the other summaries render a
+subsystem's counters: the serving engines and gateways, the comms layer,
+the trace ring, the capture tier and its lint, live resharding and the
+elastic supervisor. Each renders from what its subsystem recorded in this
+process and never imports the subsystem itself: in a process that did not
+load it, it says so.
+
+``op_cache_summary`` has no cache to read: the JAX dispatch memoises a
+compiled executable per op, the port's dispatch calls torch directly
+(``ops/dispatch.py``), so it says that and nothing else."""
 from __future__ import annotations
 
-__all__ = ["step_capture_summary", "lint_summary", "reshard_summary",
-           "supervisor_summary"]
+from typing import Dict, List
+
+__all__ = ["aggregate", "summary", "op_cache_summary",
+           "step_capture_summary", "lint_summary", "serving_summary",
+           "gateway_summary", "comm_summary", "reshard_summary",
+           "supervisor_summary", "trace_summary"]
 
 
 def _subsystem(modname: str):
@@ -151,4 +159,230 @@ def supervisor_summary() -> str:
             f"{e['bytes_moved']:>12} "
             f"{(str(cb) if cb is not None else '-'):>10} "
             f"{(f'{cw:.3f}s' if cw is not None else '-'):>9}")
+    return "\n".join(lines)
+
+
+def op_cache_summary(sorted_by: str = "hits") -> str:
+    """The JAX dispatch's compiled-op cache counters; the port has no op
+    cache (module docstring)."""
+    return "op cache: none (eager torch ops launch their kernels directly)"
+
+
+def aggregate(events: List[dict]) -> Dict[str, dict]:
+    stats: Dict[str, dict] = {}
+    for e in events:
+        name = e.get("name", "?")
+        dur = float(e.get("dur", 0.0))  # microseconds
+        s = stats.setdefault(name, {"calls": 0, "total_us": 0.0,
+                                    "max_us": 0.0, "min_us": float("inf"),
+                                    "cat": e.get("cat", "")})
+        s["calls"] += 1
+        s["total_us"] += dur
+        s["max_us"] = max(s["max_us"], dur)
+        s["min_us"] = min(s["min_us"], dur)
+    for s in stats.values():
+        s["avg_us"] = s["total_us"] / max(s["calls"], 1)
+        if s["min_us"] == float("inf"):
+            s["min_us"] = 0.0
+    return stats
+
+
+def serving_summary() -> str:
+    """Live serving-engine counters (inference/serving) as text: admission
+    funnel (submitted -> admitted -> finished / timed_out / rejected),
+    batch occupancy, decode-step and token throughput, and the KV-page
+    pool (active/free/peak) — so an occupancy or eviction regression is
+    readable next to the op timings instead of needing print statements.
+    A healthy loaded engine pins `avg_occupancy` near 1.0 with
+    `step.lowerings` frozen at (buckets + 1) and `step.hits` climbing;
+    climbing `timed_out` means admission is outrunning capacity (grow the
+    pool / batch, or shed load by shortening TTLs). Speculative engines
+    add a `spec:` line — drafter kind, k, cumulative acceptance rate,
+    draft-vs-verify call counts, and the tokens-per-verify histogram; an
+    acceptance rate near 0 means the drafter never pays for its window
+    (turn spec off or switch drafters), tokens/verify near k+1 means the
+    workload is a speculation jackpot (consider raising k)."""
+    serving = _subsystem("paddle_tpu_torch.inference.serving")
+    if serving is None:
+        return _no_data("serving")
+
+    infos = serving.serving_info()
+    if not infos:
+        return "serving: no live engines"
+    lines = []
+    for i, e in enumerate(infos):
+        pool, step = e["pool"], e["step"]
+        lines += [
+            f"engine[{i}]: batch={e['max_batch']} seq<={e['max_seq_len']} "
+            f"buckets={e['prefill_buckets']}",
+            f"  requests: submitted={e['submitted']} admitted={e['admitted']}"
+            f" finished={e['finished']} timed_out={e['timed_out']} "
+            f"evicted={e['evicted']} rejected={e['rejected']} "
+            f"active={e['active']} queued={e['queued']}",
+            f"  decode: steps={e['decode_steps']} prefills={e['prefills']} "
+            f"tokens={e['tokens_generated']} "
+            f"occupancy={e['avg_occupancy']:.2f} "
+            f"tokens/s={e['tokens_per_sec']:.1f}",
+            f"  kv pool: pages={pool['active_pages']}/{pool['total_pages']} "
+            f"active (peak {pool['peak_active']}, page_size "
+            f"{pool['page_size']}, allocs={pool['allocs']} "
+            f"releases={pool['releases']})",
+        ]
+        prefix = e.get("prefix")
+        if prefix is not None:
+            lines.append(
+                f"  prefix: nodes={prefix['nodes']} "
+                f"pages_held={prefix['pages_held']} "
+                f"hits={prefix['hits']}/{prefix['lookups']} "
+                f"shared_joins={e['shared_prefix_joins']} "
+                f"pages_saved={e['prefill_pages_saved']} "
+                f"evicted={prefix['pages_evicted']}")
+        if e.get("prefill_chunks") or e.get("prefill_chunk"):
+            lines.append(
+                f"  chunked prefill: chunk={e['prefill_chunk'] or '-'} "
+                f"chunks={e['prefill_chunks']} "
+                f"chunked_prefills={e['chunked_prefills']} "
+                f"window={e.get('window', {}).get('size', '-')}")
+        spec = e.get("spec")
+        if spec:
+            drafter = spec.get("drafter") or {}
+            lines.append(
+                f"  spec: drafter={drafter.get('kind')} k={spec['k']} "
+                f"acceptance={spec['acceptance_rate']:.2f} "
+                f"tokens/verify={spec['tokens_per_verify']:.2f} "
+                f"verify_steps={spec['verify_steps']} "
+                f"draft_steps={spec['draft_steps']} "
+                f"hist={spec['tokens_per_verify_hist']}")
+        if step:
+            lines.append(
+                f"  step capture: lowerings={step.get('lowerings')} "
+                f"hits={step.get('hits')} bailouts={step.get('bailouts')} "
+                f"fallback_calls={step.get('fallback_calls')}")
+    return "\n".join(lines)
+
+
+def gateway_summary() -> str:
+    """Live serving-gateway counters (inference/serving/gateway) as text:
+    per gateway the bind address, connection/request/response funnel, the
+    per-status response mix, and the drain state — the wire-side view
+    that pairs with serving_summary()'s engine-side one. A healthy
+    gateway shows responses tracking requests with errors ~0; climbing
+    408s mean TTLs are outrunning engine capacity (shed load or grow the
+    engine), climbing read_timeouts mean idle/stalled peers are being
+    reaped by the per-connection read deadline (normal under churn)."""
+    gateway = _subsystem("paddle_tpu_torch.inference.serving.gateway")
+    if gateway is None:
+        return _no_data("gateway")
+
+    infos = gateway.gateway_info()
+    if not infos:
+        return "gateway: no live gateways"
+    lines = []
+    for i, g in enumerate(infos):
+        state = ("stopped" if g["stopped"] else
+                 "draining" if g["draining"] else "serving")
+        codes = " ".join(f"{k}:{v}" for k, v in
+                         sorted(g["status_counts"].items())) or "-"
+        lines += [
+            f"gateway[{i}]: {g['host']}:port={g['port']} {state} "
+            f"read_timeout={g['read_timeout']:g}s",
+            f"  wire: connections={g['connections']} "
+            f"open={g['open_connections']} requests={g['requests']} "
+            f"responses={g['responses']} errors={g['errors']} "
+            f"read_timeouts={g['read_timeouts']} "
+            f"protocol_errors={g['protocol_errors']}",
+            f"  status: {codes}",
+        ]
+    return "\n".join(lines)
+
+
+def comm_summary() -> str:
+    """Comm-subsystem accounting (distributed/comms) as text: per call
+    site the collective count, LOGICAL bytes (what full precision would
+    move) vs WIRE bytes (what actually moves), the compression ratio, the
+    wire dtype when the quantized context was on, and the slots the
+    schedule assigned (``comm_info()``). A healthy quantized dp step shows
+    the grad-sync site at ~3.9x compression (int8, block 256); 1.0x there
+    means the context was not active when the collective ran."""
+    comms = _subsystem("paddle_tpu_torch.distributed.comms")
+    if comms is None:
+        return _no_data("comms")
+
+    info = comms.comm_info()
+    if not info["sites"]:
+        return "comms: no recorded collectives"
+    head = (f"{'Site':<40} {'N':>5} {'Logical':>12} {'Wire':>12} "
+            f"{'Ratio':>7} {'Q':>5} {'Slots':>6}")
+    lines = [
+        f"comms: {info['collectives']} collective(s), "
+        f"{info['total_logical']} logical -> {info['total_wire']} wire bytes",
+        head, "-" * len(head),
+    ]
+    for site, s in info["sites"].items():
+        slots = ",".join(str(x) for x in s["slots"]) or "-"
+        lines.append(
+            f"{site[:40]:<40} {s['count']:>5} {s['bytes_logical']:>12} "
+            f"{s['bytes_wire']:>12} {s['compression']:>7} "
+            f"{(s['quantized'] or '-'):>5} {slots:>6}")
+    return "\n".join(lines)
+
+
+def trace_summary() -> str:
+    """Observability trace-ring state (observability/trace.py) as text:
+    ring occupancy, per-site span counts and total/avg/max durations, and
+    the flight-recorder incident count — the quick look before exporting
+    the full Chrome trace (``observability.export_trace``) into Perfetto.
+    A site whose avg dwarfs its peers is where the step's wall-clock goes;
+    a non-zero incident count means ``observability.last_incident()``
+    holds a postmortem timeline for the latest typed deadline error."""
+    obs = _subsystem("paddle_tpu_torch.observability")
+    if obs is None:
+        return _no_data("trace")
+    info = obs.trace_info()
+    head_line = (f"trace: enabled={info['enabled']} "
+                 f"records={info['records']}/{info['capacity']} "
+                 f"dropped={info['dropped']} incidents={info['incidents']}")
+    sites: Dict[str, dict] = {}
+    for r in obs.trace_records():
+        s = sites.setdefault(r["name"], {"count": 0, "events": 0,
+                                         "total_ns": 0, "max_ns": 0})
+        if r["dur"] is None:
+            s["events"] += 1
+            continue
+        s["count"] += 1
+        s["total_ns"] += r["dur"]
+        s["max_ns"] = max(s["max_ns"], r["dur"])
+    if not sites:
+        return head_line
+    head = (f"{'Site':<28} {'Spans':>6} {'Events':>7} {'Total(ms)':>10} "
+            f"{'Avg(ms)':>9} {'Max(ms)':>9}")
+    lines = [head_line, head, "-" * len(head)]
+    for name, s in sorted(sites.items(), key=lambda kv: -kv[1]["total_ns"]):
+        avg = s["total_ns"] / s["count"] if s["count"] else 0.0
+        lines.append(
+            f"{name[:28]:<28} {s['count']:>6} {s['events']:>7} "
+            f"{s['total_ns'] / 1e6:>10.3f} {avg / 1e6:>9.3f} "
+            f"{s['max_ns'] / 1e6:>9.3f}")
+    return "\n".join(lines)
+
+
+def summary(events: List[dict], sorted_by: str = "total",
+            time_unit: str = "ms") -> str:
+    stats = aggregate(events)
+    key = {"total": "total_us", "avg": "avg_us", "max": "max_us",
+           "calls": "calls"}.get(sorted_by, "total_us")
+    div = {"s": 1e6, "ms": 1e3, "us": 1.0}.get(time_unit, 1e3)
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][key])
+    grand = sum(s["total_us"] for _, s in rows) or 1.0
+    lines = [
+        f"{'Name':<40} {'Calls':>7} {'Total(' + time_unit + ')':>12} "
+        f"{'Avg(' + time_unit + ')':>12} {'Max(' + time_unit + ')':>12} "
+        f"{'Ratio':>7}"
+    ]
+    lines.append("-" * len(lines[0]))
+    for name, s in rows[:64]:
+        lines.append(
+            f"{name[:40]:<40} {s['calls']:>7} {s['total_us']/div:>12.3f} "
+            f"{s['avg_us']/div:>12.3f} {s['max_us']/div:>12.3f} "
+            f"{100.0 * s['total_us']/grand:>6.1f}%")
     return "\n".join(lines)

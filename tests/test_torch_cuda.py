@@ -526,7 +526,9 @@ def model_shapes(layers=8, hidden=4096, inter=11008, vocab=32000, div=1):
 
 # Size classes: one element; an empty tensor beside one element; odd sizes
 # (no multiple of a 16-byte vector); a view 4 bytes past a 16-byte
-# boundary; the 8-layer training model's 75 shapes at 1/64 of each dim.
+# boundary; the 8-layer training model's 75 shapes at 1/64 of each dim; a
+# 20-layer model's 183 at 1/64, more than 2 x 80 tensors, so U2 launches 3
+# times and U1 twice.
 MT_SIZES = {
     "one": [(1,)],
     "empty": [(0,), (1,), (0,)],
@@ -534,6 +536,7 @@ MT_SIZES = {
                            1023, 1031)],
     "misaligned": "misaligned",
     "model_div64": model_shapes(div=64),
+    "model20_div64": model_shapes(layers=20, div=64),
 }
 
 
@@ -586,7 +589,7 @@ def test_multi_tensor_kernels_match_plain_versions(cuda_device, sizes,
     n1 = mt.multi_tensor_sumsq_finite.launches
     sumsq, total, finite = mt.multi_tensor_sumsq_finite(gs, inv)
     torch.cuda.synchronize()
-    assert mt.multi_tensor_sumsq_finite.launches == n1 + 1
+    assert mt.multi_tensor_sumsq_finite.launches == n1 + -(-len(gs) // mt.SUMSQ_MAX)
     want = [(g * inv.to(dtype) if scaled else g).double().square().sum()
             for g in gs]
     torch.testing.assert_close(sumsq.double(), torch.stack(want),
@@ -608,8 +611,9 @@ def test_multi_tensor_kernels_match_plain_versions(cuda_device, sizes,
                                      decoupled=decoupled, step=step,
                                      inv_scale=inv, clip_scale=clip,
                                      **ADAM_KW)
-            assert mt.multi_tensor_adam.launches == n2 + int(
-                sum(p.numel() for p in ps) > 0)
+            assert mt.multi_tensor_adam.launches == n2 + sum(
+                sum(p.numel() for p in ps[i:i + mt.ADAM_MAX]) > 0
+                for i in range(0, len(ps), mt.ADAM_MAX))
         torch.cuda.synchronize()
         for got, want in zip(ps + ms + vs, ref[0] + ref[1] + ref[2]):
             assert torch.equal(got, want), (sizes, dtype, decoupled)
@@ -1292,3 +1296,103 @@ def test_port_tensors_through_a_captured_step_equal_eager(cuda_device):
         capture.set_step_capture_enabled(True)
     for g in got:
         assert torch.equal(g, want)
+
+
+# ---- the nn layers, the in-place family and the measurement API ----
+
+def _nn_cases():
+    _op_cases()                  # puts tests/ on the path
+    import torch_nn_cases
+    return torch_nn_cases
+
+
+@pytest.mark.cuda
+def test_nn_sweep_on_card_matches_cpu(cuda_device):
+    """Every functional, layer and initializer of the nn tables on the
+    card against the CPU, placement included; BatchNorm2D's running
+    statistics after 3 steps."""
+    import paddle_tpu_torch as P
+    assert _nn_cases().sweep_nn(P, "cuda") >= 150
+
+
+@pytest.mark.cuda
+def test_inplace_ops_keep_their_storage_on_card(cuda_device):
+    import paddle_tpu_torch as P
+    oc = _op_cases()
+    names = [n for n in oc.CASES if n.endswith("_")
+             and oc.module_of(n, P.ops)[0] == "breadth"]
+    kept = [n for n in names if oc.inplace_keeps_storage(P, n, "cuda")]
+    assert len(names) == 78
+    assert sorted(set(names) - set(kept)) == sorted(oc.INPLACE_REBINDS)
+
+
+@pytest.mark.cuda
+def test_device_counters_events_and_streams(cuda_device):
+    import paddle_tpu_torch as P
+    d = P.device
+    x = torch.randn(1024, 1024, device="cuda")
+    assert d.memory_allocated() == torch.cuda.memory_allocated()
+    assert d.max_memory_allocated() == torch.cuda.max_memory_allocated()
+    assert d.memory_reserved() == torch.cuda.memory_reserved()
+    stats = d.memory_stats()
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info()[1]
+    assert stats["num_allocs"] > 0
+    a, b = d.Event(enable_timing=True), d.Event(enable_timing=True)
+    a.record()
+    for _ in range(20):
+        y = x @ x
+    b.record()
+    b.synchronize()
+    assert b.elapsed_time(a) < 0 < a.elapsed_time(b)
+    s = d.Stream()
+    s.wait_stream(d.current_stream())
+    with d.stream_guard(s):
+        assert d.current_stream() == s
+        z = x @ x
+    d.current_stream().wait_stream(s)
+    torch.testing.assert_close(z, y, rtol=0, atol=0)
+    assert d.cuda.get_device_properties().name == \
+        torch.cuda.get_device_name()
+    del x, y, z
+
+
+@pytest.mark.cuda
+def test_initializers_and_layers_land_on_the_card(cuda_device):
+    import paddle_tpu_torch as P
+    P.set_device("cuda")
+    I = P.nn.initializer
+    for name in I.__all__:
+        cls = getattr(I, name)
+        if not isinstance(cls, type) or name in ("Initializer", "ParamAttr",
+                                                 "Assign"):
+            continue
+        p = P.create_parameter([4, 4, 3, 3], "float32")
+        cls()(p)
+        assert p.is_cuda, name
+    for layer in (P.nn.LayerNorm(8), P.nn.BatchNorm2D(3),
+                  P.nn.MultiHeadAttention(8, 2), P.nn.PReLU(),
+                  P.nn.Bilinear(2, 3, 4), P.nn.GroupNorm(1, 3)):
+        for t in list(layer.parameters()) + list(layer.buffers()):
+            assert t.is_cuda, type(layer).__name__
+
+
+@pytest.mark.cuda
+def test_one_profiled_step_records_its_ops(cuda_device):
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    P.set_device("cuda")
+    m = GPTForCausalLM(GPTConfig.tiny(hidden_dropout_prob=0.0,
+                                      attention_probs_dropout_prob=0.0))
+    ids = P.to_tensor(np.arange(32).reshape(2, 16) % 128)
+    with debugging.collect_operator_stats() as st:
+        m(ids, labels=ids)[1].backward()
+    prof = P.profiler.Profiler()
+    prof.start()
+    with P.profiler.RecordEvent("step"):
+        m(ids, labels=ids)[1].backward()
+    prof.step()
+    prof.stop()
+    ops = [e for e in prof.events() if e["cat"] == "op"]
+    assert len(ops) == sum(st.stats.values())
+    assert P.ops.dispatch._quiet

@@ -93,12 +93,26 @@ def test_port_imports_with_jax_blocked_and_loads_no_paddle_tpu():
         "import paddle_tpu_torch.distributed.launch.elastic\n"
         "import paddle_tpu_torch.io, paddle_tpu_torch.io.streaming\n"
         "import paddle_tpu_torch.profiler\n"
+        "import paddle_tpu_torch.profiler.profiler\n"
+        "import paddle_tpu_torch.profiler.timer\n"
+        "import paddle_tpu_torch.device, paddle_tpu_torch.regularizer\n"
+        "import paddle_tpu_torch.ops.breadth\n"
+        "import paddle_tpu_torch.nn.functional.activation\n"
+        "import paddle_tpu_torch.nn.functional.common\n"
+        "import paddle_tpu_torch.nn.functional.norm\n"
+        "import paddle_tpu_torch.nn.functional.loss\n"
+        "import paddle_tpu_torch.nn.functional.attention\n"
+        "import paddle_tpu_torch.nn.initializer\n"
+        "import paddle_tpu_torch.nn.layer.norm\n"
+        "import paddle_tpu_torch.nn.layer.loss\n"
+        "import paddle_tpu_torch.nn.layer.transformer\n"
+        "import paddle_tpu_torch.models.gpt\n"
         "import paddle_tpu_torch.autograd, paddle_tpu_torch.linalg\n"
         "import paddle_tpu_torch.amp.debugging, paddle_tpu_torch.ops.math\n"
         "import paddle_tpu_torch.framework_io\n"
         "import paddle_tpu_torch.framework_compat\n"
         "sys.path.insert(0, 'tests')\n"
-        "import torch_dist, torch_op_cases\n"
+        "import torch_dist, torch_op_cases, torch_nn_cases\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not\n"
         "             None and (m == 'paddle_tpu' or m.startswith(\n"
         "             'paddle_tpu.') or m.split('.')[0] in ('jax',\n"
@@ -120,7 +134,7 @@ _FORBIDDEN = re.compile(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "fce_variants.py", "tests/torch_dist.py",
        "tests/torch_supervisor_member.py", "tests/torch_no_hang_child.py",
-       "tests/torch_op_cases.py"]))
+       "tests/torch_op_cases.py", "tests/torch_nn_cases.py"]))
 def test_source_imports_neither_jax_nor_paddle_tpu(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path
@@ -134,6 +148,14 @@ def test_no_device_means_cuda_and_raises_without_it():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(cfg)
+    from paddle_tpu_torch import device, nn
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    for build in (lambda: GPTForCausalLM(GPTConfig.tiny()),
+                  lambda: nn.LayerNorm(4), lambda: nn.BatchNorm2D(3),
+                  lambda: nn.Linear(2, 2), device.memory_allocated,
+                  device.Stream):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
     with pytest.raises(RuntimeError):
         get_device()
     with pytest.raises(RuntimeError):

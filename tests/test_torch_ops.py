@@ -1,6 +1,7 @@
 """The op library against the JAX package's, name by name.
 
-Every public name of ``paddle_tpu.ops.{creation,math,manip,linalg,random}``
+Every public name of
+``paddle_tpu.ops.{creation,math,manip,linalg,random,breadth}``
 has a case here (``test_every_public_name_has_a_case`` fails on one
 without). A case feeds the same numpy inputs, made from a seed, to the JAX
 function and to the port's and compares:
@@ -57,7 +58,7 @@ def _public():
 def test_every_public_name_has_a_case():
     missing = [f"{m}.{n}" for m, n in _public() if n not in CASES]
     assert not missing, missing
-    assert len(_public()) == 315
+    assert len(_public()) == 424
 
 
 def _args(case, pkg, grads):
@@ -269,7 +270,8 @@ def test_op_against_jax(name, jax_refs):
     mod, base = module_of(name, jops)
     case = CASES[name]
     jfn = getattr(getattr(jops, mod), base)
-    pfn = getattr(getattr(pops, mod), base)
+    pmod, _ = module_of(name, pops)
+    pfn = getattr(getattr(pops, pmod), base)
     jg, pg = [], []
     if case.raises:
         with pytest.raises(NotImplementedError):
@@ -344,6 +346,8 @@ def _dtype_cases():
         "maximum int32 int64": ("maximum", i32, i64),
         "argmax": ("argmax", f32), "abs int32": ("abs", i32),
         "floor int": ("floor", i64), "std": ("std", f32),
+        "float//0.0": ("floor_divide", f32, 0.0),
+        "heaviside int": ("heaviside", i64, np.array([1, 0, 1])),
     }
 
 

@@ -144,9 +144,28 @@ def test_enough_shared_names_are_checked():
                  "distributed.fleet.meta_parallel.sharding_optimizer."
                  "group_sharded_parallel",
                  "inference.serving.request.Request.finish",
-                 "nn.functional.linear", "nn.functional.embedding",
-                 "nn.functional.relu", "nn.functional.sigmoid",
-                 "nn.functional.binary_cross_entropy_with_logits",
+                 "nn.functional.common.linear",
+                 "nn.functional.common.embedding",
+                 "nn.functional.activation.relu",
+                 "nn.functional.activation.sigmoid",
+                 "nn.functional.loss.binary_cross_entropy_with_logits",
+                 "nn.functional.common.interpolate",
+                 "nn.functional.norm.batch_norm",
+                 "nn.functional.loss.ctc_loss",
+                 "nn.functional.attention.scaled_dot_product_attention",
+                 "nn.layer.activation.LeakyReLU", "nn.layer.norm.LayerNorm",
+                 "nn.layer.norm.BatchNorm2D", "nn.layer.loss.CTCLoss",
+                 "nn.layer.container.LayerDict",
+                 "nn.layer.transformer.MultiHeadAttention",
+                 "nn.initializer.TruncatedNormal", "regularizer.L2Decay",
+                 "models.gpt.GPTForCausalLM",
+                 "models.gpt.GPTForCausalLM.generate",
+                 "ops.breadth.pdist", "ops.breadth.where_",
+                 "device.Stream", "device.memory_stats",
+                 "profiler.profiler.Profiler",
+                 "profiler.profiler.make_scheduler",
+                 "profiler.statistic.summary", "profiler.timer.Benchmark",
+                 "core.device.device_count",
                  "nn.layer.common.Embedding", "models.deepfm.DeepFM",
                  "models.deepfm.DeepFM.predict",
                  "distributed.embedding.sharded.ShardedEmbedding",

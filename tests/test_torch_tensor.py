@@ -161,3 +161,21 @@ def test_methods_installed_from_the_op_tables():
     assert _name(2.5 - i) == _name(2.5 - J.to_tensor([1, 2]))
     np.testing.assert_array_equal((7 // i).numpy(),
                                   (7 // J.to_tensor([1, 2])).numpy())
+
+
+@pytest.mark.parametrize("value", [1.5, 3, np.float32(2), np.int64(7),
+                                   np.array(2.5), True])
+def test_a_scalar_stays_0_d_as_in_jax(value):
+    """A Python or numpy scalar gives a 0-d tensor through ``to_tensor``,
+    ``Tensor``, ``Parameter`` and ``set_value``, as in the JAX package."""
+    want = list(J.to_tensor(value).shape)
+    assert want == []
+    assert list(P.to_tensor(value).shape) == want
+    assert list(P.Tensor(value).shape) == want
+    if not isinstance(value, bool):
+        assert list(P.Parameter(value).shape) == want
+    t = P.to_tensor(np.float32(0.0))
+    assert list(t.set_value(value).shape) == want
+    j = J.to_tensor(np.float32(1.0))
+    assert list((P.mean(P.ones([3])) * P.to_tensor(2.0)).shape) == \
+        list((J.mean(J.ones([3])) * j).shape)

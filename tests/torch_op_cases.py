@@ -1,6 +1,8 @@
 """The op library's case table: one case per public name of the JAX
-package's ``ops.{creation,math,manip,linalg,random}`` (and a few extra
-forms, ``ALIASES``), with inputs made by numpy from a per-name seed.
+package's ``ops.{creation,math,manip,linalg,random,breadth}`` (and a few
+extra forms, ``ALIASES``), with inputs made by numpy from a per-name seed.
+An in-place ``*_`` case is its base op's case with no input to
+differentiate (the op writes into its first argument).
 
 JAX-free: ``tests/test_torch_ops.py`` holds each case against the JAX
 package on the CPU; ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
@@ -10,7 +12,7 @@ import zlib
 
 import numpy as np
 
-MODULES = ("creation", "math", "manip", "linalg", "random")
+MODULES = ("creation", "math", "manip", "linalg", "random", "breadth")
 
 
 class A:
@@ -104,6 +106,13 @@ def cases():
     add("heaviside", lambda f, i, r: C(A(np.array([-1., 0., 2.], "f4")),
                                       A(np.array([.5, .5, .5], "f4")),
                                       grad=False))
+    # integer heaviside promotes to float; float // 0.0 is nan
+    add("heaviside_int", lambda f, i, r: C(A(i(6)), A(i(6, lo=0, hi=2)),
+                                          grad=False))
+    add("floor_divide_by_zero",
+        lambda f, i, r: C(A(np.array([1., -1., 2.5, -2.5, 0.], "f4")),
+                          A(np.array([0., 0., 2., -2., 0.], "f4")),
+                          grad=False))
     add("gcd", lambda f, i, r: C(A(i(5, lo=1, hi=30)), A(i(5, lo=1, hi=30))))
     add("lcm", lambda f, i, r: C(A(i(5, lo=1, hi=12)), A(i(5, lo=1, hi=12))))
     add("inner", lambda f, i, r: C(A(f(2, 3)), A(f(4, 3))))
@@ -117,7 +126,8 @@ def cases():
               "isinf", "isfinite", "deg2rad", "rad2deg", "stanh", "real",
               "imag", "conj", "angle", "rsqrt_"):
         lo = 0.2 if n == "rsqrt_" else -1.0
-        add(n, lambda f, i, r, lo=lo: C(A(f(3, 4, lo=lo, hi=2))))
+        add(n, lambda f, i, r, lo=lo, n=n: C(A(f(3, 4, lo=lo, hi=2)),
+                                             grad=n != "rsqrt_"))
     for n in ("log", "log2", "log10", "log1p", "sqrt", "rsqrt",
               "reciprocal", "digamma", "lgamma", "gammaln", "i0", "i0e",
               "i1", "i1e"):
@@ -383,12 +393,91 @@ def cases():
                                  grad=False))
     add("gumbel_softmax", lambda f, i, r: C(A(f(2, 4)), shape_only=True,
                                             grad=False))
+    # ---- breadth: stacking, scatter views, predicates, shifts ----
+    add("atleast_1d", lambda f, i, r: C(A(f()), A(f(2, 2))))
+    add("atleast_2d", lambda f, i, r: C(A(f(3))))
+    add("atleast_3d", lambda f, i, r: C(A(f(2, 3))))
+    add("hstack", lambda f, i, r: C([A(f(2, 3)), A(f(2, 2))]))
+    add("vstack", lambda f, i, r: C([A(f(2, 3)), A(f(1, 3))]))
+    add("row_stack", lambda f, i, r: C([A(f(2, 3)), A(f(1, 3))]))
+    add("dstack", lambda f, i, r: C([A(f(2, 3)), A(f(2, 3))]))
+    add("column_stack", lambda f, i, r: C([A(f(3)), A(f(3, 2))]))
+    add("block_diag", lambda f, i, r: C([A(f(2, 2)), A(f(1, 3))]))
+    add("diag_embed", lambda f, i, r: C(A(f(2, 3)), 1))
+    add("combinations", lambda f, i, r: C(A(f(4)), 2))
+    add("cartesian_prod", lambda f, i, r: C([A(f(2)), A(f(3))]))
+    add("diagonal_scatter", lambda f, i, r: C(A(f(3, 4)), A(f(3)), 1))
+    add("select_scatter", lambda f, i, r: C(A(f(3, 4)), A(f(4)), 0, 1))
+    add("slice_scatter", lambda f, i, r: C(A(f(4, 6)), A(f(4, 2)), [1], [0],
+                                           [6], [3]))
+    add("signbit", lambda f, i, r: C(A(f(5))))
+    special = np.array([np.inf, -np.inf, 1.0, np.nan], np.float32)
+    for n in ("isposinf", "isneginf"):
+        add(n, lambda f, i, r: C(A(special), grad=False))
+    add("isreal", lambda f, i, r: C(A(f(3))))
+    add("positive", lambda f, i, r: C(A(f(3, 4))))
+    add("negative", lambda f, i, r: C(A(f(3, 4))))
+    add("bitwise_left_shift", lambda f, i, r: C(A(i(5, lo=-20, hi=20)),
+                                                A(i(5, lo=0, hi=5))))
+    add("bitwise_right_shift", lambda f, i, r: C(A(i(5, lo=-20, hi=20)),
+                                                 A(i(5, lo=0, hi=5))))
+    add("bitwise_right_shift_logical",
+        lambda f, i, r: C(A(i(5, lo=-20, hi=20)), A(i(5, lo=1, hi=5)),
+                          kw={"is_arithmetic": False}))
+    add("bitwise_invert", lambda f, i, r: C(A(i(5))))
+    add("sinc", lambda f, i, r: C(A(f(6))))
+    add("cbrt", lambda f, i, r: C(A(f(6, lo=0.2, hi=2) *
+                                    np.array([1, -1] * 3, "f4"))))
+    add("sigmoid", lambda f, i, r: C(A(f(3, 4))))
+    add("pdist", lambda f, i, r: C(A(f(4, 3))))
+    add("pdist_p", lambda f, i, r: C(A(f(4, 3)), 1.5))
+    add("reduce_as", lambda f, i, r: C(A(f(2, 3, 4)),
+                                       A(f(3, 1), grad=False)))
+    add("rearrange", lambda f, i, r: C(A(f(2, 3, 4)), "a b c -> b (a c)"))
+    add("reverse", lambda f, i, r: C(A(f(3, 4)), [0]))
+    add("where_", lambda f, i, r: C(A(np.array([True, False, True])),
+                                    A(f(3), grad=False), A(f(3), grad=False),
+                                    grad=False))
+    # the in-place family: the base op's case, nothing to differentiate
+    for base in INPLACE_BASES:
+        if base in out:
+            c = out[base]
+            out[base + "_"] = C(*[_no_grad(a) for a in c.args], kw=c.kw,
+                                grad=False, rtol=c.rtol, atol=c.atol,
+                                check=c.check, shape_only=c.shape_only)
     return out
+
+
+INPLACE_BASES = (
+    "abs", "acos", "add", "addmm", "atan", "bitwise_and", "bitwise_invert",
+    "bitwise_not", "bitwise_or", "bitwise_xor", "cast", "ceil", "clip",
+    "cos", "cumprod", "cumsum", "digamma", "divide", "equal", "erf",
+    "erfinv", "exp", "expm1", "fill_diagonal_tensor", "floor",
+    "floor_divide", "floor_mod", "frac", "gcd", "greater_equal",
+    "greater_than", "i0", "index_add", "index_put", "lcm", "ldexp", "lerp",
+    "less_equal", "less_than", "lgamma", "log", "log10", "log1p", "log2",
+    "logical_and", "logical_not", "logical_or", "logical_xor", "logit",
+    "mod", "multiply", "nan_to_num", "neg", "not_equal", "polygamma",
+    "pow", "put_along_axis", "reciprocal", "remainder", "renorm", "round",
+    "scale", "scatter", "sigmoid", "sin", "sinh", "sqrt", "square",
+    "squeeze", "subtract", "tan", "tanh", "tril", "triu", "trunc",
+    "unsqueeze")
+
+
+def _no_grad(a):
+    if isinstance(a, A):
+        return A(a.arr, grad=False)
+    if isinstance(a, (list, tuple)):
+        return type(a)(_no_grad(x) for x in a)
+    return a
 
 
 CASES = cases()
 ALIASES = {"pad_reflect": "pad", "pad_replicate": "pad",
-           "pad_circular": "pad", "norm_fro": "norm", "norm_nuc": "norm"}
+           "pad_circular": "pad", "norm_fro": "norm", "norm_nuc": "norm",
+           "bitwise_right_shift_logical": "bitwise_right_shift",
+           "pdist_p": "pdist", "heaviside_int": "heaviside",
+           "floor_divide_by_zero": "floor_divide"}
 
 
 
@@ -547,3 +636,42 @@ def sweep_case(P, name, device):
                     np.testing.assert_array_equal(_np(g), _np(w))
         n += 1
     return n
+
+
+# The in-place cases whose result changes the target's dtype or shape, so
+# that the op rebinds the target (ops/breadth.py's docstring): ``cast_``
+# (float32 to float64 here), the comparisons (bool) and the shape changes.
+# Every other in-place case writes into the target's storage.
+INPLACE_REBINDS = ("cast_", "equal_", "greater_equal_", "greater_than_",
+                   "less_equal_", "less_than_", "not_equal_", "squeeze_",
+                   "unsqueeze_")
+
+
+def inplace_keeps_storage(P, name, device):
+    """Run the in-place case ``name`` on ``device``: the op returns its
+    first argument; a case of ``INPLACE_REBINDS`` changes its dtype or
+    shape, and every other case keeps its dtype, shape and storage (a
+    true in-place write). Returns whether the write was true in-place."""
+    from paddle_tpu_torch.core import device as pdev
+    case = CASES[name]
+    mod, base = module_of(name, P.ops)
+    fn = getattr(getattr(P.ops, mod), base)
+    prev = getattr(pdev._state, "device", None)
+    P.set_device(device)
+    try:
+        args = _build(P, case, device, [])
+        x = args[1] if base == "where_" else args[0]
+        ptr, dtype, shape = x.data_ptr(), x.dtype, tuple(x.shape)
+        out = fn(*args, **case.kw)
+    finally:
+        pdev._state.device = prev
+    assert out is x, f"{name}: the result is not the target tensor"
+    assert x.device.type == device.split(":")[0], name
+    kept = x.dtype == dtype and tuple(x.shape) == shape
+    assert kept == (name not in INPLACE_REBINDS), \
+        f"{name}: dtype {dtype} -> {x.dtype}, shape {shape} -> " \
+        f"{tuple(x.shape)}; INPLACE_REBINDS says it " + \
+        ("rebinds" if name in INPLACE_REBINDS else "writes in place")
+    if kept:
+        assert x.data_ptr() == ptr, f"{name}: the storage moved"
+    return kept
