@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--out PATH] [--mesh-backend gloo|nccl]
                           [--mesh-only | --deepfm-only | --elastic-only |
                            --eager-only | --nn-only | --gpt-only |
-                           --measure-only]
+                           --measure-only | --vision-only | --bert-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -237,13 +237,45 @@ fails:
    the LLaMA step p50 with the profiler recording and closed.
    ``--nn-only``, ``--gpt-only`` and ``--measure-only`` run the build and
    the phases named (together: all three).
+16. ``phase_vision``: ResNet-50 (``resnet50()``, 1000 classes, 25.6M
+   parameters) trained as PaddleClas's ResNet50.yaml trains it on a card:
+   B=64 seeded 3x224x224 images, ``Momentum(0.025, 0.9,
+   weight_decay=1e-4)`` (its lr 0.1 is for 4 cards' 256 images, scaled
+   linearly), O1 bf16, 2 warm-up and 5 timed steps; gates: every
+   parameter and BatchNorm buffer on the card, the loss finite and the
+   last step's below the first's, K2-K4 and U2 0 launches; a fp32
+   ``ResNet(BottleneckBlock, [1, 1, 1, 1], 10)`` at 64x64, B=4, gives the
+   same step on the card as on the CPU (loss, each grad within GPT's
+   tolerance, the running statistics and the eval-mode logits). Then the
+   OCR pair at the JAX defaults, fp32, ``Adam(1e-3)``, 2 + 5 steps each:
+   CRNN on [256, 3, 32, 100] (PaddleOCR's rec input; T=25 steps of the
+   bidirectional LSTM, CTC over 1-10 long labels) and DBNet on [16, 3,
+   640, 640] (det_db's crop) with ``db_loss`` on seeded maps; gates: the
+   loss finite and falling, U2 once per 80 tensors a step, U2 over the
+   model's own tensors bit for bit its plain version (Adam and AdamW), a
+   small copy equal card vs CPU.
+   ``phase_bert``: BERT-base GLUE fine-tuning at full width as PaddleNLP's
+   run_glue: ``BertForSequenceClassification(BertConfig(), 2)``, B=32,
+   S=128 (lengths 16-128 padded with id 0, token types 0 / 1),
+   ``AdamW(2e-5, weight_decay=0.01)``, O1 bf16, dropout 0.1, 2 + 5 steps,
+   beside one O1 step of ``BertForPretraining`` with
+   ``bert_pretraining_loss`` on 15% masked labels; gates: the losses
+   finite and falling, K2-K4 0 launches (the pad mask takes ``sdpa_ref``)
+   and U2 once per 80 tensors a step, U2 over each model's own tensors
+   bit for bit its plain version, the pad mask live (other ids at
+   padded positions leave the eval-mode logits equal), a 2-layer fp32
+   copy with dropout 0 equal card vs CPU. Printed: step ms p50,
+   images or sequences/s, peak GiB, ops a step, forward host ms.
+   ``--vision-only`` and ``--bert-only`` run the build and the phase
+   named (with the flags above: those phases together).
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"recompute": ...}``,
 ``{"deepfm": ...}``, ``{"eager": ...}``, ``{"nn_sweep": ...}``,
-``{"gpt": ...}``, ``{"measure": ...}``, ``{"mesh": ...}``,
+``{"gpt": ...}``, ``{"measure": ...}``, ``{"vision": ...}``,
+``{"bert": ...}``, ``{"mesh": ...}``,
 ``{"elastic": ...}``,
 ``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
 launches),
@@ -2418,52 +2450,18 @@ def phase_gpt(torch, args, P, fa, mt):
         return P.amp.auto_cast(level="O1", dtype="bfloat16")
     kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
-    losses, step_ms, fwd_ms = [], [], []
-    for i in range(GPT_WARMUP + GPT_STEPS):
-        if i == GPT_WARMUP:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for kern in kernels:
-                kern.launches = 0    # the main path's run starts here
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with amp():
-            _, loss = model(ids, labels=ids)
-        t1 = time.perf_counter()
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        torch.cuda.synchronize()
-        if i >= GPT_WARMUP:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            fwd_ms.append((t1 - t0) * 1e3)
-        losses.append(float(loss.detach()))
-    launches = [k.launches for k in kernels]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def gpt_loss(m):
+        return m(ids, labels=ids)[1]
+    losses, step_ms, fwd_ms, launches, peak = train_loop(
+        torch, model, opt, gpt_loss, GPT_WARMUP, GPT_STEPS, kernels, amp)
     u2_per_step = -(-n_tensors // ADAM_MAX)
     want = [0, 0, 0, GPT_STEPS * u2_per_step]
     check(launches == want, f"GPT launched K2, K3, K4, U2 {launches} times "
           f"in {GPT_STEPS} steps, want {want}")
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"GPT loss not finite or not falling: {losses}")
-    # U2 over the model's own tensors, chunked as the step chunks them,
-    # against its plain version on clones of this run's params, grads and
-    # moments (plain tensors), Adam and AdamW, bit for bit
-    with amp():
-        _, loss = model(ids, labels=ids)
-    loss.backward()
-    params = model.parameters()
-    check(all(p.grad is not None for p in params), "GPT: a grad is missing")
-    states = [opt._states[id(p)] for p in params]
-
-    def plain(ts):
-        return [t.detach().as_subclass(torch.Tensor).clone() for t in ts]
-    u2_err = u2_check(torch, mt, plain(params), plain(p.grad for p in params),
-                      plain(s["moment1"] for s in states),
-                      plain(s["moment2"] for s in states), None, None,
-                      f"GPT-2 small's {n_tensors} tensors")
-    opt.clear_grad()
-    del params, states
+    check(falls(losses), f"GPT loss not finite or not falling: {losses}")
+    u2_model = u2_model_check(torch, mt, model, opt, gpt_loss, amp,
+                              "GPT-2 small")
     with amp(), debugging.collect_operator_stats() as st:
         model(ids, labels=ids)
     opt.clear_grad()
@@ -2476,7 +2474,7 @@ def phase_gpt(torch, args, P, fa, mt):
               f"want {dt} only")
     n_ops = sum(st.stats.values())
     p50 = float(np.percentile(step_ms, 50))
-    del opt, model, loss
+    del opt, model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2524,9 +2522,7 @@ def phase_gpt(torch, args, P, fa, mt):
         "op_dtypes": {k: st.dtypes[k] for k in dts},
         "host_us_per_op": float(np.percentile(fwd_ms, 50)) * 1e3 / n_ops,
         "peak_mem_gib": peak,
-        "u2_model_check": {"tensors": n_tensors,
-                           "launches_per_call": u2_per_step,
-                           "max_abs_err": u2_err},
+        "u2_model_check": u2_model,
         "launches_per_step": dict(zip(
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
              "multi_tensor_adam"), (n // GPT_STEPS for n in launches))),
@@ -2549,6 +2545,557 @@ def phase_gpt(torch, args, P, fa, mt):
         f"plain version, Adam and AdamW; fp32 "
         f"2-layer step card vs CPU: loss {lc[0]:.6f} / {lw[0]:.6f}, worst "
         f"grad {worst} at {excess[worst]:.3g}x the tolerance")
+    return out
+
+
+# ---- the convolution, recurrent and BERT slice: ResNet-50, the OCR pair
+# (CRNN, DBNet) and BERT-base, trained on the card at full width
+
+RESNET_BATCH, RESNET_SIZE, RESNET_WARMUP, RESNET_STEPS = 64, 224, 2, 5
+# PaddleClas's ResNet50.yaml sets lr 0.1 for its 4-card launch, 256 images
+# a step; one card's 64 take a quarter of it (the linear scaling rule)
+RESNET_LR = 0.1 * RESNET_BATCH / 256
+RESNET_SMALL_BATCH, RESNET_SMALL_SIZE = 4, 64
+CRNN_BATCH, CRNN_SHAPE, CRNN_MAX_LABEL = 256, (3, 32, 100), 10
+DBNET_BATCH, DBNET_SIZE = 16, 640
+OCR_WARMUP, OCR_STEPS = 2, 5
+BERT_BATCH, BERT_SEQ, BERT_WARMUP, BERT_STEPS = 32, 128, 2, 5
+BERT_SMALL_LAYERS, BERT_SMALL_BATCH = 2, 2
+SMALL_STAT_TOL = (1e-4, 1e-5)  # fp32 card vs CPU: running stats, logits
+
+
+def falls(losses) -> bool:
+    """Every loss finite and the last step's below the first step's."""
+    return bool(all(np.isfinite(losses)) and losses[-1] < losses[0])
+
+
+def on_card(model) -> bool:
+    """Every parameter and buffer of ``model`` on the run's device."""
+    return all(t.device.type == DEVICE.split(":")[0] for t in
+               list(model.parameters()) + list(model.buffers()))
+
+
+def train_loop(torch, model, opt, loss_fn, warmup, steps, kernels, amp=None):
+    """``warmup + steps`` optimizer steps of ``loss_fn(model)``; the
+    kernels' counters and the peak memory reset where the timed steps
+    start. Returns losses, step ms and forward host ms (timed steps), the
+    kernels' launches in the timed steps and the peak GiB."""
+    from contextlib import nullcontext
+    losses, step_ms, fwd_ms = [], [], []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels:
+                kern.launches = 0    # the main path's run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (amp() if amp else nullcontext()):
+            loss = loss_fn(model)
+        t1 = time.perf_counter()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            fwd_ms.append((t1 - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    return (losses, step_ms, fwd_ms, [k.launches for k in kernels],
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def u2_model_check(torch, mt, model, opt, loss_fn, amp=None, label=""):
+    """U2 over a model's own tensors, chunked as its step chunks them,
+    against its plain version: one more forward and backward, then
+    ``u2_check`` on plain clones of the params, their grads and the
+    optimizer's moments (Adam and AdamW, 3 steps, bit for bit). The
+    model and its optimizer are left as they were, grads cleared."""
+    from contextlib import nullcontext
+    from paddle_tpu_torch.ops.kernels.multi_tensor import ADAM_MAX
+    with (amp() if amp else nullcontext()):
+        loss = loss_fn(model)
+    loss.backward()
+    params = model.parameters()
+    check(all(p.grad is not None for p in params), f"{label}: a grad is "
+          f"missing")
+    states = [opt._states[id(p)] for p in params]
+
+    def plain(ts):
+        return [t.detach().as_subclass(torch.Tensor).clone() for t in ts]
+    err = u2_check(torch, mt, plain(params), plain(p.grad for p in params),
+                   plain(s["moment1"] for s in states),
+                   plain(s["moment2"] for s in states), None, None,
+                   f"{label}'s {len(params)} tensors")
+    opt.clear_grad()
+    return {"tensors": len(params),
+            "launches_per_call": -(-len(params) // ADAM_MAX),
+            "max_abs_err": err}
+
+
+def trace_step(torch, model, opt, loss_fn, step_p50, amp=None):
+    """One more training step under torch.profiler: the device's kernel
+    time, its share of the untraced step's p50, the kernel launches and
+    the kernels that take the most time, and the optimizer's host ms."""
+    from contextlib import nullcontext
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with (amp() if amp else nullcontext()):
+            loss = loss_fn(model)
+        loss.backward()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        opt.clear_grad()
+        opt_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((ev.key, dev_us / 1e3, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    return {"device_kernel_ms": device_ms if kernels else None,
+            "device_busy_share": device_ms / step_p50 if kernels else None,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "optimizer_host_ms_traced": opt_ms,
+            "top_kernels": [{"name": k[0][:90], "ms": k[1], "calls": k[2]}
+                            for k in kernels[:10]]}
+
+
+def ops_per_step(P, model, loss_fn, amp=None):
+    """Ops the dispatch runs in one forward + loss (operator stats)."""
+    from contextlib import nullcontext
+    from paddle_tpu_torch.amp import debugging
+    with (amp() if amp else nullcontext()), \
+            debugging.collect_operator_stats() as st:
+        loss_fn(model)
+    return sum(st.stats.values())
+
+
+def small_card_vs_cpu(torch, P, build, loss_fn, make_opt, inputs, label):
+    """One fp32 step of the same small model on the card and on the CPU
+    (the port's weights carried across): the loss, every grad within
+    GPT's grad tolerance, the running statistics the forward left and the
+    eval-mode output at the step's weights, then the loss after the
+    update. ``inputs`` are numpy arrays."""
+    from paddle_tpu_torch.models.gpt import (load_paddle_tpu_state,
+                                             paddle_tpu_state)
+    P.seed(0, "cpu")
+    cpu_m = build("cpu")
+    card_m = build(DEVICE)
+    load_paddle_tpu_state(card_m, paddle_tpu_state(cpu_m))
+    res = {}
+    for dev, m in (("cpu", cpu_m), (DEVICE, card_m)):
+        ts = [P.to_tensor(a.copy(), place=dev) for a in inputs]
+        opt = make_opt(P, m)
+        loss = loss_fn(m, ts)
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu().clone()
+                 for n, p in m.named_parameters()}
+        bufs = {n: b.detach().float().cpu().clone()
+                for n, b in m.named_buffers()}
+        m.eval()
+        with torch.no_grad():
+            out = m(ts[0])
+        m.train()
+        out = out if isinstance(out, torch.Tensor) else out["maps"]
+        opt.step()
+        opt.clear_grad()
+        with torch.no_grad():
+            after = float(loss_fn(m, ts))
+        res[dev] = (float(loss.detach()), grads, bufs,
+                    out.detach().float().cpu(), after)
+    (lc, gc_, bc, oc, ac), (lw, gw, bw, ow, aw) = res[DEVICE], res["cpu"]
+    check(abs(lc - lw) <= GPT_LOSS_RTOL * abs(lw),
+          f"{label} fp32 step: loss {lc} on the card, {lw} on the CPU")
+    # after the update: Adam turns the rounding noise of a grad that a
+    # BatchNorm cancels into a full lr step, so the loss after it is held
+    # at SMALL_STAT_TOL's rtol
+    check(abs(ac - aw) <= SMALL_STAT_TOL[0] * abs(aw),
+          f"{label} fp32 step: loss after the update {ac} on the card, "
+          f"{aw} on the CPU")
+    excess = {n: grad_excess(gc_[n], gw[n]) for n in gw}
+    worst = max(excess, key=excess.get)
+    check(excess[worst] <= 1.0,
+          f"{label} fp32 step: grad of {worst} off by "
+          f"{rel_l2(gc_[worst], gw[worst]):.3g} relative L2 "
+          f"({excess[worst]:.3g}x the tolerance) card vs CPU")
+    for n in bw:
+        check(torch.allclose(bc[n], bw[n], *SMALL_STAT_TOL),
+              f"{label}: buffer {n} after the step differs card vs CPU")
+    check(torch.allclose(oc, ow, *SMALL_STAT_TOL),
+          f"{label}: eval-mode output differs card vs CPU (max |d| "
+          f"{float((oc - ow).abs().max()):.3g})")
+    del cpu_m, card_m
+    return {"loss_card": lc, "loss_cpu": lw, "loss_after_card": ac,
+            "loss_after_cpu": aw, "grad_worst": worst,
+            "grad_worst_of_tolerance": excess[worst],
+            "buffers": len(bw),
+            "eval_max_abs_diff": float((oc - ow).abs().max())}
+
+
+def phase_vision(torch, args, P, fa, mt):
+    """ResNet-50 (``resnet50()``: 1000 classes, 25.6M parameters) trained
+    at full width as PaddleClas's ResNet50.yaml trains it on a card: B=64
+    seeded 3x224x224 images, ``Momentum(RESNET_LR, 0.9,
+    weight_decay=1e-4)``, auto_cast O1 bf16, 2 warm-up and 5 timed steps
+    on a repeated batch. Gates: every parameter and BN buffer on the
+    card, the loss finite and the last step's below the first's, K2-K4 and
+    U2 launched 0 times (no attention; Momentum is a
+    per-tensor update); a fp32 ResNet(BottleneckBlock, [1, 1, 1, 1], 10
+    classes) at 64x64, B=4, gives the same step on the card as on the CPU
+    (loss at rtol 1e-5, each grad within GPT's tolerance, the running
+    statistics and eval-mode logits at 1e-4 / 1e-5). Then the OCR pair at
+    the JAX defaults, fp32, Adam(1e-3), 2 + 5 steps each: CRNN (base 16,
+    hidden 96, 63 classes) on [256, 3, 32, 100] with 1-10 long labels
+    (T = 25 steps of the bidirectional LSTM), DBNet (base 16) on [16, 3,
+    640, 640] with db_loss on seeded maps; gates: the loss finite and
+    falling, U2 once per 80 tensors a step, U2 over the model's own
+    tensors bit for bit its plain version, and a small copy equal card vs
+    CPU."""
+    from paddle_tpu_torch.models import ocr as O
+    from paddle_tpu_torch.ops.kernels.multi_tensor import ADAM_MAX
+    from paddle_tpu_torch.vision.models import resnet as R
+    t_phase = time.perf_counter()
+    F = P.nn.functional
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
+    rng = np.random.RandomState(args.seed + 17)
+    P.seed(args.seed, DEVICE)
+    model = R.resnet50(device=DEVICE)
+    check(on_card(model), "ResNet-50: a parameter or buffer is not on the "
+          "card")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = P.optimizer.Momentum(RESNET_LR, 0.9,
+                               parameters=model.parameters(),
+                               weight_decay=1e-4)
+    x = P.to_tensor(rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE)).astype(np.float32),
+        place=DEVICE)
+    y = P.to_tensor(rng.randint(0, 1000, RESNET_BATCH), place=DEVICE)
+
+    def amp():
+        return P.amp.auto_cast(level="O1", dtype="bfloat16")
+
+    def resnet_loss(m):
+        return F.cross_entropy(m(x), y)
+    losses, step_ms, fwd_ms, launches, peak = train_loop(
+        torch, model, opt, resnet_loss, RESNET_WARMUP, RESNET_STEPS, kernels,
+        amp)
+    check(launches == [0, 0, 0, 0], f"ResNet-50 launched K2, K3, K4, U2 "
+          f"{launches} times, want none")
+    check(falls(losses),
+          f"ResNet-50 loss not finite or not falling: {losses}")
+    n_ops = ops_per_step(P, model, resnet_loss, amp)
+    p50 = float(np.percentile(step_ms, 50))
+    trace = trace_step(torch, model, opt, resnet_loss, p50, amp)
+    resnet = {
+        "config": "resnet50() (ResNet-50, 1000 classes)", "params": n_params,
+        "batch": RESNET_BATCH, "image": RESNET_SIZE,
+        "optimizer": f"Momentum({RESNET_LR}, 0.9, weight_decay=1e-4)",
+        "amp": "O1 bfloat16", "cudnn_benchmark":
+            bool(torch.backends.cudnn.benchmark),
+        "warmup_steps": RESNET_WARMUP, "steps": RESNET_STEPS,
+        "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+        "images_per_s": RESNET_BATCH / (p50 / 1e3),
+        "forward_host_ms_p50": float(np.percentile(fwd_ms, 50)),
+        "ops_per_step": n_ops, "peak_mem_gib": peak, "trace": trace,
+        "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "multi_tensor_adam"), (n // RESNET_STEPS for n in launches)))}
+    del opt, model, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_x = rng.standard_normal((RESNET_SMALL_BATCH, 3, RESNET_SMALL_SIZE,
+                                   RESNET_SMALL_SIZE)).astype(np.float32)
+    small_y = rng.randint(0, 10, RESNET_SMALL_BATCH)
+    resnet["small_check"] = small_card_vs_cpu(
+        torch, P, lambda dev: R.ResNet(R.BottleneckBlock, layers=[1, 1, 1, 1],
+                                       num_classes=10, device=dev),
+        lambda m, ts: F.cross_entropy(m(ts[0]), ts[1]),
+        lambda pkg, m: pkg.optimizer.Momentum(
+            0.1, 0.9, parameters=m.parameters(), weight_decay=1e-4),
+        [small_x, small_y], "ResNet small copy")
+    log(f"ResNet-50, B={RESNET_BATCH} {RESNET_SIZE}x{RESNET_SIZE}, O1 bf16, "
+        f"Momentum({RESNET_LR}): step p50 {p50:.2f} ms, "
+        f"{resnet['images_per_s']:.0f} images/s, peak {peak:.2f} GiB, "
+        f"{n_ops} ops a step, forward host "
+        f"{resnet['forward_host_ms_p50']:.1f} ms, device busy "
+        f"{trace['device_busy_share']}, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; fp32 small copy card vs CPU: worst grad "
+        f"{resnet['small_check']['grad_worst']} at "
+        f"{resnet['small_check']['grad_worst_of_tolerance']:.3g}x the "
+        f"tolerance")
+
+    # the OCR pair, fp32, Adam
+    def adam(pkg, m):
+        return pkg.optimizer.Adam(1e-3, parameters=m.parameters())
+    lengths = rng.randint(1, CRNN_MAX_LABEL + 1, CRNN_BATCH)
+    labels = np.zeros((CRNN_BATCH, CRNN_MAX_LABEL), np.int64)
+    for b, n in enumerate(lengths):
+        labels[b, :n] = rng.randint(1, 63, n)
+    crnn_in = [rng.standard_normal((CRNN_BATCH,) + CRNN_SHAPE).astype(
+        np.float32), labels, lengths.astype(np.int64)]
+    gt = (rng.uniform(0, 1, (DBNET_BATCH, 1, DBNET_SIZE // 32,
+                             DBNET_SIZE // 32)) > 0.7).astype(np.float32)
+    gt = np.kron(gt, np.ones((1, 1, 32, 32), np.float32))   # text boxes
+    db_in = [rng.standard_normal((DBNET_BATCH, 3, DBNET_SIZE, DBNET_SIZE))
+             .astype(np.float32), gt,
+             rng.uniform(0.3, 0.7, gt.shape).astype(np.float32)]
+    ocr = {}
+    for name, build, loss_of, inputs, small_build, small_inputs in (
+            ("crnn", lambda dev: O.CRNN(device=dev),
+             lambda m, ts: O.ctc_rec_loss(m(ts[0]), ts[1], ts[2]), crnn_in,
+             lambda dev: O.CRNN(base=4, hidden=8, num_classes=11,
+                                device=dev),
+             [crnn_in[0][:2], np.minimum(labels[:2], 10), lengths[:2]]),
+            ("dbnet", lambda dev: O.DBNet(device=dev),
+             lambda m, ts: O.db_loss(m(ts[0]), ts[1], ts[2]), db_in,
+             lambda dev: O.DBNet(base=4, device=dev),
+             [a[:2, :, :64, :64] for a in db_in])):
+        P.seed(args.seed, DEVICE)
+        m = build(DEVICE)
+        check(on_card(m), f"{name}: a parameter or buffer is not on the card")
+        n_tensors = len(m.parameters())
+        ts = [P.to_tensor(a, place=DEVICE) for a in inputs]
+        o = adam(P, m)
+        losses, step_ms, fwd_ms, launches, peak = train_loop(
+            torch, m, o, lambda mm: loss_of(mm, ts), OCR_WARMUP, OCR_STEPS,
+            kernels)
+        u2 = -(-n_tensors // ADAM_MAX)
+        check(launches == [0, 0, 0, OCR_STEPS * u2],
+              f"{name} launched K2, K3, K4, U2 {launches} times in "
+              f"{OCR_STEPS} steps, want [0, 0, 0, {OCR_STEPS * u2}]")
+        check(falls(losses),
+              f"{name} loss not finite or not falling: {losses}")
+        p50 = float(np.percentile(step_ms, 50))
+        trace = trace_step(torch, m, o, lambda mm: loss_of(mm, ts), p50)
+        n_ops = ops_per_step(P, m, lambda mm: loss_of(mm, ts))
+        u2_model = u2_model_check(torch, mt, m, o, lambda mm: loss_of(mm, ts),
+                                  label=name)
+        ocr[name] = {
+            "params": sum(p.numel() for p in m.parameters()),
+            "tensors": n_tensors, "input": list(inputs[0].shape),
+            "optimizer": "Adam(1e-3)", "amp": "off (fp32)",
+            "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+            "samples_per_s": inputs[0].shape[0] / (p50 / 1e3),
+            "forward_host_ms_p50": float(np.percentile(fwd_ms, 50)),
+            "ops_per_step": n_ops, "peak_mem_gib": peak, "trace": trace,
+            "u2_model_check": u2_model,
+            "launches_per_step": {"multi_tensor_adam": u2}}
+        del m, o, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+        ocr[name]["small_check"] = small_card_vs_cpu(
+            torch, P, small_build, loss_of, adam, small_inputs,
+            f"{name} small copy")
+        log(f"{name} {list(inputs[0].shape)} fp32 Adam: step p50 "
+            f"{p50:.2f} ms, peak {ocr[name]['peak_mem_gib']:.2f} GiB, "
+            f"{ocr[name]['ops_per_step']} ops a step, device busy "
+            f"{trace['device_busy_share']}, loss {losses[0]:.4f} "
+            f"-> {losses[-1]:.4f}; U2 on its {n_tensors} tensors bit for "
+            f"bit the plain version; small copy card = CPU")
+    return {"resnet50": resnet, **ocr,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def bert_batch(rng, vocab, batch, seq):
+    """Seeded ids with per-row lengths of 16..seq, padded with id 0, and
+    token types split 0 / 1 at the middle of each row's length."""
+    ids = rng.randint(1, vocab, (batch, seq))
+    types = np.zeros((batch, seq), np.int64)
+    for b, n in enumerate(rng.randint(16, seq + 1, batch)):
+        ids[b, n:] = 0
+        types[b, n // 2:n] = 1
+    return ids.astype(np.int64), types
+
+
+def phase_bert(torch, args, P, fa, mt):
+    """BERT-base GLUE fine-tuning at full width, as PaddleNLP's run_glue
+    defaults: ``BertForSequenceClassification(BertConfig(), 2)`` (12 x 768,
+    12 heads, 3072, vocab 30522, 512 positions), B=32, S=128 with per-row
+    lengths of 16-128 padded with id 0 and token types 0 / 1,
+    ``AdamW(2e-5, weight_decay=0.01)``, O1 bf16, dropout 0.1, 2 warm-up
+    and 5 timed steps. Beside it one O1 step of ``BertForPretraining``
+    with ``bert_pretraining_loss`` on 15% masked labels. Gates: the losses
+    finite, the eval-mode (dropout-free) losses falling over the steps;
+    K2-K4 launched 0 times (the additive pad mask takes sdpa_ref, as in
+    the JAX package) and U2 once per 80 tensors a step; the mask is live
+    (in eval mode, other ids at the padded positions under the ids' pad
+    mask leave the logits equal, and move them under an all-zero mask); a
+    2-layer fp32 copy with dropout 0 gives the same step on the card as on
+    the CPU; U2 over each model's own tensors (201 and 206, 3 launches)
+    bit for bit its plain version, Adam and AdamW."""
+    from paddle_tpu_torch.models import bert as Bm
+    from paddle_tpu_torch.ops.kernels.multi_tensor import ADAM_MAX
+    t_phase = time.perf_counter()
+    F = P.nn.functional
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
+    rng = np.random.RandomState(args.seed + 23)
+    cfg = Bm.BertConfig()
+    P.seed(args.seed, DEVICE)
+    model = Bm.BertForSequenceClassification(cfg, 2, device=DEVICE)
+    check(on_card(model), "BERT: a parameter is not on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(model.parameters())
+    opt = P.optimizer.AdamW(2e-5, parameters=model.parameters(),
+                            weight_decay=0.01)
+    ids_np, types_np = bert_batch(rng, cfg.vocab_size, BERT_BATCH, BERT_SEQ)
+    ids = P.to_tensor(ids_np, place=DEVICE)
+    types = P.to_tensor(types_np, place=DEVICE)
+    labels = P.to_tensor(rng.randint(0, 2, BERT_BATCH), place=DEVICE)
+
+    def amp():
+        return P.amp.auto_cast(level="O1", dtype="bfloat16")
+
+    def cls_loss(m):
+        return F.cross_entropy(m(ids, types), labels)
+
+    def eval_loss(m, loss_fn):
+        """The loss without dropout (eval mode), under the same casts."""
+        m.eval()
+        with torch.no_grad(), amp():
+            out = float(loss_fn(m))
+        m.train()
+        return out
+    # dropout makes the training losses noisy: the loss that must fall is
+    # the eval-mode one, before and after the steps
+    before = eval_loss(model, cls_loss)
+    losses, step_ms, fwd_ms, launches, peak = train_loop(
+        torch, model, opt, cls_loss, BERT_WARMUP, BERT_STEPS, kernels, amp)
+    after = eval_loss(model, cls_loss)
+    u2 = -(-n_tensors // ADAM_MAX)
+    want = [0, 0, 0, BERT_STEPS * u2]
+    check(launches == want, f"BERT launched K2, K3, K4, U2 {launches} times "
+          f"in {BERT_STEPS} steps, want {want}")
+    check(all(np.isfinite(losses)) and after < before,
+          f"BERT loss not finite or not falling: {losses}; without dropout "
+          f"{before} -> {after}")
+    n_ops = ops_per_step(P, model, cls_loss, amp)
+    p50 = float(np.percentile(step_ms, 50))
+    trace = trace_step(torch, model, opt, cls_loss, p50, amp)
+    u2_model = u2_model_check(torch, mt, model, opt, cls_loss, amp,
+                              "BERT-base")
+    # the mask is live: eval mode, fp32
+    model.eval()
+    pad = ids_np == 0
+    other = P.to_tensor(np.where(pad, 7, ids_np), place=DEVICE)
+    mask = P.to_tensor(np.where(pad, -1e9, 0.0).astype(np.float32)[
+        :, None, None, :], place=DEVICE)
+    zero = P.zeros([BERT_BATCH, 1, 1, BERT_SEQ])
+    with torch.no_grad():
+        # the ids' own mask, then the same mask given, over other pad ids
+        a, b = model(ids, types), model(other, types, attention_mask=mask)
+        c, d = (model(ids, types, attention_mask=zero),
+                model(other, types, attention_mask=zero))
+    mask_diff = float((a - b).abs().max())
+    check(pad.any() and mask_diff <= 1e-5 * float(a.abs().max()),
+          f"BERT: other ids at padded positions moved the logits by "
+          f"{mask_diff}")
+    check(not torch.allclose(c, d), "BERT: without the mask the padded "
+          "ids did not move the logits")
+    del opt, model, a, b, c, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one O1 step of the pretraining model on 15% masked labels
+    P.seed(args.seed, DEVICE)
+    pre = Bm.BertForPretraining(cfg, device=DEVICE)
+    popt = P.optimizer.AdamW(2e-5, parameters=pre.parameters(),
+                             weight_decay=0.01)
+    masked = np.where(rng.uniform(0, 1, ids_np.shape) < 0.15, ids_np, -100)
+    masked[pad] = -100
+    mlab = P.to_tensor(masked, place=DEVICE)
+    nsp = P.to_tensor(rng.randint(0, 2, BERT_BATCH), place=DEVICE)
+
+    def pre_loss(m):
+        mlm, ns = m(ids, types)
+        return Bm.bert_pretraining_loss(mlm, ns, mlab, nsp)
+    pre_before = eval_loss(pre, pre_loss)
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with amp():
+        ploss = pre_loss(pre)
+    ploss.backward()
+    popt.step()
+    popt.clear_grad()
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    pre_tensors = len(pre.parameters())
+    pre_launches = [k.launches for k in kernels]
+    check(np.isfinite(float(ploss.detach())) and pre_launches == [
+        0, 0, 0, -(-pre_tensors // ADAM_MAX)],
+          f"BERT pretraining step: loss {float(ploss.detach())}, launches "
+          f"{pre_launches}")
+    pre_after = eval_loss(pre, pre_loss)
+    pre_u2 = u2_model_check(torch, mt, pre, popt, pre_loss, amp,
+                            "BERT pretraining")
+    check(pre_after < pre_before, f"BERT pretraining loss without dropout "
+          f"did not fall: {pre_before} -> {pre_after}")
+    pretraining = {"loss": float(ploss.detach()),
+                   "eval_loss_before": pre_before,
+                   "eval_loss_after": pre_after,
+                   "masked_labels": int((masked != -100).sum()),
+                   "step_ms": pre_ms, "tensors": pre_tensors,
+                   "u2_model_check": pre_u2,
+                   "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv",
+                                         "multi_tensor_adam"),
+                                        pre_launches))}
+    del pre, popt, ploss
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_cfg = Bm.BertConfig(num_hidden_layers=BERT_SMALL_LAYERS,
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    sids, stypes = bert_batch(rng, cfg.vocab_size, BERT_SMALL_BATCH,
+                              BERT_SEQ)
+    small = small_card_vs_cpu(
+        torch, P, lambda dev: Bm.BertForSequenceClassification(
+            small_cfg, 2, device=dev),
+        lambda m, ts: F.cross_entropy(m(ts[0], ts[1]), ts[2]),
+        lambda pkg, m: pkg.optimizer.AdamW(2e-5, parameters=m.parameters(),
+                                           weight_decay=0.01),
+        [sids, stypes, np.array([0, 1])], "BERT 2-layer copy")
+    out = {
+        "config": "BertConfig() (BERT-base), 2 classes", "params": n_params,
+        "tensors": n_tensors, "batch": BERT_BATCH, "seq": BERT_SEQ,
+        "real_tokens": int((~pad).sum()),
+        "optimizer": "AdamW(2e-5, weight_decay=0.01)", "amp": "O1 bfloat16",
+        "dropout": cfg.hidden_dropout_prob,
+        "warmup_steps": BERT_WARMUP, "steps": BERT_STEPS, "losses": losses,
+        "eval_loss_before": before, "eval_loss_after": after,
+        "step_ms": step_ms, "step_ms_p50": p50,
+        "sequences_per_s": BERT_BATCH / (p50 / 1e3),
+        "forward_host_ms_p50": float(np.percentile(fwd_ms, 50)),
+        "ops_per_step": n_ops,
+        "host_us_per_op": float(np.percentile(fwd_ms, 50)) * 1e3 / n_ops,
+        "peak_mem_gib": peak, "mask_max_abs_diff": mask_diff,
+        "trace": trace, "u2_model_check": u2_model,
+        "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "multi_tensor_adam"), (n // BERT_STEPS for n in launches))),
+        "pretraining": pretraining, "small_check": small,
+        "seconds": time.perf_counter() - t_phase}
+    log(f"BERT-base GLUE, B={BERT_BATCH} S={BERT_SEQ}, O1 bf16, AdamW: step "
+        f"p50 {p50:.2f} ms, {out['sequences_per_s']:.0f} sequences/s, peak "
+        f"{peak:.2f} GiB, {n_ops} ops a step, device busy "
+        f"{trace['device_busy_share']}, loss without dropout "
+        f"{before:.4f} -> {after:.4f}; K2-K4 0, U2 {u2} a step, on the "
+        f"model's {n_tensors} tensors (and the pretraining model's "
+        f"{pre_tensors}) bit for bit the plain version; pad mask "
+        f"live (max |d| {mask_diff:.3g}); pretraining step {pre_ms:.1f} ms, "
+        f"loss {pre_before:.4f} -> {pre_after:.4f}; 2-layer fp32 copy card "
+        f"vs CPU worst grad {small['grad_worst']} at "
+        f"{small['grad_worst_of_tolerance']:.3g}x the tolerance")
     return out
 
 
@@ -4670,6 +5217,11 @@ def main(argv=None) -> int:
                     help="build the kernels and run the nn sweep alone")
     ap.add_argument("--gpt-only", action="store_true",
                     help="build the kernels and run the GPT phase alone")
+    ap.add_argument("--vision-only", action="store_true",
+                    help="build the kernels and run the vision phase "
+                         "(ResNet-50, CRNN, DBNet) alone")
+    ap.add_argument("--bert-only", action="store_true",
+                    help="build the kernels and run the BERT phase alone")
     ap.add_argument("--measure-only", action="store_true",
                     help="build the kernels and run the measurement-API "
                          "phase alone")
@@ -4717,13 +5269,18 @@ def main(argv=None) -> int:
     _build.library()
     log(f"built {', '.join(_build.SOURCES)} -> {_build.LIB_PATH} with nvcc "
         f"(sm_90a, one process per source) in {build_s:.1f}s")
-    if args.nn_only or args.gpt_only or args.measure_only:
+    if args.nn_only or args.gpt_only or args.measure_only or \
+            args.vision_only or args.bert_only:
         import paddle_tpu_torch as P
         alone = {}
         if args.nn_only:
             alone["nn_sweep"] = phase_nn_sweep(torch, P)
         if args.gpt_only:
             alone["gpt"] = phase_gpt(torch, args, P, fa, mt)
+        if args.vision_only:
+            alone["vision"] = phase_vision(torch, args, P, fa, mt)
+        if args.bert_only:
+            alone["bert"] = phase_bert(torch, args, P, fa, mt)
         if args.measure_only:
             alone["measure"] = phase_measure(torch, args, LlamaConfig,
                                              LlamaForCausalLM, P, fa, mt)
@@ -4885,6 +5442,8 @@ def main(argv=None) -> int:
     gpt = phase_gpt(torch, args, P, fa, mt)
     measure = phase_measure(torch, args, LlamaConfig, LlamaForCausalLM, P,
                             fa, mt)
+    vision = phase_vision(torch, args, P, fa, mt)
+    bert = phase_bert(torch, args, P, fa, mt)
     deepfm = phase_deepfm(torch, args)
     recompute = phase_recompute(torch, args, LlamaConfig, LlamaForCausalLM,
                                 fa)
@@ -4942,6 +5501,10 @@ def main(argv=None) -> int:
                 name.replace("attention_", "")],
             "measure_launches_per_step": measure["launches_per_step"][
                 name.replace("attention_", "")],
+            "bert_launches_per_step": bert["launches_per_step"][
+                name.replace("attention_", "")],
+            "resnet50_launches_per_step": vision["resnet50"][
+                "launches_per_step"][name.replace("attention_", "")],
             "recompute_launches": {
                 "recompute": recompute["launches"][
                     name.replace("attention_", "")],
@@ -5001,6 +5564,10 @@ def main(argv=None) -> int:
                 name.replace("_finite", ""), 0),
             "measure_launches_per_step": measure["launches_per_step"].get(
                 name.replace("_finite", ""), 0),
+            **{f"{m}_launches_per_step": res["launches_per_step"].get(
+                name.replace("_finite", ""), 0) for m, res in (
+                    ("bert", bert), ("resnet50", vision["resnet50"]),
+                    ("crnn", vision["crnn"]), ("dbnet", vision["dbnet"]))},
             "deepfm_launches": deepfm["dp1"]["launches"][
                 name.replace("_finite", "")],
             "mesh_launches_per_step": {
@@ -5036,7 +5603,7 @@ def main(argv=None) -> int:
                        "gateway": gateway, "mesh": mesh,
                        "elastic": elastic, "deepfm": deepfm,
                        "eager": eager, "nn_sweep": nn_sweep, "gpt": gpt,
-                       "measure": measure,
+                       "measure": measure, "vision": vision, "bert": bert,
                        "recompute": recompute, **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
@@ -5048,6 +5615,8 @@ def main(argv=None) -> int:
     log(json.dumps({"nn_sweep": nn_sweep}))
     log(json.dumps({"gpt": gpt}))
     log(json.dumps({"measure": measure}))
+    log(json.dumps({"vision": vision}))
+    log(json.dumps({"bert": bert}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"elastic": elastic}))
     log(json.dumps(kernels))

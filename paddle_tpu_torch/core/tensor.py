@@ -312,5 +312,12 @@ class Parameter(Tensor, nn.Parameter):
         return "Parameter containing:\n" + Tensor.__repr__(self)
 
 
+def plain_views(ts):
+    """Plain ``torch.Tensor`` views of ``ts`` (autograd flows through
+    them): inside a function the dispatch runs, their Python operators are
+    torch's own, not nested ops of the library."""
+    return [t.as_subclass(torch.Tensor) for t in ts]
+
+
 def is_tensor(x) -> bool:
     return isinstance(x, Tensor)

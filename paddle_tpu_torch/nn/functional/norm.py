@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.tensor import Tensor, plain_views
 from ...ops.dispatch import apply
 
 __all__ = ["normalize", "batch_norm", "layer_norm", "instance_norm",
@@ -54,22 +55,26 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         s[ch_axis % v.dim()] = -1
         return s
 
+    # the functions compute on plain torch views (the JAX function's raw
+    # array math): their operators are not nested ops of the library
     if use_global:
         args = [x, running_mean, running_var]
 
-        def f(v, m, var_, *wb):
+        def f(*ts):
+            v, m, var_, *wb = plain_views(ts)
             inv = torch.rsqrt(var_.to(v.dtype) + epsilon)
             out = (v - m.to(v.dtype).reshape(bshape(v))) * \
                 inv.reshape(bshape(v))
-            return _affine(out, wb, bshape(v))
+            return _affine(out, wb, bshape(v)).as_subclass(Tensor)
     else:
         args = [x]
 
-        def f(v, *wb):
+        def f(*ts):
+            v, *wb = plain_views(ts)
             m, var_ = _moments(v, stats_axes(v), False)
             out = (v - m.reshape(bshape(v))) * torch.rsqrt(
                 var_ + epsilon).reshape(bshape(v))
-            return _affine(out, wb, bshape(v))
+            return _affine(out, wb, bshape(v)).as_subclass(Tensor)
 
     if weight is not None:
         args.append(weight)
@@ -78,12 +83,14 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     out = apply(f, *args, op_name="batch_norm")
 
     if training and running_mean is not None:
+        # outside the graph and the op library, as the JAX function moves
+        # them with raw array math
         with torch.no_grad():
-            m, var_ = _moments(x.detach(), stats_axes(x), False)
-            running_mean.copy_(momentum * running_mean
-                               + (1 - momentum) * m.to(running_mean.dtype))
-            running_var.copy_(momentum * running_var
-                              + (1 - momentum) * var_.to(running_var.dtype))
+            v = x.detach().as_subclass(torch.Tensor)
+            m, var_ = _moments(v, stats_axes(v), False)
+            for run, batch in ((running_mean, m), (running_var, var_)):
+                r = run.as_subclass(torch.Tensor)
+                r.copy_(momentum * r + (1 - momentum) * batch.to(r.dtype))
     return out
 
 

@@ -78,7 +78,9 @@ def test_the_walk_sees_the_ported_packages():
                  "paddle_tpu.nn.layer", "paddle_tpu.jit", "paddle_tpu.models",
                  "paddle_tpu.utils", "paddle_tpu.distributed",
                  "paddle_tpu.core", "paddle_tpu.device",
-                 "paddle_tpu.profiler", "paddle_tpu.ops"):
+                 "paddle_tpu.profiler", "paddle_tpu.ops",
+                 "paddle_tpu.nn.utils", "paddle_tpu.nn.quant",
+                 "paddle_tpu.vision", "paddle_tpu.vision.models"):
         assert must in PAIRS, must
 
 

@@ -97,39 +97,73 @@ def _jax_fn(fn, arrays, name, values):
 
 def _traced_refs(names, run):
     """The JAX side of ``names`` traced under one ``jax.jit`` a chunk of
-    16 (one XLA compile a chunk instead of a few a case); a chunk whose
-    trace fails is left to the tests to run eagerly."""
-    import jax
-    refs = {}
-    for i in range(0, len(names), 16):
-        chunk = names[i:i + 16]
+    16 (one XLA compile a chunk instead of a few a case); a chunk that
+    fails is split in halves that are traced again, down to the cases
+    that cannot be traced, which the tests run eagerly. A traced chunk
+    compiles and runs on a worker thread while the next one is traced
+    (XLA compiles without holding the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def trace(chunk):
+        arrs = {n: run.arrays(n) for n in chunk}
         try:
-            got = jax.jit(lambda arrs, chunk=chunk: {
-                n: run(n, arrs[n]) for n in chunk})(
-                {n: run.arrays(n) for n in chunk})
-        except Exception:  # noqa: BLE001 — this chunk runs eagerly
-            continue
-        refs.update({n: jax.tree_util.tree_map(np.asarray, got[n])
-                     for n in chunk})
+            lowered = jax.jit(lambda a: {n: run(n, a[n])
+                                         for n in chunk}).lower(arrs)
+        except Exception:  # noqa: BLE001 — split, or run eagerly
+            return split(chunk)
+        return [(chunk, pool.submit(lambda: lowered.compile()(arrs)))]
+
+    def split(chunk):
+        half = len(chunk) // 2
+        return trace(chunk[:half]) + trace(chunk[half:]) if half else []
+
+    refs = {}
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [job for i in range(0, len(names), 16)
+                for job in trace(names[i:i + 16])]
+        while jobs:
+            chunk, fut = jobs.pop(0)
+            try:
+                got = fut.result()
+            except Exception:  # noqa: BLE001 — split, or run eagerly
+                jobs += split(chunk)
+                continue
+            refs.update({n: jax.tree_util.tree_map(np.asarray, got[n])
+                         for n in chunk})
     return refs
 
 
 class _FRun:
+    def __init__(self, table=FCASES):
+        self.table = table
+
     def arrays(self, name):
-        return FCASES[name][1](_rng(name))
+        return self.table[name][1](_rng(name))
 
     def __call__(self, name, values):
-        return _jax_fn(FCASES[name][0], self.arrays(name), name, values)
+        return _jax_fn(self.table[name][0], self.arrays(name), name, values)
+
+
+def functional_refs(table):
+    """The JAX side of every case of ``table``, traced a chunk at a time
+    (in halves where a chunk fails to trace)."""
+    return _traced_refs(sorted(table), _FRun(table))
 
 
 @pytest.fixture(scope="module")
 def jax_frefs():
-    return _traced_refs(sorted(FCASES), _FRun())
+    return functional_refs(FCASES)
 
 
 @pytest.mark.parametrize("name", sorted(FCASES))
 def test_functional_against_jax(name, jax_frefs):
-    fn, build, (rtol, atol) = FCASES[name]
+    check_functional(name, FCASES, jax_frefs)
+
+
+def check_functional(name, table, jax_frefs):
+    """One case of ``table``: the port's outputs and input grads against
+    the JAX side's (``jax_frefs``, else run eagerly here)."""
+    fn, build, (rtol, atol) = table[name]
     arrays = build(_rng(name))
     if name in jax_frefs:
         jo, jg = jax_frefs[name]
@@ -169,30 +203,44 @@ class _LRun:
     """The JAX layers of every case (built once, here, so the state the
     port takes is the one the refs were computed with)."""
 
-    def __init__(self):
-        self.layers = {n: LCASES[n][0](J) for n in sorted(LCASES)}
+    def __init__(self, table=LCASES):
+        self.table = table
+        self.layers = {n: table[n][0](J) for n in sorted(table)}
 
     def arrays(self, name):
-        return LCASES[name][1](_rng(name))
+        return self.table[name][1](_rng(name))
 
     def __call__(self, name, values):
         return _layer_run(J, self.layers[name], self.arrays(name),
-                          LCASES[name][2], name, values)
+                          self.table[name][2], name, values)
+
+
+def layer_refs(table):
+    """(JAX states, traced refs, runner) of every layer case of
+    ``table``."""
+    run = _LRun(table)
+    states = {n: {k: np.asarray(v.numpy()).copy() for k, v in
+                  layer.state_dict().items()}
+              for n, layer in run.layers.items()}
+    return states, _traced_refs(sorted(table), run), run
 
 
 @pytest.fixture(scope="module")
 def jax_lrefs():
-    run = _LRun()
-    states = {n: {k: np.asarray(v.numpy()).copy() for k, v in
-                  layer.state_dict().items()}
-              for n, layer in run.layers.items()}
-    return states, _traced_refs(sorted(LCASES), run), run
+    return layer_refs(LCASES)
 
 
 @pytest.mark.parametrize("name", sorted(LCASES))
 def test_layer_against_jax(name, jax_lrefs):
+    check_layer(name, LCASES, jax_lrefs)
+
+
+def check_layer(name, table, jax_lrefs, tol=None):
+    """One layer case of ``table``: built in the port from the JAX
+    layer's state, its output, parameter grads and input grads against
+    the JAX side's."""
     states, refs, run = jax_lrefs
-    build, inputs, call = LCASES[name]
+    build, inputs, call = table[name]
     pl = build(P)
     state = states[name]
     assert sorted(state) == sorted(pl.state_dict()), name
@@ -204,7 +252,7 @@ def test_layer_against_jax(name, jax_lrefs):
         jo, jg, jx = jax.tree_util.tree_map(np.asarray, run(
             name, [a.copy() for a in arrays]))
     po, pg, px = _layer_run(P, pl, arrays, call, name)
-    tol = LAYER_TOL.get(name, (RTOL, ATOL))
+    tol = tol or LAYER_TOL.get(name, (RTOL, ATOL))
     _close(po, jo, name, *tol)
     assert sorted(pg) == sorted(jg), name
     for k in jg:

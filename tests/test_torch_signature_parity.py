@@ -187,7 +187,22 @@ def test_enough_shared_names_are_checked():
                  "nn.layer.layers.Layer.to", "nn.layer.layers.Layer.train",
                  "nn.layer.layers.Layer.parameters",
                  "utils.flags.set_flags", "framework_io.save",
-                 "framework_compat.ParamAttr"):
+                 "framework_compat.ParamAttr",
+                 "nn.functional.conv.conv2d",
+                 "nn.functional.conv.conv3d_transpose",
+                 "nn.functional.pooling.max_pool2d",
+                 "nn.functional.pooling.adaptive_avg_pool2d",
+                 "nn.functional.extras.rnnt_loss",
+                 "nn.functional.extras.grid_sample",
+                 "nn.layer.conv.Conv2DTranspose", "nn.layer.pooling.MaxPool2D",
+                 "nn.layer.rnn.LSTM", "nn.layer.rnn.GRUCell",
+                 "nn.layer.extras.BeamSearchDecoder.step",
+                 "nn.layer.extras.dynamic_decode",
+                 "nn.utils.spectral_norm", "nn.quant.weight_quantize",
+                 "vision.models.resnet.ResNet", "vision.models.resnet.resnet50",
+                 "models.bert.BertForPretraining",
+                 "models.bert.bert_pretraining_loss", "models.ocr.DBNet",
+                 "models.ocr.ctc_rec_loss"):
         assert must in keys, must
 
 

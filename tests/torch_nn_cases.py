@@ -285,6 +285,371 @@ def _lcases():
 
 
 LCASES = _lcases()
+
+
+# ---- conv, pooling, rnn and the rest of nn (the convolution, pooling,
+# recurrent and extras slice): tables of their own, so each test file
+# holds its own slice against the JAX package; sweep_nn runs them all ----
+
+def _conv_pool_fcases():
+    c = {}
+
+    def add(name, fn, build, tol=(RTOL, ATOL)):
+        c[name] = (fn, build, tol)
+
+    img = (lambda r: [_f32(r, 2, 3, 7, 8), _f32(r, 4, 3, 3, 3), _f32(r, 4)])
+    add("conv2d", lambda p, F, x, w, b: F.conv2d(x, w, b, 1, 1), img)
+    add("conv2d_same_stride2", lambda p, F, x, w, b: F.conv2d(
+        x, w, b, 2, "SAME"), img)
+    add("conv2d_valid", lambda p, F, x, w, b: F.conv2d(x, w, b, 1, "VALID"),
+        img)
+    add("conv2d_asymmetric_pad", lambda p, F, x, w, b: F.conv2d(
+        x, w, b, 1, [1, 0, 2, 1]), img)
+    add("conv2d_dilation", lambda p, F, x, w, b: F.conv2d(
+        x, w, b, 1, 2, dilation=2), img)
+    add("conv2d_nhwc", lambda p, F, x, w, b: F.conv2d(
+        x, w, b, 1, 1, data_format="NHWC"),
+        lambda r: [_f32(r, 2, 7, 8, 3), _f32(r, 4, 3, 3, 3), _f32(r, 4)])
+    add("conv2d_groups", lambda p, F, x, w: F.conv2d(x, w, None, 1, 1,
+                                                     groups=2),
+        lambda r: [_f32(r, 2, 4, 5, 5), _f32(r, 6, 2, 3, 3)])
+    add("conv1d_same_stride2", lambda p, F, x, w: F.conv1d(
+        x, w, None, 2, "SAME"), lambda r: [_f32(r, 2, 3, 9), _f32(r, 4, 3, 3)])
+    add("conv1d_nlc", lambda p, F, x, w, b: F.conv1d(
+        x, w, b, 1, [0, 2], data_format="NLC"),
+        lambda r: [_f32(r, 2, 9, 3), _f32(r, 4, 3, 3), _f32(r, 4)])
+    add("conv3d", lambda p, F, x, w, b: F.conv3d(x, w, b, 1, 1),
+        lambda r: [_f32(r, 1, 2, 4, 4, 4), _f32(r, 3, 2, 3, 3, 3),
+                   _f32(r, 3)])
+    timg = (lambda r: [_f32(r, 2, 3, 4, 5), _f32(r, 3, 4, 3, 3),
+                       _f32(r, 4)])
+    add("conv2d_transpose", lambda p, F, x, w, b: F.conv2d_transpose(
+        x, w, b, 2, 1), timg)
+    add("conv2d_transpose_output_size", lambda p, F, x, w, b:
+        F.conv2d_transpose(x, w, b, 2, 1, output_size=[8, 10]), timg)
+    add("conv2d_transpose_asymmetric_pad", lambda p, F, x, w, b:
+        F.conv2d_transpose(x, w, b, 2, [1, 0, 0, 2]), timg)
+    add("conv2d_transpose_same", lambda p, F, x, w, b: F.conv2d_transpose(
+        x, w, b, 2, "SAME"), timg)
+    add("conv2d_transpose_output_padding", lambda p, F, x, w, b:
+        F.conv2d_transpose(x, w, b, 2, 1, output_padding=1), timg)
+    add("conv2d_transpose_nhwc", lambda p, F, x, w, b: F.conv2d_transpose(
+        x, w, b, 2, 1, data_format="NHWC"),
+        lambda r: [_f32(r, 2, 4, 5, 3), _f32(r, 3, 4, 3, 3), _f32(r, 4)])
+    add("conv1d_transpose_dilation", lambda p, F, x, w: F.conv1d_transpose(
+        x, w, None, 3, 0, dilation=2),
+        lambda r: [_f32(r, 2, 3, 5), _f32(r, 3, 2, 3)])
+    add("conv3d_transpose", lambda p, F, x, w: F.conv3d_transpose(
+        x, w, None, 2, 1), lambda r: [_f32(r, 1, 2, 3, 3, 3),
+                                      _f32(r, 2, 2, 3, 3, 3)])
+    # pools; L=5, k=2, s=2, p=1 with ceil_mode: a 4th window wholly in the
+    # padding (-inf for max, nan for exclusive avg, in both packages)
+    row = (lambda r: [_f32(r, 1, 2, 5)])
+    add("max_pool1d_ceil_all_pad_window", lambda p, F, x: F.max_pool1d(
+        x, 2, 2, 1, ceil_mode=True), row)
+    add("avg_pool1d_ceil_all_pad_window", lambda p, F, x: F.avg_pool1d(
+        x, 2, 2, 1, ceil_mode=True), row)
+    add("avg_pool1d_ceil_inclusive", lambda p, F, x: F.avg_pool1d(
+        x, 2, 2, 1, exclusive=False, ceil_mode=True), row)
+    add("max_pool1d_mask_ceil", lambda p, F, x: F.max_pool1d(
+        x, 2, 2, 1, return_mask=True, ceil_mode=True), row)
+    pimg = (lambda r: [_f32(r, 2, 3, 7, 8)])
+    add("max_pool2d", lambda p, F, x: F.max_pool2d(x, 3, 2, 1), pimg)
+    add("max_pool2d_ceil", lambda p, F, x: F.max_pool2d(
+        x, 3, 2, 1, ceil_mode=True), pimg)
+    add("max_pool2d_same", lambda p, F, x: F.max_pool2d(x, 3, 2, "SAME"),
+        pimg)
+    add("max_pool2d_nhwc", lambda p, F, x: F.max_pool2d(
+        x, 2, 2, [0, 1, 1, 0], data_format="NHWC"), pimg)
+    add("max_pool2d_mask", lambda p, F, x: F.max_pool2d(
+        x, 2, 2, 1, return_mask=True), pimg)
+    add("max_pool2d_mask_ceil", lambda p, F, x: F.max_pool2d(
+        x, 3, 2, 1, return_mask=True, ceil_mode=True), pimg)
+    add("avg_pool2d", lambda p, F, x: F.avg_pool2d(x, 3, 2, 1), pimg)
+    add("avg_pool2d_inclusive", lambda p, F, x: F.avg_pool2d(
+        x, 3, 2, 1, exclusive=False), pimg)
+    add("avg_pool2d_ceil", lambda p, F, x: F.avg_pool2d(
+        x, 2, 2, [0, 1, 1, 0], ceil_mode=True), pimg)
+    add("avg_pool2d_nhwc_divisor", lambda p, F, x: F.avg_pool2d(
+        x, 2, 2, 1, divisor_override=3, data_format="NHWC"), pimg)
+    vol = (lambda r: [_f32(r, 1, 2, 4, 5, 6)])
+    add("max_pool3d_mask", lambda p, F, x: F.max_pool3d(
+        x, 2, 2, return_mask=True), vol)
+    add("max_pool3d", lambda p, F, x: F.max_pool3d(x, 3, 2, 1), vol)
+    add("avg_pool3d", lambda p, F, x: F.avg_pool3d(x, 2, 1, 1), vol)
+    add("adaptive_avg_pool1d", lambda p, F, x: F.adaptive_avg_pool1d(x, 4),
+        lambda r: [_f32(r, 2, 3, 9)])
+    add("adaptive_max_pool1d", lambda p, F, x: F.adaptive_max_pool1d(x, 4),
+        lambda r: [_f32(r, 2, 3, 9)])
+    add("adaptive_avg_pool2d", lambda p, F, x: F.adaptive_avg_pool2d(
+        x, [3, 5]), pimg)
+    add("adaptive_avg_pool2d_1", lambda p, F, x: F.adaptive_avg_pool2d(
+        x, 1), pimg)
+    add("adaptive_max_pool2d", lambda p, F, x: F.adaptive_max_pool2d(
+        x, [3, 5]), pimg)
+    add("adaptive_avg_pool3d", lambda p, F, x: F.adaptive_avg_pool3d(
+        x, [2, 3, 2]), vol)
+    add("adaptive_max_pool3d_nhwc", lambda p, F, x: F.adaptive_max_pool3d(
+        x, [2, 3, 2], data_format="NDHWC"), vol)
+    return c
+
+
+def _unpool_idx(r, n, c, hw, k):
+    """Valid within-plane indices of a k x k, stride k pool over hw x hw."""
+    o = hw // k
+    di = r.integers(0, k, (n, c, o, o))
+    dj = r.integers(0, k, (n, c, o, o))
+    ii = np.arange(o)[:, None] * k + di
+    jj = np.arange(o)[None, :] * k + dj
+    return (ii * hw + jj).astype(np.int32)
+
+
+def _extras_fcases():
+    c = {}
+
+    def add(name, fn, build, tol=(RTOL, ATOL)):
+        c[name] = (fn, build, tol)
+
+    x34 = (lambda r: [_f32(r, 3, 4, lo=-2, hi=2)])
+    two = (lambda r: [_f32(r, 3, 4), _f32(r, 3, 4)])
+    add("pairwise_distance", lambda p, F, a, b: F.pairwise_distance(a, b),
+        two)
+    add("pairwise_distance_p1_keepdim", lambda p, F, a, b:
+        F.pairwise_distance(a, b, 1.0, keepdim=True), two)
+    for n, args in (("elu_", (0.5,)), ("hardtanh_", (-0.5, 0.5)),
+                    ("leaky_relu_", (0.1,)), ("softmax_", (0,)),
+                    ("tanh_", ()), ("thresholded_relu_", (0.3,))):
+        # the target is a non-leaf (a leaf that needs a grad is refused)
+        add(n, lambda p, F, x, n=n, args=args: getattr(F, n)(
+            p.multiply(x, p.to_tensor(np.float32(1.0))), *args), x34)
+    add("diag_embed", lambda p, F, x: F.diag_embed(x, 1), x34)
+    add("sequence_mask", lambda p, F, n: F.sequence_mask(n, 6),
+        lambda r: [np.array([0, 3, 6, 2], np.int64)])
+    add("sequence_mask_maxlen_none", lambda p, F, n: F.sequence_mask(
+        n, dtype="float32"), lambda r: [np.array([1, 3, 2], np.int64)])
+    add("one_hot", lambda p, F, i: F.one_hot(i, 5),
+        lambda r: [np.array([[0, 4, 7], [2, -1, 3]], np.int64)])
+    add("max_unpool1d_of_max_pool1d_mask", lambda p, F, x: F.max_unpool1d(
+        *F.max_pool1d(x, 2, 2, return_mask=True), 2, 2),
+        lambda r: [_f32(r, 2, 3, 8)])
+    add("max_unpool2d_of_max_pool2d_mask", lambda p, F, x: F.max_unpool2d(
+        *F.max_pool2d(x, 2, 2, return_mask=True), 2, 2),
+        lambda r: [_f32(r, 2, 3, 6, 8)])
+    add("max_unpool2d_output_size", lambda p, F, x, i: F.max_unpool2d(
+        x, i, 2, output_size=[5, 4]),
+        lambda r: [_f32(r, 1, 2, 2, 2), _unpool_idx(r, 1, 2, 4, 2)])
+    add("max_unpool3d_of_max_pool3d_mask", lambda p, F, x: F.max_unpool3d(
+        *F.max_pool3d(x, 2, 2, return_mask=True), 2, 2),
+        lambda r: [_f32(r, 1, 2, 4, 4, 6)])
+    add("dice_loss", lambda p, F, x, y: F.dice_loss(F.softmax(x), y),
+        lambda r: [_f32(r, 3, 4, 5), _ids(r, 3, 4, 1)])
+    pos = (lambda r: [_f32(r, 3, 4), _f32(r, 3, 4, lo=0.5, hi=3)])
+    add("poisson_nll_loss", lambda p, F, a, b: F.poisson_nll_loss(a, b), pos)
+    add("poisson_nll_loss_full", lambda p, F, a, b: F.poisson_nll_loss(
+        F.softplus(a), b, log_input=False, full=True, reduction="sum"), pos)
+    add("npair_loss", lambda p, F, a, b, y: F.npair_loss(a, b, y),
+        lambda r: [_f32(r, 4, 3), _f32(r, 4, 3),
+                   np.array([0, 1, 0, 2], np.int64)])
+    sign = (lambda r: np.where(_f32(r, 3, 4) > 0, 1.0, -1.0).astype("f4"))
+    add("soft_margin_loss", lambda p, F, a, y: F.soft_margin_loss(a, y),
+        lambda r: [_f32(r, 3, 4), sign(r)])
+    add("multi_label_soft_margin_loss", lambda p, F, a, y, w:
+        F.multi_label_soft_margin_loss(a, y, w, "sum"),
+        lambda r: [_f32(r, 3, 4), (_f32(r, 3, 4) > 0).astype("f4"),
+                   _f32(r, 4, lo=0.5, hi=2)])
+    add("multi_margin_loss", lambda p, F, a, y, w: F.multi_margin_loss(
+        a, y, 2, 0.5, w), lambda r: [_f32(r, 4, 5), _ids(r, 4),
+                                     _f32(r, 5, lo=0.5, hi=2)])
+    trip = (lambda r: [_f32(r, 5, 4), _f32(r, 5, 4), _f32(r, 5, 4)])
+    add("triplet_margin_with_distance_loss", lambda p, F, a, b, c:
+        F.triplet_margin_with_distance_loss(a, b, c, swap=True), trip)
+    add("triplet_margin_with_distance_loss_l1", lambda p, F, a, b, c:
+        F.triplet_margin_with_distance_loss(
+            a, b, c, lambda u, v: F.pairwise_distance(u, v, 1.0),
+            margin=0.5, reduction="none"), trip)
+    add("gaussian_nll_loss", lambda p, F, a, b, v: F.gaussian_nll_loss(
+        a, b, v, full=True), lambda r: [_f32(r, 3, 4), _f32(r, 3, 4),
+                                        _f32(r, 3, 4, lo=0.1, hi=2)])
+    add("hsigmoid_loss", lambda p, F, x, y, w, b: F.hsigmoid_loss(
+        x, y, 6, w, b), lambda r: [_f32(r, 4, 3), _ids(r, 4, hi=6),
+                                   _f32(r, 5, 3), _f32(r, 5)])
+    add("hsigmoid_loss_custom_tree", lambda p, F, x, y, w, t, c:
+        F.hsigmoid_loss(x, y, 4, w, None, t, c),
+        lambda r: [_f32(r, 3, 3), np.array([0, 2, 1], np.int64),
+                   _f32(r, 3, 3),
+                   np.array([[0, 1, -1], [0, 2, -1], [0, 1, 2]], np.int64),
+                   np.array([[1, 0, 0], [0, 1, 0], [1, 1, 0]], np.int64)])
+    add("margin_cross_entropy", lambda p, F, x, y: F.margin_cross_entropy(
+        x, y, return_softmax=True),
+        lambda r: [_f32(r, 4, 6, lo=-0.9, hi=0.9), _ids(r, 4, hi=6)],
+        (1e-4, 1e-5))
+    add("rnnt_loss", lambda p, F, a, y, tl, ul: F.rnnt_loss(a, y, tl, ul),
+        lambda r: [_f32(r, 2, 4, 3, 5, lo=-2, hi=2),
+                   np.array([[1, 2], [3, 0]], np.int32),
+                   np.array([4, 3], np.int32), np.array([2, 1], np.int32)],
+        (1e-4, 1e-5))
+    add("affine_grid", lambda p, F, t: F.affine_grid(t, [2, 3, 4, 5]),
+        lambda r: [_f32(r, 2, 2, 3)])
+    add("affine_grid_half_pixel", lambda p, F, t: F.affine_grid(
+        t, [2, 3, 4, 5], align_corners=False), lambda r: [_f32(r, 2, 2, 3)])
+    samp = (lambda r: [_f32(r, 2, 3, 5, 6), _f32(r, 2, 4, 3, 2, lo=-1.2,
+                                                   hi=1.2)])
+    add("grid_sample", lambda p, F, x, g: F.grid_sample(x, g), samp)
+    add("grid_sample_border_half_pixel", lambda p, F, x, g: F.grid_sample(
+        x, g, padding_mode="border", align_corners=False), samp)
+    add("grid_sample_nearest", lambda p, F, x, g: F.grid_sample(
+        x, g, mode="nearest"), samp)
+    add("temporal_shift", lambda p, F, x: F.temporal_shift(x, 3, 0.25),
+        lambda r: [_f32(r, 6, 8, 2, 2)])
+    add("gather_tree", lambda p, F, i, q: F.gather_tree(i, q),
+        lambda r: [_ids(r, 4, 2, 3, hi=9), _ids(r, 4, 2, 3, hi=3)])
+    add("sparse_attention", lambda p, F, q, k, v, o, c: F.sparse_attention(
+        q, k, v, o, c), lambda r: [
+            _f32(r, 1, 2, 4, 3), _f32(r, 1, 2, 4, 3), _f32(r, 1, 2, 4, 3),
+            np.array([[[0, 2, 3, 5, 6]] * 2], np.int32),
+            np.array([[[0, 1, 1, 0, 2, 3]] * 2], np.int32)])
+    return c
+
+
+def _conv_pool_lcases():
+    def nn(pkg):
+        return pkg.nn
+
+    one = (lambda layer, *ts: layer(*ts))
+    img = (lambda r: [_f32(r, 2, 3, 6, 6)])
+    seq = (lambda r: [_f32(r, 2, 3, 9)])
+    vol = (lambda r: [_f32(r, 1, 2, 4, 4, 4)])
+    return {
+        "Conv1D": (lambda p: nn(p).Conv1D(3, 4, 3, padding="SAME"), seq,
+                   one),
+        "Conv2D": (lambda p: nn(p).Conv2D(3, 4, 3, 2, 1), img, one),
+        "Conv2D_no_bias_groups": (lambda p: nn(p).Conv2D(
+            4, 6, 3, padding=1, groups=2, bias_attr=False),
+            lambda r: [_f32(r, 2, 4, 5, 5)], one),
+        "Conv3D": (lambda p: nn(p).Conv3D(2, 3, 3, padding=1), vol, one),
+        "Conv1DTranspose": (lambda p: nn(p).Conv1DTranspose(3, 2, 3, 2),
+                            seq, one),
+        "Conv2DTranspose": (lambda p: nn(p).Conv2DTranspose(3, 2, 4, 4),
+                            img, one),
+        "Conv2DTranspose_output_size": (
+            lambda p: nn(p).Conv2DTranspose(3, 2, 3, 2, 1), img,
+            lambda layer, x: layer(x, output_size=[12, 12])),
+        "Conv3DTranspose": (lambda p: nn(p).Conv3DTranspose(2, 3, 2, 2),
+                            vol, one),
+        "AvgPool1D": (lambda p: nn(p).AvgPool1D(2, 2, 1, ceil_mode=True),
+                      seq, one),
+        "AvgPool2D": (lambda p: nn(p).AvgPool2D(3, 2, 1, exclusive=False),
+                      img, one),
+        "AvgPool3D": (lambda p: nn(p).AvgPool3D(2), vol, one),
+        "MaxPool1D": (lambda p: nn(p).MaxPool1D(3, 2, 1), seq, one),
+        "MaxPool2D": (lambda p: nn(p).MaxPool2D(3, 2, 1), img, one),
+        "MaxPool3D": (lambda p: nn(p).MaxPool3D(2, 2, 1, ceil_mode=True),
+                      vol, one),
+        "AdaptiveAvgPool1D": (lambda p: nn(p).AdaptiveAvgPool1D(4), seq,
+                              one),
+        "AdaptiveAvgPool2D": (lambda p: nn(p).AdaptiveAvgPool2D((1, 1)),
+                              img, one),
+        "AdaptiveAvgPool3D": (lambda p: nn(p).AdaptiveAvgPool3D(3), vol,
+                              one),
+        "AdaptiveMaxPool1D": (lambda p: nn(p).AdaptiveMaxPool1D(5), seq,
+                              one),
+        "AdaptiveMaxPool2D": (lambda p: nn(p).AdaptiveMaxPool2D([4, 3]),
+                              img, one),
+        "AdaptiveMaxPool3D": (lambda p: nn(p).AdaptiveMaxPool3D(2), vol,
+                              one),
+    }
+
+
+def _rnn_lcases():
+    """The recurrent layers (outputs; tests/test_torch_rnn.py holds the
+    final states, directions, depths and time_major)."""
+    def nn(pkg):
+        return pkg.nn
+
+    seq = (lambda r: [_f32(r, 2, 4, 5)])
+    out = (lambda layer, x: layer(x)[0])
+    cell_in = (lambda r: [_f32(r, 3, 5)])
+    return {
+        "LSTM": (lambda p: nn(p).LSTM(5, 6, direction="bidirect"), seq,
+                 out),
+        "GRU": (lambda p: nn(p).GRU(5, 6, num_layers=2), seq, out),
+        "SimpleRNN": (lambda p: nn(p).SimpleRNN(5, 6, activation="relu"),
+                      seq, out),
+        "LSTMCell": (lambda p: nn(p).LSTMCell(5, 6), cell_in,
+                     lambda layer, x: layer(x)[1][1]),
+        "GRUCell": (lambda p: nn(p).GRUCell(5, 6), cell_in, out),
+    }
+
+
+def _extras_lcases():
+    def nn(pkg):
+        return pkg.nn
+
+    one = (lambda layer, *ts: layer(*ts))
+    two = (lambda r: [_f32(r, 3, 4), _f32(r, 3, 4)])
+    seq = (lambda r: [_f32(r, 2, 4, 5)])
+    return {
+        "PairwiseDistance": (lambda p: nn(p).PairwiseDistance(3.0), two,
+                             one),
+        "Softmax2D": (lambda p: nn(p).Softmax2D(),
+                      lambda r: [_f32(r, 2, 3, 2, 2)], one),
+        "Unflatten": (lambda p: nn(p).Unflatten(1, [2, 2]),
+                      lambda r: [_f32(r, 3, 4)], one),
+        "MaxUnPool1D": (lambda p: nn(p).MaxUnPool1D(2),
+                        lambda r: [_f32(r, 1, 2, 3),
+                                   (np.arange(3) * 2 + r.integers(0, 2, (
+                                       1, 2, 3))).astype(np.int32)], one),
+        "MaxUnPool2D": (lambda p: nn(p).MaxUnPool2D(2, 2),
+                        lambda r: [_f32(r, 1, 2, 2, 2),
+                                   _unpool_idx(r, 1, 2, 4, 2)], one),
+        "MaxUnPool3D": (lambda p: nn(p).MaxUnPool3D(2),
+                        lambda r: [_f32(r, 1, 1, 1, 1, 1),
+                                   np.array([[[[[5]]]]], np.int32)], one),
+        "PoissonNLLLoss": (lambda p: nn(p).PoissonNLLLoss(),
+                           lambda r: [_f32(r, 3, 4), _f32(r, 3, 4, lo=0,
+                                                          hi=3)], one),
+        "SoftMarginLoss": (lambda p: nn(p).SoftMarginLoss("sum"), two, one),
+        "MultiLabelSoftMarginLoss": (
+            lambda p: nn(p).MultiLabelSoftMarginLoss(),
+            lambda r: [_f32(r, 3, 4), (_f32(r, 3, 4) > 0).astype("f4")],
+            one),
+        "MultiMarginLoss": (lambda p: nn(p).MultiMarginLoss(margin=0.7),
+                            lambda r: [_f32(r, 4, 5), _ids(r, 4)], one),
+        "TripletMarginWithDistanceLoss": (
+            lambda p: nn(p).TripletMarginWithDistanceLoss(margin=0.3),
+            lambda r: [_f32(r, 5, 4), _f32(r, 5, 4), _f32(r, 5, 4)], one),
+        "GaussianNLLLoss": (lambda p: nn(p).GaussianNLLLoss(),
+                            lambda r: [_f32(r, 3, 4), _f32(r, 3, 4),
+                                       _f32(r, 3, 4, lo=0.1, hi=2)], one),
+        "HSigmoidLoss": (lambda p: nn(p).HSigmoidLoss(3, 7),
+                         lambda r: [_f32(r, 4, 3), _ids(r, 4, hi=7)], one),
+        "RNNTLoss": (lambda p: nn(p).RNNTLoss(fastemit_lambda=0.0),
+                     lambda r: [_f32(r, 2, 3, 3, 4),
+                                np.array([[1, 2], [3, 1]], np.int32),
+                                np.array([3, 2], np.int32),
+                                np.array([2, 1], np.int32)], one),
+        "SimpleRNNCell": (lambda p: nn(p).SimpleRNNCell(5, 6),
+                          lambda r: [_f32(r, 3, 5)],
+                          lambda layer, x: layer(x)[0]),
+        "RNN": (lambda p: nn(p).RNN(nn(p).SimpleRNNCell(5, 6)), seq,
+                lambda layer, x: layer(x)[0]),
+        "RNN_reverse_lstm_cell": (
+            lambda p: nn(p).RNN(nn(p).LSTMCell(5, 6), is_reverse=True),
+            seq, lambda layer, x: layer(x)[0]),
+        "BiRNN": (lambda p: nn(p).BiRNN(nn(p).GRUCell(5, 3),
+                                        nn(p).GRUCell(5, 3)), seq,
+                  lambda layer, x: layer(x)[0]),
+    }
+
+
+CONV_POOL_FCASES = _conv_pool_fcases()
+EXTRAS_FCASES = _extras_fcases()
+CONV_POOL_LCASES = _conv_pool_lcases()
+RNN_LCASES = _rnn_lcases()
+EXTRAS_LCASES = _extras_lcases()
+# every table, for sweep_nn on a device
+ALL_FCASES = {**FCASES, **CONV_POOL_FCASES, **EXTRAS_FCASES}
+ALL_LCASES = {**LCASES, **CONV_POOL_LCASES, **RNN_LCASES, **EXTRAS_LCASES}
 # two stacked layers: the traced JAX reference's fused sums round in
 # another order (its eager tape agrees within RTOL, ATOL)
 LAYER_TOL = {"Transformer": (1e-4, 1e-5), "TransformerEncoder": (1e-4, 1e-5)}
@@ -323,7 +688,7 @@ def _same(got, want, label, device):
 
 
 def _fn_run(P, name, device):
-    fn, build, _ = FCASES[name]
+    fn, build, _ = ALL_FCASES[name]
     arrays = build(_rng(name))
 
     def run():
@@ -341,7 +706,7 @@ def _fn_run(P, name, device):
 
 
 def _layer_run(P, name, device, state):
-    build, inputs, call = LCASES[name]
+    build, inputs, call = ALL_LCASES[name]
     arrays = inputs(_rng(name))
 
     def run():
@@ -395,7 +760,7 @@ def sweep_nn(P, device):
     statistics after 3 training steps on ``device`` against the CPU's.
     Returns the number of names checked."""
     n = 0
-    for name in sorted(FCASES):
+    for name in sorted(ALL_FCASES):
         (got, ggot), (want, gwant) = (_fn_run(P, name, device),
                                       _fn_run(P, name, "cpu"))
         assert len(got) == len(want), name
@@ -405,9 +770,9 @@ def sweep_nn(P, device):
             if w is not None:
                 _same(g, w, f"{name} grad[{k}]", device)
         n += 1
-    for name in sorted(LCASES):
+    for name in sorted(ALL_LCASES):
         state = {k: v.detach().cpu().numpy() for k, v in
-                 _on(P, "cpu", lambda: LCASES[name][0](P)).state_dict()
+                 _on(P, "cpu", lambda: ALL_LCASES[name][0](P)).state_dict()
                  .items()}
         (got, ggot), (want, gwant) = (_layer_run(P, name, device, state),
                                       _layer_run(P, name, "cpu", state))
@@ -449,4 +814,71 @@ def sweep_nn(P, device):
             _np(getattr(bn[device], buf)), _np(getattr(bn["cpu"], buf)),
             rtol=SWEEP_TOL[0], atol=SWEEP_TOL[1],
             err_msg=f"BatchNorm2D {buf} after 3 steps")
-    return n
+    return n + _sweep_rest(P, device)
+
+
+def _rest_on(P, dev):
+    """The names outside the tables, run on ``dev`` from the same seeded
+    weights: beam search, the weight / spectral norm hooks, the grad
+    clips and the quantised linears."""
+    r = _rng("rest")
+    cell_state = {"weight_ih": _f32(r, 12, 3), "weight_hh": _f32(r, 12, 4),
+                  "bias_ih": _f32(r, 12), "bias_hh": _f32(r, 12)}
+    emb, proj = _f32(r, 6, 3), _f32(r, 4, 6, lo=-3, hi=3)
+    init, x = _f32(r, 2, 4), _f32(r, 5, 4)
+    w, g = _f32(r, 8, 6, lo=-2, hi=2), _f32(r, 4, 3, lo=-3, hi=3)
+    xq = _f32(r, 3, 8, lo=-8, hi=8)
+
+    def run():
+        F, U, Q = P.nn.functional, P.nn.utils, P.nn.quant
+        cell = P.nn.GRUCell(3, 4)
+        cell.set_state_dict(cell_state)
+        e, pr = P.to_tensor(emb), P.to_tensor(proj)
+        dec = P.nn.BeamSearchDecoder(
+            cell, 0, 5, 3, embedding_fn=lambda ids: F.embedding(ids, e),
+            output_fn=lambda h: P.matmul(h, pr))
+        ids, scores = P.nn.dynamic_decode(dec, P.to_tensor(init),
+                                          max_step_num=6)
+        lin = P.nn.Linear(4, 3)
+        lin.set_state_dict({"weight": w[:4, :3], "bias": w[0, :3]})
+        U.weight_norm(lin)
+        wn = lin(P.to_tensor(x))
+        U.remove_weight_norm(lin)
+        U.spectral_norm(lin, n_power_iterations=2)
+        sn = lin(P.to_tensor(x))
+        p = P.create_parameter([4, 3], "float32")
+        p.set_value(w[:4, 3:])
+        p.grad = P.to_tensor(g.copy())
+        total = U.clip_grad_norm_([p], 1.0)
+        vec = U.parameters_to_vector([p])
+        q, sc = Q.weight_quantize(P.to_tensor(w), "weight_only_int4")
+        xt = P.to_tensor(xq)
+        return [ids, scores, wn, sn, total, p.grad, vec, q, sc,
+                Q.weight_only_linear(xt, q, None, sc),
+                Q.llm_int8_linear(xt, q, None, sc), Q.Stub()(xt)]
+    return _on(P, dev, run)
+
+
+def _sweep_rest(P, device):
+    got, want = _rest_on(P, device), _rest_on(P, "cpu")
+    names = ["dynamic_decode ids", "dynamic_decode scores", "weight_norm",
+             "spectral_norm", "clip_grad_norm_", "clipped grad",
+             "parameters_to_vector", "weight_quantize", "weight scales",
+             "weight_only_linear", "llm_int8_linear", "Stub"]
+    for label, a, b in zip(names, got, want):
+        _same(a, b, label, device)
+    soft = _on(P, device, lambda: P.nn.functional.gumbel_softmax(
+        P.zeros([4096, 4]), hard=False))
+    hard = _on(P, device, lambda: P.nn.functional.gumbel_softmax(
+        P.zeros([64, 4]), hard=True))
+    assert soft.device.type == device.split(":")[0]
+    np.testing.assert_allclose(_np(soft).sum(-1), 1.0, rtol=1e-5)
+    freq = np.bincount(_np(soft).argmax(-1), minlength=4) / 4096
+    assert np.abs(freq - 0.25).max() < 0.05, f"gumbel_softmax {freq}"
+    assert (_np(hard).sum(-1) == 1).all() and set(np.unique(_np(hard))) \
+        <= {0.0, 1.0}
+    # dynamic_decode, BeamSearchDecoder, weight_norm, remove_weight_norm,
+    # spectral_norm, clip_grad_norm_, parameters_to_vector,
+    # weight_quantize, weight_only_linear, llm_int8_linear, Stub and
+    # gumbel_softmax
+    return 12
