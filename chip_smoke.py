@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N] [--out PATH] [--mesh-backend gloo|nccl]
                           [--mesh-only | --deepfm-only | --elastic-only |
                            --eager-only | --nn-only | --gpt-only |
-                           --measure-only | --vision-only | --bert-only]
+                           --measure-only | --vision-only | --bert-only |
+                           --static-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -268,12 +269,35 @@ fails:
    images or sequences/s, peak GiB, ops a step, forward host ms.
    ``--vision-only`` and ``--bert-only`` run the build and the phase
    named (with the flags above: those phases together).
+17. ``phase_static``, the static-graph world and the compile/export tier,
+   all at llama_7b width cut to EAGER_LAYERS (B=2, S=2048) with the eager
+   loop's seed and batch: ``to_static(model.llama)`` O1 bf16 with
+   ``AdamW(1e-4)`` stepped in turns with phase_eager's loop on a second
+   model of the same weights (2 + 5 steps; gates: step-1 grads and the
+   losses against the eager loop's, K2 = K3 = K4 = layers and U2 once a
+   step, one forward and one backward graph, no bailout; a tensor ``if``
+   bails out with its reason; dropout's replays differ); the same step
+   as a static ``Program`` (``static.data``, ``compute_loss``,
+   ``AdamW.minimize``, 2 + 5 ``Executor.run``s fetching the loss; gates:
+   the losses track the eager loop's, the same launches a run, one cache
+   entry captured as one graph); deployment: the LLaMA saved at bf16
+   with the fixed spec ``[1, 2048]``, loaded by ``inference.
+   create_predictor`` and run through the handles (logits against the
+   eager model, K2 = layers a run), a tiny LLaMA saved on the CPU and
+   loaded on the card (it launches K2 and matches the card model), and
+   ResNet-50 fp32 eval saved with a dynamic batch, run by the Predictor
+   at batch 1 and 64 against eager, ``PredictorPool(2)`` on one weight
+   storage. Printed: step and run ms p50 beside the eager loop's, the
+   host µs of K2 through its operator and through its launcher, save and
+   load seconds and file sizes, images/s. ``--static-only`` runs the
+   build and this phase.
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
 ``{"decode_profile": ...}``, ``{"training": ...}``,
 ``{"training_fused": ...}``, ``{"trainstep": ...}``, ``{"recompute": ...}``,
-``{"deepfm": ...}``, ``{"eager": ...}``, ``{"nn_sweep": ...}``,
+``{"deepfm": ...}``, ``{"eager": ...}``, ``{"static": ...}``,
+``{"nn_sweep": ...}``,
 ``{"gpt": ...}``, ``{"measure": ...}``, ``{"vision": ...}``,
 ``{"bert": ...}``, ``{"mesh": ...}``,
 ``{"elastic": ...}``,
@@ -2330,6 +2354,547 @@ def phase_eager(torch, args, LlamaConfig, LlamaForCausalLM, build, AdamW,
         f"{out['host_us_per_op']:.1f} host us an op, peak {peak:.2f} GiB, "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return out
+
+
+# ---- the static-graph world and the compile/export tier: to_static over
+# the decoder, the LLaMA step as a static Program, and deployment
+
+STATIC_DIR = os.path.join("build", "chip_smoke_static")
+STATIC_WARMUP, STATIC_STEPS = 2, 5
+# the deployed LLaMA's bf16 logits against the eager model's (relative L2
+# over the whole logits): the same kernels replay, and every reading so
+# far was bitwise equal; one bf16 rounding more in an op would show
+DEPLOY_LOGITS_RTOL = 1e-4
+# ResNet-50 fp32 eval through the Predictor against the eager model:
+# max |diff| over max |eager| (the same cuDNN convolutions, but the
+# exported graph may pick other algorithms or fold BN another way)
+DEPLOY_RESNET_RTOL = 1e-3
+TINY_ARTIFACT = dict(vocab=128, hidden=64, layers=2, heads=4, inter=128)
+
+
+def op_host_us(torch, fa):
+    """Host µs a call of K2 on one small bf16 input (2000 calls each, the
+    card synchronised around them) three ways: through its
+    ``torch.library`` operator (the dispatcher: what every caller goes
+    through), through its wrapper (the shape checks, then the operator)
+    and straight through the operator's ``cuda`` body."""
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    q, k, v = ((0.5 * torch.randn(1, 128, 8, 64, generator=g,
+                                  device=DEVICE)).to(torch.bfloat16)
+               for _ in range(3))
+    op = torch.ops.paddle_tpu_torch.flash_attention_fwd
+    out = {}
+    for label, fn in (("operator", lambda: op(q, k, v, True, None)),
+                      ("wrapper", lambda: fa.flash_attention_fwd(
+                          q, k, v, True)),
+                      ("launcher", lambda: fa._fwd_cuda(q, k, v, True,
+                                                        None))):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        out[label] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    fa.flash_attention_fwd.launches -= 3 * 2200   # timing, not the path
+    out["dispatcher_us"] = out["operator"] - out["launcher"]
+    return out
+
+
+def trace_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: the device's kernel ms,
+    the kernel launches and the kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((ev.key, dev_us / 1e3, ev.count))
+    kernels.sort(key=lambda k: -k[1])
+    return {"device_kernel_ms": sum(k[1] for k in kernels) if kernels
+            else None, "kernel_launches": sum(k[2] for k in kernels),
+            "top_kernels": [{"name": k[0][:90], "ms": k[1], "calls": k[2]}
+                            for k in kernels[:6]]}
+
+
+def _deltas(kernels, before):
+    return [k.launches - b for k, b in zip(kernels, before)]
+
+
+def static_batches(args, vocab):
+    """The static phases' two batches of ``[EAGER_BATCH, EAGER_SEQ + 1]``
+    tokens; step i takes batch ``i % 2``, so every replay after the first
+    is fed another batch than the step before it (a stale feed would show
+    in the losses)."""
+    rng = np.random.RandomState(args.seed + 1)
+    return [rng.randint(0, vocab, (EAGER_BATCH, EAGER_SEQ + 1))
+            for _ in range(2)]
+
+
+def phase_to_static(torch, args, P, fa, mt):
+    """``P.jit.to_static(model.llama)`` at llama_7b width cut to
+    EAGER_LAYERS, B=EAGER_BATCH, S=EAGER_SEQ, O1 bf16, ``AdamW(1e-4)``,
+    the head and the cross entropy eager, against phase_eager's loop on a
+    second model with the same weights, the two stepped in turns (2
+    warm-up, 5 timed) on the two ``static_batches`` in turn. Gates: step-1 grads and every loss against the
+    eager loop's; per to_static step K2 = K3 = K4 = layers and U2 once;
+    one forward and one backward graph, 0 bailouts. Then a dy2static
+    function with a tensor ``if`` on the card (both signs right, the
+    bailout counted with its reason) and dropout under to_static (two
+    replays draw different masks)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    F = P.nn.functional
+    t_phase = time.perf_counter()
+    cfg = eager_config(LlamaConfig)
+    models = [LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.float32,
+                               seed=args.seed) for _ in range(2)]
+    eager_m, static_m = models
+    opts = [P.optimizer.AdamW(learning_rate=1e-4, parameters=m.parameters())
+            for m in models]
+    batches = [(P.to_tensor(t[:, :-1], place=DEVICE),
+                P.to_tensor(t[:, 1:], place=DEVICE))
+               for t in static_batches(args, cfg.vocab_size)]
+    sp = P.jit.to_static(static_m.llama)
+    check(sp is static_m.llama, "to_static(Layer) returns the layer")
+    sf = static_m.llama._static_function
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
+
+    def amp():
+        return P.amp.auto_cast(level="O1", dtype="bfloat16")
+
+    losses = {"eager": [], "to_static": []}
+    ms = {"eager": [], "to_static": []}
+    per_step, grad_err, bitwise = [], {}, None
+    for i in range(STATIC_WARMUP + STATIC_STEPS):
+        ids, labels = batches[i % 2]
+        for key, m, opt in (("eager", eager_m, opts[0]),
+                            ("to_static", static_m, opts[1])):
+            torch.cuda.synchronize()
+            before = [k.launches for k in kernels]
+            t0 = time.perf_counter()
+            with amp():
+                loss = eager_loss(P, F, m, ids, labels)
+            loss.backward()
+            if i == 0 and key == "to_static":
+                # step 1: the warm-up call runs the eager loop's kernels
+                twin = dict(eager_m.named_parameters())
+                grad_err = {n: rel_l2(p.grad, twin[n].grad)
+                            for n, p in static_m.named_parameters()}
+                bitwise = all(torch.equal(p.grad, twin[n].grad)
+                              for n, p in static_m.named_parameters())
+                opts[0].step()
+                opts[0].clear_grad()
+            if i or key == "to_static":   # the eager grads wait for that
+                opt.step()
+                opt.clear_grad()
+            torch.cuda.synchronize()
+            if i >= STATIC_WARMUP:
+                ms[key].append((time.perf_counter() - t0) * 1e3)
+                if key == "to_static":
+                    per_step.append(_deltas(kernels, before))
+            losses[key].append(float(loss.detach()))
+    L = EAGER_LAYERS
+    worst = max(grad_err, key=grad_err.get)
+    check(grad_err[worst] <= EAGER_GRAD_RTOL,
+          f"to_static step 1: grad of {worst} {grad_err[worst]:.3g} "
+          f"(relative L2) from the eager loop's")
+    spread = max(abs(a - b) / abs(b) for a, b in
+                 zip(losses["to_static"], losses["eager"]))
+    check(spread <= EAGER_LOSS_RTOL,
+          f"to_static losses {losses['to_static']} against the eager "
+          f"loop's {losses['eager']}")
+    check(all(d == [L, L, L, 1] for d in per_step),
+          f"to_static steps launched K2, K3, K4, U2 {per_step}, want "
+          f"{[L, L, L, 1]} each")
+    info = sf.cache_info()
+    check(info["graphs"] == 2 and info["bailouts"] == 0
+          and info["lowerings"] == 1 and info["in_flight"] == 0,
+          f"to_static of the decoder: {info}, want one forward and one "
+          f"backward graph, no bailout")
+    check(falls(losses["to_static"]), f"to_static loss not falling: "
+          f"{losses['to_static']}")
+    del eager_m, static_m, models, opts, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a tensor `if` under to_static on the card: each call syncs to read
+    # the predicate, so the signature bails out to eager, counted
+    @P.jit.to_static
+    def branchy(x):
+        if x.sum() > 0:
+            y = x * 2.0
+        else:
+            y = -x
+        return y + 1.0
+    outs = [branchy(P.to_tensor(v, place=DEVICE)).numpy().tolist()
+            for v in ([1.0, 2.0], [-1.0, -2.0], [3.0, -1.0])]
+    check(outs == [[3.0, 5.0], [2.0, 3.0], [7.0, -1.0]],
+          f"dy2static tensor if on the card: {outs}")
+    binfo = branchy._static_function.cache_info()
+    check(binfo["bailouts"] == 1 and binfo["graphs"] == 0
+          and "host sync" in binfo["bailout_reason"],
+          f"dy2static tensor if: {binfo}, want one bailout with its reason")
+    drop = P.nn.Dropout(0.5)
+    drop.train()
+    sdrop = P.jit.to_static(drop)
+    x = P.to_tensor(np.ones(4096, np.float32), place=DEVICE)
+    y = [sdrop(x).numpy().copy() for _ in range(3)]
+    dinfo = drop._static_function.cache_info()
+    check(dinfo["graphs"] == 1 and dinfo["hits"] == 2
+          and not np.array_equal(y[1], y[2])
+          and set(np.unique(y[2])) <= {0.0, 2.0},
+          f"dropout under to_static: {dinfo}, replays equal "
+          f"{np.array_equal(y[1], y[2])}")
+    out = {
+        "layers": L, "batch": EAGER_BATCH, "seq": EAGER_SEQ,
+        "warmup_steps": STATIC_WARMUP, "steps": STATIC_STEPS,
+        "losses": losses["to_static"], "eager_losses": losses["eager"],
+        "loss_rel_spread": spread, "step1_grad_rel_l2_max": grad_err[worst],
+        "step1_grad_worst": worst, "step1_grads_bitwise": bitwise,
+        "step_ms": ms["to_static"], "eager_step_ms": ms["eager"],
+        "step_ms_p50": float(np.percentile(ms["to_static"], 50)),
+        "eager_step_ms_p50": float(np.percentile(ms["eager"], 50)),
+        "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "multi_tensor_adam"), per_step[0])),
+        "tier": info, "dy2static_if": binfo, "dropout": dinfo,
+        "op_host_us": op_host_us(torch, fa),
+        "seconds": time.perf_counter() - t_phase}
+    log(f"to_static(model.llama), {L} layers at llama_7b width, "
+        f"B={EAGER_BATCH} S={EAGER_SEQ}, O1 bf16: step p50 "
+        f"{out['step_ms_p50']:.2f} ms (eager loop {out['eager_step_ms_p50']:.2f}"
+        f" ms, in turns), losses {spread:.2g} apart, step-1 grads "
+        f"{'bitwise' if bitwise else f'{grad_err[worst]:.3g} apart'}; "
+        f"K2 host us a call: operator {out['op_host_us']['operator']:.1f}, "
+        f"wrapper {out['op_host_us']['wrapper']:.1f}, launcher "
+        f"{out['op_host_us']['launcher']:.1f}")
+    return out
+
+
+def phase_static_program(torch, args, P, fa, mt, eager_losses):
+    """The same model and batch as a static Program: ``static.data`` for
+    ids and labels, ``compute_loss`` under auto_cast O1 bf16,
+    ``AdamW(1e-4).minimize``; ``Executor.run(startup)`` and 2 + 5 runs
+    fetching the loss (numpy feed and fetch), fed the two
+    ``static_batches`` in turn. Gates: the losses track
+    phase_to_static's eager loop; per run K2 = K3 = K4 = layers and U2
+    once; one cache entry, captured as one CUDA graph, 0 bailouts."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    t_phase = time.perf_counter()
+    cfg = eager_config(LlamaConfig)
+    feeds = [{"ids": t[:, :-1], "labels": t[:, 1:].copy()}
+             for t in static_batches(args, cfg.vocab_size)]
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, mt.multi_tensor_adam)
+    static.enable_static()
+    try:
+        main, startup = static.Program(), static.Program()
+        t0 = time.perf_counter()
+        with static.program_guard(main, startup):
+            model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.float32,
+                                     seed=args.seed)
+            ids = static.data("ids", [EAGER_BATCH, EAGER_SEQ], "int64")
+            lab = static.data("labels", [EAGER_BATCH, EAGER_SEQ], "int64")
+            with P.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = model.compute_loss(ids, lab)
+            P.optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters()).minimize(loss)
+        record_s = time.perf_counter() - t0
+        exe = static.Executor()
+        scope = static.Scope()
+        losses, run_ms, per_run = [], [], []
+        with static.scope_guard(scope):
+            exe.run(startup)
+            for i in range(STATIC_WARMUP + STATIC_STEPS):
+                torch.cuda.synchronize()
+                before = [k.launches for k in kernels]
+                t0 = time.perf_counter()
+                (lv,) = exe.run(main, feed=feeds[i % 2],
+                                fetch_list=[loss])
+                run_ms.append((time.perf_counter() - t0) * 1e3)
+                per_run.append(_deltas(kernels, before))
+                losses.append(float(lv))
+    finally:
+        static.disable_static()
+    L = EAGER_LAYERS
+    info = exe.cache_info()
+    spread = max(abs(a - b) / abs(b) for a, b in zip(losses, eager_losses))
+    check(spread <= EAGER_LOSS_RTOL,
+          f"static Program losses {losses} against the eager loop's "
+          f"{eager_losses}")
+    check(all(d == [L, L, L, 1] for d in per_run),
+          f"static runs launched K2, K3, K4, U2 {per_run}, want "
+          f"{[L, L, L, 1]} each")
+    check(info["entries"] == 1 and info["steps"][0]["graphs"] == 1
+          and info["steps"][0]["bailouts"] == 0,
+          f"Executor cache {info}: want one entry captured as one graph")
+    n_ops = len(main.ops)
+    timed = run_ms[STATIC_WARMUP:]
+    out = {"layers": L, "batch": EAGER_BATCH, "seq": EAGER_SEQ,
+           "ops_recorded": n_ops, "record_s": record_s,
+           "losses": losses, "eager_losses": eager_losses,
+           "loss_rel_spread": spread, "run_ms": timed,
+           "first_run_ms": run_ms[0],
+           "run_ms_p50": float(np.percentile(timed, 50)),
+           "launches_per_run": dict(zip(
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "multi_tensor_adam"), per_run[-1])),
+           "executor": info, "seconds": time.perf_counter() - t_phase}
+    del model, main, startup, exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"static Program of the same step ({n_ops} ops recorded in "
+        f"{record_s:.1f}s): run p50 {out['run_ms_p50']:.2f} ms with numpy "
+        f"feed and fetch (first run, warm-up and capture, "
+        f"{run_ms[0]:.0f} ms), losses {spread:.2g} from the eager loop's")
+    return out
+
+
+def _predictor_config(inference, prefix):
+    """``inference.Config`` of ``prefix`` on the run's device (the card;
+    the CPU in a rehearsal)."""
+    c = inference.Config(prefix)
+    if DEVICE == "cpu":
+        c.disable_gpu()
+    return c
+
+
+def _sizes(prefix, exts):
+    return {e: os.path.getsize(prefix + e) for e in exts}
+
+
+def _timed(torch, fn, n):
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase_deploy(torch, args, P, fa):
+    """(a) LLaMA at llama_7b width cut to EAGER_LAYERS, bf16:
+    ``jit.save`` with the fixed spec ``[1, EAGER_SEQ]`` int64, then
+    ``jit.load`` and ``inference.create_predictor`` through the handles;
+    gates: logits against the eager ``model.logits``, K2 = layers a run.
+    (b) a tiny LLaMA saved on the CPU and loaded on the card: it launches
+    K2 and matches the card model with the same weights. (c) ResNet-50,
+    full width and depth, fp32 eval, saved once with ``InputSpec([None,
+    3, 224, 224])``, the Predictor at batch 1 and 64 against eager, and
+    ``PredictorPool(2)``'s clones on one weight storage. Each input shape
+    is also run once more, a graph replay fed a fresh input, and held
+    against eager on that input."""
+    import shutil
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.vision.models import resnet as R
+    t_phase = time.perf_counter()
+    shutil.rmtree(STATIC_DIR, ignore_errors=True)
+    os.makedirs(STATIC_DIR, exist_ok=True)
+    L = EAGER_LAYERS
+    out = {}
+    try:
+        # (a) LLaMA
+        cfg = eager_config(LlamaConfig)
+        model = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.bfloat16,
+                                 seed=args.seed)
+        tok = np.random.RandomState(args.seed + 2).randint(
+            0, cfg.vocab_size, (1, EAGER_SEQ))
+        prefix = os.path.join(STATIC_DIR, "llama")
+        t0 = time.perf_counter()
+        P.jit.save(model, prefix, input_spec=[P.jit.InputSpec(
+            [1, EAGER_SEQ], "int64", name="input_ids")])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(_predictor_config(inference,
+                                                            prefix))
+        load_s = time.perf_counter() - t0
+        h = pred.get_input_handle("input_ids")
+        before = fa.flash_attention_fwd.launches
+        h.copy_from_cpu(tok)
+        pred.run()
+        got = pred.get_output_handle(pred.get_output_names()[0])
+        logits = got._value
+        k2 = fa.flash_attention_fwd.launches - before
+        with torch.no_grad():
+            want = model.logits(P.to_tensor(tok, place=DEVICE))
+        err = rel_l2(logits, want)
+        check(err <= DEPLOY_LOGITS_RTOL,
+              f"deployed LLaMA logits {err:.3g} (relative L2) from eager")
+        check(k2 == L, f"deployed LLaMA launched K2 {k2} times, want {L}")
+
+        def run_pred():
+            h.copy_from_cpu(tok)
+            pred.run()
+            pred.get_output_handle(pred.get_output_names()[0])
+        before = fa.flash_attention_fwd.launches
+        pred_ms = _timed(torch, run_pred, 5)
+        k2_runs = fa.flash_attention_fwd.launches - before
+        check(k2_runs == 5 * L, f"5 Predictor runs launched K2 {k2_runs} "
+              f"times, want {5 * L}")
+        # a replay fed another sequence, against eager on that sequence
+        tok2 = np.random.RandomState(args.seed + 5).randint(
+            0, cfg.vocab_size, (1, EAGER_SEQ))
+        h.copy_from_cpu(tok2)
+        pred.run()
+        logits2 = pred.get_output_handle(pred.get_output_names()[0])._value
+        with torch.no_grad():
+            want2 = model.logits(P.to_tensor(tok2, place=DEVICE))
+        err2 = rel_l2(logits2, want2)
+        check(err2 <= DEPLOY_LOGITS_RTOL,
+              f"deployed LLaMA's replay on a fresh sequence: logits "
+              f"{err2:.3g} (relative L2) from eager")
+        pcap = pred._layer._step.cache_info()
+        check(pcap["lowerings"] == 1 and pcap["bailouts"] == 0
+              and pcap["hits"] == 6,
+              f"deployed LLaMA's runs: {pcap}, want one graph replayed")
+        ids_t = P.to_tensor(tok, place=DEVICE)
+        eager_ms = _timed(torch, lambda: model(ids_t), 5)
+        out["llama"] = {
+            "dtype": "bfloat16", "layers": L, "spec": [1, EAGER_SEQ],
+            "save_s": save_s, "load_s": load_s,
+            "bytes": _sizes(prefix, (".pdmodel", ".pdiparams", ".pdmeta")),
+            "logits_rel_l2": err, "replay_logits_rel_l2": err2,
+            "logits_max_abs_err": float((logits.float() - want.float())
+                                        .abs().max()),
+            "k2_per_run": k2, "capture": pcap, "run_ms": pred_ms,
+            "run_ms_p50": float(np.percentile(pred_ms, 50)),
+            "eager_forward_ms_p50": float(np.percentile(eager_ms, 50))}
+        del model, pred, h, got, logits, want, logits2, want2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) an artifact saved on the CPU, loaded on the card
+        tcfg = LlamaConfig.tiny(**TINY_ARTIFACT)
+        cpu_m = LlamaForCausalLM(tcfg, device="cpu", seed=args.seed)
+        card_m = LlamaForCausalLM(tcfg, device=DEVICE, seed=args.seed)
+        card_m.load_state_dict(cpu_m.state_dict())
+        tprefix = os.path.join(STATIC_DIR, "tiny_cpu")
+        P.jit.save(cpu_m, tprefix, input_spec=[P.jit.InputSpec(
+            [2, 64], "int64")])
+        loaded = P.jit.load(tprefix, device=DEVICE)
+        trng = np.random.RandomState(args.seed + 3)
+        k2s, terrs = [], []
+        for _ in range(2):         # the warm-up, then a replay
+            tids = trng.randint(0, tcfg.vocab_size, (2, 64))
+            before = fa.flash_attention_fwd.launches
+            got = loaded(P.to_tensor(tids, place=DEVICE))
+            k2s.append(fa.flash_attention_fwd.launches - before)
+            want = card_m.logits(P.to_tensor(tids, place=DEVICE)).detach()
+            terr = float((got - want).abs().max())
+            terrs.append(terr)
+            check(terr <= 1e-4 * max(1.0, float(want.abs().max())),
+                  f"CPU-saved artifact on the card: logits {terr:.3g} from "
+                  f"the card model's")
+        check(k2s == [tcfg.num_hidden_layers] * 2,
+              f"CPU-saved artifact on the card launched K2 {k2s} times a "
+              f"call, want {tcfg.num_hidden_layers}")
+        out["cpu_artifact"] = {"k2": k2s[0], "k2_calls": k2s,
+                               "max_abs_err": max(terrs),
+                               "program_device": str(got.device)}
+
+        # (c) ResNet-50, fp32 eval, dynamic batch
+        P.seed(args.seed, DEVICE)
+        rn = R.resnet50(device=DEVICE)
+        rn.eval()
+        rprefix = os.path.join(STATIC_DIR, "resnet50")
+        t0 = time.perf_counter()
+        P.jit.save(rn, rprefix, input_spec=[P.jit.InputSpec(
+            [None, 3, 224, 224], "float32", name="image")])
+        rsave_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool = inference.PredictorPool(_predictor_config(inference,
+                                                         rprefix), size=2)
+        rload_s = time.perf_counter() - t0
+        pr = pool.retrieve(0)
+        share = [t.data_ptr() for t in pr._layer._param_vals] == \
+            [t.data_ptr() for t in pool.retrieve(1)._layer._param_vals]
+        check(share, "PredictorPool(2): the clones do not share the weights")
+        rng = np.random.RandomState(args.seed + 4)
+        res = {}
+        for bs in (1, 64):
+            x = rng.standard_normal((bs, 3, 224, 224)).astype(np.float32)
+            hx = pr.get_input_handle("image")
+            hx.copy_from_cpu(x)
+            pr.run()
+            y = pr.get_output_handle(pr.get_output_names()[0])._value
+            with torch.no_grad():
+                ye = rn(P.to_tensor(x, place=DEVICE))
+            rerr = float((y - ye).abs().max() / ye.abs().max())
+            check(tuple(y.shape) == (bs, 1000) and rerr <= DEPLOY_RESNET_RTOL,
+                  f"ResNet-50 Predictor at batch {bs}: {tuple(y.shape)}, "
+                  f"{rerr:.3g} of max|eager| from eager")
+            xt = P.to_tensor(x, place=DEVICE)
+            r_ms = _timed(torch, lambda: pr.run([xt]), 5)
+            with torch.no_grad():
+                e_ms = _timed(torch, lambda: rn(xt), 5)
+            # a replay fed other images, against eager on those images
+            x2 = rng.standard_normal((bs, 3, 224, 224)).astype(np.float32)
+            hx.copy_from_cpu(x2)
+            pr.run()
+            y2 = pr.get_output_handle(pr.get_output_names()[0])._value
+            with torch.no_grad():
+                ye2 = rn(P.to_tensor(x2, place=DEVICE))
+            rerr2 = float((y2 - ye2).abs().max() / ye2.abs().max())
+            check(rerr2 <= DEPLOY_RESNET_RTOL,
+                  f"ResNet-50 Predictor's replay at batch {bs} on fresh "
+                  f"images: {rerr2:.3g} of max|eager| from eager")
+            res[bs] = {"rel_err": rerr, "replay_rel_err": rerr2,
+                       "run_ms_p50": float(np.percentile(r_ms, 50)),
+                       "eager_ms_p50": float(np.percentile(e_ms, 50)),
+                       "images_per_s": bs * 1e3 / float(np.percentile(
+                           r_ms, 50))}
+        with torch.no_grad():
+            traces = {"predictor": trace_call(torch, lambda: pr.run([xt])),
+                      "eager": trace_call(torch, lambda: rn(xt))}
+        rcap = pr._layer._step.cache_info()
+        check(rcap["lowerings"] == 2 and rcap["bailouts"] == 0,
+              f"ResNet-50 Predictor: {rcap}, want a graph a batch size")
+        out["resnet50"] = {"save_s": rsave_s, "load_s": rload_s,
+                           "trace_batch_64": traces, "capture": rcap,
+                           "bytes": _sizes(rprefix, (".pdmodel",
+                                                     ".pdiparams")),
+                           "pool_shares_weights": share, "batch": res}
+    finally:
+        shutil.rmtree(STATIC_DIR, ignore_errors=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["seconds"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    ll, rr = out["llama"], out["resnet50"]
+    log(f"deployment: LLaMA {L} layers bf16 [1, {EAGER_SEQ}] saved in "
+        f"{ll['save_s']:.1f}s ({ll['bytes']['.pdiparams'] / 2**30:.2f} GiB "
+        f"of weights), loaded in {ll['load_s']:.1f}s, Predictor run p50 "
+        f"{ll['run_ms_p50']:.2f} ms (eager forward "
+        f"{ll['eager_forward_ms_p50']:.2f} ms), logits {ll['logits_rel_l2']:.2g}"
+        f" from eager; ResNet-50 fp32 at batch 64 "
+        f"{rr['batch'][64]['images_per_s']:.0f} images/s "
+        f"(eager {64e3 / rr['batch'][64]['eager_ms_p50']:.0f}); a CPU "
+        f"artifact launched K2 {out['cpu_artifact']['k2']} times on the card")
+    return out
+
+
+def phase_static(torch, args, P, fa, mt):
+    """The three phases of the static/compile tier, in order."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ts = phase_to_static(torch, args, P, fa, mt)
+    prog = phase_static_program(torch, args, P, fa, mt, ts["eager_losses"])
+    deploy = phase_deploy(torch, args, P, fa)
+    return {"to_static": ts, "program": prog, "deploy": deploy,
+            "seconds": time.perf_counter() - t0}
 
 
 # ---- this slice's phases: the nn sweep, GPT-2 small, the measurement API
@@ -5228,6 +5793,10 @@ def main(argv=None) -> int:
     ap.add_argument("--deepfm-only", action="store_true",
                     help="build the kernels and run the DeepFM phase "
                          "alone (with --elastic-only: both)")
+    ap.add_argument("--static-only", action="store_true",
+                    help="build the kernels and run the static/compile "
+                         "tier's phases alone (to_static, the static "
+                         "Program, deployment)")
     args = ap.parse_args(argv)
     # the mesh phase's ranks meet (FileStore) and leave their results here
     args.mesh_dir = os.path.join(os.path.dirname(args.out), "mesh") \
@@ -5291,6 +5860,21 @@ def main(argv=None) -> int:
         for key, val in alone.items():
             log(json.dumps({key: val}))
         log(f"chip_smoke {' '.join(argv)} total "
+            f"{time.perf_counter() - t_start:.1f}s")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.static_only:
+        import paddle_tpu_torch as P
+        static_tier = phase_static(torch, args, P, fa, mt)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump({"card": card, "kind": kind, "build_s": build_s,
+                           "static": static_tier}, f, indent=1)
+        log(json.dumps({"static": static_tier}))
+        log(f"chip_smoke --static-only total "
             f"{time.perf_counter() - t_start:.1f}s")
         log(card)
         print(json.dumps({"ok": True, "device": {
@@ -5438,6 +6022,7 @@ def main(argv=None) -> int:
     eager = phase_eager(torch, args, LlamaConfig, LlamaForCausalLM,
                         build_hybrid_train_step, AdamW, fa, mt)
     import paddle_tpu_torch as P
+    static_tier = phase_static(torch, args, P, fa, mt)
     nn_sweep = phase_nn_sweep(torch, P)
     gpt = phase_gpt(torch, args, P, fa, mt)
     measure = phase_measure(torch, args, LlamaConfig, LlamaForCausalLM, P,
@@ -5505,6 +6090,14 @@ def main(argv=None) -> int:
                 name.replace("attention_", "")],
             "resnet50_launches_per_step": vision["resnet50"][
                 "launches_per_step"][name.replace("attention_", "")],
+            "to_static_launches_per_step": static_tier["to_static"][
+                "launches_per_step"][name.replace("attention_", "")],
+            "static_program_launches_per_run": static_tier["program"][
+                "launches_per_run"][name.replace("attention_", "")],
+            **({"deployed_llama_launches_per_run": static_tier["deploy"][
+                "llama"]["k2_per_run"], "cpu_artifact_launches":
+                static_tier["deploy"]["cpu_artifact"]["k2"]}
+               if key == "fwd" else {}),
             "recompute_launches": {
                 "recompute": recompute["launches"][
                     name.replace("attention_", "")],
@@ -5570,6 +6163,10 @@ def main(argv=None) -> int:
                     ("crnn", vision["crnn"]), ("dbnet", vision["dbnet"]))},
             "deepfm_launches": deepfm["dp1"]["launches"][
                 name.replace("_finite", "")],
+            "to_static_launches_per_step": static_tier["to_static"][
+                "launches_per_step"].get(name.replace("_finite", ""), 0),
+            "static_program_launches_per_run": static_tier["program"][
+                "launches_per_run"].get(name.replace("_finite", ""), 0),
             "mesh_launches_per_step": {
                 "dp2_mp2_each_rank": mesh["dp2_mp2"]["launches_per_step"][
                     name.replace("_finite", "")],
@@ -5604,7 +6201,8 @@ def main(argv=None) -> int:
                        "elastic": elastic, "deepfm": deepfm,
                        "eager": eager, "nn_sweep": nn_sweep, "gpt": gpt,
                        "measure": measure, "vision": vision, "bert": bert,
-                       "recompute": recompute, **kernels}, f, indent=1)
+                       "recompute": recompute, "static": static_tier,
+                       **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_fused": training_fused}))
@@ -5612,6 +6210,7 @@ def main(argv=None) -> int:
     log(json.dumps({"recompute": recompute}))
     log(json.dumps({"deepfm": deepfm}))
     log(json.dumps({"eager": eager}))
+    log(json.dumps({"static": static_tier}))
     log(json.dumps({"nn_sweep": nn_sweep}))
     log(json.dumps({"gpt": gpt}))
     log(json.dumps({"measure": measure}))

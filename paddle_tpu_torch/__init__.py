@@ -24,7 +24,10 @@ API (``device``: counters, streams, events; ``profiler``: ``Profiler``,
 ``RecordEvent``, the summaries, ``benchmark()``), the op library's
 breadth and its in-place ``*_`` family, ``nn``'s functionals,
 initializers and the activation, common, norm, loss, container and
-transformer layers, ``regularizer``, and GPT (``models.gpt``).
+transformer layers, ``regularizer``, and GPT (``models.gpt``); the
+static-graph world (``static``: ``Program``, ``Executor``,
+``enable_static``) and the compile/export tier (``to_static``,
+``jit.save`` / ``jit.load``, ``inference.Predictor``).
 """
 from .core.device import (  # noqa: F401
     device_count, get_device, is_compiled_with_tpu, resolve_device,
@@ -51,6 +54,7 @@ from . import device  # noqa: F401
 from . import profiler  # noqa: F401
 from . import regularizer  # noqa: F401
 from . import jit  # noqa: F401
+from .jit.api import to_static  # noqa: F401
 from . import utils  # noqa: F401
 from . import observability  # noqa: F401
 
@@ -63,6 +67,15 @@ def __getattr__(name):
     if name == "DataParallel":
         from .distributed.parallel import DataParallel
         return DataParallel
+    if name in ("static", "inference"):
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    if name in ("enable_static", "disable_static", "in_dynamic_mode"):
+        from .static import framework as _sfw
+        return getattr(_sfw, name)
+    if name == "CompiledProgram":
+        from .static import CompiledProgram
+        return CompiledProgram
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 from .utils.flags import get_flags, set_flags  # noqa: F401
 from .framework_io import load, save  # noqa: F401

@@ -81,7 +81,11 @@ class Tensor(torch.Tensor):
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         # every result of an op on a port Tensor is a port Tensor (a
-        # Parameter's results too), torch's grad getter included
+        # Parameter's results too), torch's grad getter included; an op
+        # that touches a static Variable is the Variable's to record
+        for t in types:
+            if getattr(t, "_pt_symbolic", False):
+                return NotImplemented
         with torch._C.DisableTorchFunctionSubclass():
             ret = func(*args, **(kwargs or {}))
         return _wrap(ret)
@@ -264,7 +268,11 @@ def _wrap(ret):
     if ret is None or type(ret) in _PLAIN:
         return ret
     if isinstance(ret, torch.Tensor):
-        return ret if isinstance(ret, Tensor) else ret.as_subclass(Tensor)
+        # only a plain result becomes a port Tensor: a FakeTensor or a
+        # functional tensor of a torch.export trace stays what it is (its
+        # TensorImpl already belongs to that Python object)
+        return ret.as_subclass(Tensor) if type(ret) is torch.Tensor \
+            else ret
     if isinstance(ret, (tuple, list)):
         items = [_wrap(r) for r in ret]
         if hasattr(ret, "_fields"):                  # torch's namedtuples
@@ -312,11 +320,20 @@ class Parameter(Tensor, nn.Parameter):
         return "Parameter containing:\n" + Tensor.__repr__(self)
 
 
+def as_port(t):
+    """``t`` as a port ``Tensor`` where it is a plain tensor; a tensor of
+    a trace (FakeTensor, functional tensor) or a port Tensor as it is."""
+    return t.as_subclass(Tensor) if type(t) is torch.Tensor else t
+
+
 def plain_views(ts):
     """Plain ``torch.Tensor`` views of ``ts`` (autograd flows through
     them): inside a function the dispatch runs, their Python operators are
-    torch's own, not nested ops of the library."""
-    return [t.as_subclass(torch.Tensor) for t in ts]
+    torch's own, not nested ops of the library. A tensor that is not a
+    port Tensor (a plain one, or a FakeTensor of a trace) is taken as it
+    is."""
+    return [t.as_subclass(torch.Tensor) if isinstance(t, Tensor) else t
+            for t in ts]
 
 
 def is_tensor(x) -> bool:

@@ -104,7 +104,7 @@ from ..utils.deadline import env_int
 __all__ = ["capture_step", "CapturedStep", "CudaGraphBackend", "HostSync",
            "capture_info", "capture_clear", "set_step_capture_enabled",
            "step_capture_enabled", "set_capture_backend", "lower_step",
-           "LoweredStep"]
+           "LoweredStep", "GraphedCall"]
 
 _enabled = os.environ.get("PT_STEP_CAPTURE", "1").strip().lower() \
     not in ("0", "false", "off")
@@ -380,12 +380,16 @@ class CapturedStep(_GraphHolder):
 
     Call it exactly like ``fn``. ``inplace`` names the positional
     arguments whose tensors the step reads and writes where they lie (its
-    KV caches); they are held by address, never copied."""
+    KV caches); they are held by address, never copied. Calls run under
+    ``torch.inference_mode()`` (a serving step), or ``torch.no_grad()``
+    with ``inference=False`` (``to_static``'s calls that need no grad,
+    whose outputs may meet autograd later)."""
 
     def __init__(self, fn: Callable, inplace=(), maxsize=None,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None, *, inference: bool = True):
         self._fn = fn
         self._inplace = frozenset(int(i) for i in inplace)
+        self._inference = bool(inference)
         self._maxsize = int(maxsize or _default_size)
         self._cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self._lock = threading.Lock()
@@ -418,7 +422,7 @@ class CapturedStep(_GraphHolder):
 
     # ---- the tier ----
     def __call__(self, *args, **kwargs):
-        with torch.inference_mode():
+        with torch.inference_mode() if self._inference else torch.no_grad():
             leaves, spans = _flat_call(args, kwargs)
             backend = self._backend_for(leaves)
             if backend is None:
@@ -769,3 +773,225 @@ def lower_step(fn: Callable, example_args, inplace=(),
     step = LoweredStep(fn, example_args, inplace=inplace, name=name,
                        hazards=hazards)
     return step, step.program
+
+
+# ---------------------------------------------------------------------------
+# to_static's tier: a call as CUDA graphs, joined to autograd
+# ---------------------------------------------------------------------------
+
+class _Call(torch.nn.Module):
+    """``fn(*args)`` with its tensor arguments as positional inputs and its
+    output's tensors as a tuple (what ``make_graphed_callables`` takes);
+    ``module`` is registered so its parameters are the graphs' inputs.
+    Each forward notes the kernel launches it made."""
+
+    def __init__(self, fn, module, args, kwargs):
+        super().__init__()
+        self.inner = module
+        self._fn = fn
+        self._template = (args, kwargs)
+        self.out_spec = None
+        self.fwd_deltas = {}
+
+    def rebuild(self, tensors):
+        from torch.utils import _pytree as pytree
+        args, kwargs = self._template
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        tpos = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+        for i, t in zip(tpos, tensors):
+            leaves[i] = t
+        return pytree.tree_unflatten(leaves, spec)
+
+    def forward(self, *tensors):
+        from torch.utils import _pytree as pytree
+        counters = _kernel_counters()
+        before = [c.launches for c in counters]
+        args, kwargs = self.rebuild(tensors)
+        out = self._fn(*args, **kwargs)
+        self.fwd_deltas = {c: c.launches - b for c, b in zip(counters, before)
+                           if c.launches != b}
+        leaves, self.out_spec = pytree.tree_flatten(out)
+        if not all(isinstance(x, torch.Tensor) for x in leaves):
+            raise TypeError("a graphed to_static call must return tensors")
+        return tuple(leaves)
+
+
+def _tensor_leaves(args, kwargs) -> list:
+    from torch.utils import _pytree as pytree
+    return [x for x in pytree.tree_leaves((args, kwargs))
+            if isinstance(x, torch.Tensor)]
+
+
+class _GradEntry:
+    __slots__ = ("graphed", "call", "fwd", "bwd", "pending", "grad_ptrs")
+
+    def __init__(self, graphed, call, fwd, bwd):
+        self.graphed, self.call = graphed, call
+        self.fwd, self.bwd = fwd, bwd
+        self.pending = None           # weakref to a replay's autograd node
+        self.grad_ptrs = frozenset()  # the backward graph's grad buffers
+
+    def in_flight(self) -> bool:
+        """A replay whose backward has not run, while its graph is alive:
+        the forward graph's buffers hold what that backward reads."""
+        return self.pending is not None and self.pending() is not None
+
+
+class GraphedCall(CapturedStep):
+    """``to_static``'s tier on the card, on the signature, LRU and bailout
+    machinery of ``CapturedStep``.
+
+    Per call signature (the arguments' shapes, strides, dtypes and
+    devices, Python values, the amp regime, plus ``extra``: the caller's
+    key, and here the grad mode and the ``module``'s parameter addresses
+    and ``requires_grad``), the first call is an eager warm-up under the
+    sync guard; a host sync there (a Python ``if`` on a device tensor)
+    poisons the signature, which then runs eagerly, counted in
+    ``bailouts`` with its reason. Otherwise:
+
+    - a call that needs no grad becomes one CUDA graph (``CapturedStep``
+      with ``inference=False``), replayed from the next call on;
+    - a call that needs grads becomes a forward graph and a backward graph
+      joined to autograd (``torch.cuda.make_graphed_callables`` over the
+      call, with the module's parameters as inputs, so their grads
+      accumulate into ``.grad``), replayed from the next call on. A
+      replay adds the kernel launches of the forward graph, and those of
+      the backward graph when autograd runs it. From a replay until its
+      backward has run (or its autograd graph is gone) the signature is in
+      flight: a second call of it runs eagerly, counted in ``in_flight``
+      and ``fallback_calls``, since a replay would overwrite the
+      activations that the pending backward reads. A ``.grad`` that an
+      earlier backward left in the backward graph's own buffer is copied
+      out before the next replay overwrites it.
+
+    A call returns copies of the graphs' outputs, never their buffers.
+    Without a CUDA tensor, or with the tier off, every call is eager."""
+
+    def __init__(self, fn: Callable, module=None, maxsize=None,
+                 name: Optional[str] = None):
+        super().__init__(fn, maxsize=maxsize, name=name, inference=False)
+        self._module = module
+        self._in_flight = 0
+
+    def cache_info(self) -> dict:
+        info = super().cache_info()
+        with _LOCK:
+            info["in_flight"] = self._in_flight
+        return info
+
+    def graphs(self) -> int:
+        with self._lock:
+            return sum((e.graph is not None) * (2 if isinstance(
+                e.graph, _GradEntry) else 1) for e in self._cache.values())
+
+    def _params(self):
+        return [] if self._module is None else list(
+            self._module.parameters())
+
+    def __call__(self, *args, extra=(), **kwargs):
+        leaves, spans = _flat_call(args, kwargs)
+        params = self._params()
+        backend = self._backend_for(leaves + params)
+        if not isinstance(backend, CudaGraphBackend):
+            _count(self, "eager_calls")
+            return self._fn(*args, **kwargs)
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in params + [
+                x for x in leaves if isinstance(x, torch.Tensor)])
+        sig = self._signature(leaves, spans)
+        if sig is None:
+            return self._fallback(args, kwargs)
+        sig = (sig, tuple(extra), grad,
+               tuple((p.data_ptr(), p.requires_grad) for p in params))
+        with self._lock:
+            entry = self._cache.get(sig)
+            if entry is not None:
+                self._cache.move_to_end(sig)
+        if entry is None:
+            return self._warm(sig, backend, grad, args, kwargs, leaves,
+                              spans)
+        if entry.poisoned:
+            return self._fallback(args, kwargs)
+        if grad and entry.graph.in_flight():
+            with _LOCK:
+                self._in_flight += 1
+            return self._fallback(args, kwargs)
+        _count(self, "hits")
+        if grad:
+            return self._replay_grad(entry.graph, args, kwargs)
+        with torch.no_grad():
+            return _map(_clone, self._replay(entry, backend, leaves))
+
+    def _warm(self, sig, backend, grad, args, kwargs, leaves, spans):
+        """The eager warm-up (this call's result), then the graphs."""
+        entry = _Entry()
+        try:
+            with _SyncGuard(), (torch.enable_grad() if grad
+                                else torch.no_grad()):
+                out = backend.warmup(self._fn, args, kwargs)
+        except RuntimeError as e:   # HostSync, or the card's sync check
+            self._poison(sig, entry, e)
+            return self._fallback(args, kwargs)
+        try:
+            if grad:
+                entry.graph = self._build_grad(args, kwargs)
+            else:
+                with torch.no_grad():
+                    self._capture(entry, backend, args, kwargs)
+        except RuntimeError as e:
+            self._poison(sig, entry, e)
+            return out
+        self._put(sig, entry)
+        _count(self, "lowerings")
+        return out
+
+    def _build_grad(self, args, kwargs) -> _GradEntry:
+        call = _Call(self._fn, self._module, args, kwargs)
+        samples = tuple(
+            x.detach().clone().requires_grad_(x.requires_grad)
+            for x in _tensor_leaves(args, kwargs))
+        counters = _kernel_counters()
+        before = [c.launches for c in counters]
+        warmups = 3
+        try:
+            graphed = torch.cuda.make_graphed_callables(
+                call, samples, num_warmup_iters=warmups)
+            fwd = dict(call.fwd_deltas)
+            total = {c: c.launches - b for c, b in zip(counters, before)}
+        finally:
+            for c, b in zip(counters, before):   # a build is not a call
+                c.launches = b
+        # each warm-up and the capture ran the forward and the backward
+        bwd = {c: n // (warmups + 1) - fwd.get(c, 0)
+               for c, n in total.items() if n}
+        return _GradEntry(graphed, call, fwd, {c: n for c, n in bwd.items()
+                                               if n})
+
+    def _replay_grad(self, ge: _GradEntry, args, kwargs):
+        from torch.utils import _pytree as pytree
+        inputs = _tensor_leaves(args, kwargs)
+        if ge.grad_ptrs:
+            # autograd may have kept a grad buffer of the backward graph as
+            # a leaf's .grad (accumulation without clear_grad); the two
+            # graphs share one pool, so the replays would overwrite it
+            for t in self._params() + inputs:
+                g = t.grad if t.requires_grad and t.is_leaf else None
+                if g is not None and g.data_ptr() in ge.grad_ptrs:
+                    t.grad = g.clone()
+        outs = ge.graphed(*inputs)
+        for c, d in ge.fwd.items():
+            c.launches += d
+        node = next((o.grad_fn for o in outs if o.grad_fn is not None), None)
+        if node is not None:
+            ge.pending = weakref.ref(node)
+
+            def after(grad_inputs, _grad_outputs):
+                ge.pending = None
+                ge.grad_ptrs = frozenset(
+                    g.data_ptr() for g in grad_inputs if g is not None)
+                for c, d in ge.bwd.items():
+                    c.launches += d
+
+            node.register_hook(after)
+        return pytree.tree_unflatten([o.clone() for o in outs],
+                                     ge.call.out_spec)

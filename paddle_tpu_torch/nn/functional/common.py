@@ -221,8 +221,10 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
         chan_last = data_format in ("NHWC", "NWC", "NDHWC")
         spatial = v.shape[1:-1] if chan_last else v.shape[2:]
         if size is not None:
-            out_spatial = [int(s) for s in (
-                size if isinstance(size, (list, tuple)) else [size])]
+            from ...ops._static_shape import static_int_list
+            out_spatial = static_int_list(
+                size if isinstance(size, (list, tuple)) else [size],
+                "interpolate size")
         else:
             sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
                 else [scale_factor] * len(spatial)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.tensor import Tensor, plain_views
+from ...core.tensor import as_port, plain_views
 from ...ops.dispatch import apply
 
 __all__ = ["normalize", "batch_norm", "layer_norm", "instance_norm",
@@ -65,7 +65,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             inv = torch.rsqrt(var_.to(v.dtype) + epsilon)
             out = (v - m.to(v.dtype).reshape(bshape(v))) * \
                 inv.reshape(bshape(v))
-            return _affine(out, wb, bshape(v)).as_subclass(Tensor)
+            return as_port(_affine(out, wb, bshape(v)))
     else:
         args = [x]
 
@@ -74,7 +74,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             m, var_ = _moments(v, stats_axes(v), False)
             out = (v - m.reshape(bshape(v))) * torch.rsqrt(
                 var_ + epsilon).reshape(bshape(v))
-            return _affine(out, wb, bshape(v)).as_subclass(Tensor)
+            return as_port(_affine(out, wb, bshape(v)))
 
     if weight is not None:
         args.append(weight)

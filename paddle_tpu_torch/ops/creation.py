@@ -18,6 +18,7 @@ import torch
 from ..core import dtype as dtypes
 from ..core.device import resolve_device
 from ..core.tensor import Parameter, Tensor, as_torch
+from ._static_shape import static_int, static_int_list, static_scalar
 from .dispatch import apply
 
 __all__ = [
@@ -31,9 +32,9 @@ __all__ = [
 def _norm_shape(shape):
     if isinstance(shape, (int, np.integer)):
         return (int(shape),)
-    if isinstance(shape, torch.Tensor):
-        return tuple(int(s) for s in shape.reshape(-1).tolist())
-    return tuple(int(s) for s in shape)
+    if isinstance(shape, torch.Tensor) and shape.dim() == 0:
+        return (static_int(shape, "shape"),)
+    return tuple(static_int_list(shape, "shape"))
 
 
 def _dt(dtype):
@@ -86,12 +87,14 @@ def empty(shape, dtype=None, *, place=None):
     return zeros(shape, dtype, place=place)
 
 
-def _scalar(v):
-    return v.item() if isinstance(v, torch.Tensor) else v
+def _scalar(v, what: str = "size"):
+    return static_scalar(v, what) if isinstance(v, torch.Tensor) else v
 
 
 def arange(start=0, end=None, step=1, dtype=None, *, place=None):
-    start, end, step = _scalar(start), _scalar(end), _scalar(step)
+    start, end, step = (_scalar(start, "arange start"),
+                        _scalar(end, "arange end"),
+                        _scalar(step, "arange step"))
     if end is None:
         start, end = 0, start
     if dtype is None:
@@ -111,7 +114,8 @@ def arange(start=0, end=None, step=1, dtype=None, *, place=None):
 
 def linspace(start, stop, num, dtype=None, *, place=None):
     dt = dtypes.convert_dtype(dtype) if dtype else dtypes.get_default_dtype()
-    return Tensor(torch.linspace(float(_scalar(start)), float(_scalar(stop)),
+    return Tensor(torch.linspace(float(_scalar(start, "linspace start")),
+                                 float(_scalar(stop, "linspace stop")),
                                  int(num), dtype=torch.float64,
                                  device=resolve_device(place)).to(dt))
 

@@ -11,7 +11,9 @@ What the JAX module also holds, and where it went:
 
 - ``GradNode`` and the vjp tape: torch's autograd engine records every
   op (``grad_fn``), so ``apply`` records nothing itself.
-- ``set_static_recorder``: waits for the port of ``static/``.
+- ``set_static_recorder``: ``static.enable_static()`` installs the
+  Program recorder here; ``apply`` consults it first, before its fast
+  path, the amp cast and every hook, as the JAX ``apply`` does.
 - ``set_capture_recorder``: the capture tier (``jit/capture.py``) keeps
   its own record of a captured step (a ``TorchDispatchMode`` over the
   warm-up), so no hook is needed here.
@@ -29,7 +31,7 @@ from ..amp.auto_cast import amp_dtype_for as _amp_dtype_for
 from ..amp.auto_cast import amp_state as _amp_state_of
 
 __all__ = ["apply", "defprim", "set_profile_cb", "set_coverage_recorder",
-           "set_nan_check", "set_stats_recorder"]
+           "set_nan_check", "set_stats_recorder", "set_static_recorder"]
 
 _amp_state = _amp_state_of()
 
@@ -40,6 +42,9 @@ _profile_cb = None
 _coverage_cb = None
 _stats_cb = None
 _nan_check = False
+# static mode: _static_recorder(fn, args, kwargs, name, amp_dtype) appends
+# an op touching a Variable to the current Program (NotImplemented: eager)
+_static_recorder = None
 _quiet = True          # all of the above off: apply is one direct call
 
 _WRAP = (TypeError, ValueError, IndexError, RuntimeError)
@@ -48,7 +53,17 @@ _WRAP = (TypeError, ValueError, IndexError, RuntimeError)
 def _recompute_quiet():
     global _quiet
     _quiet = (_profile_cb is None and _coverage_cb is None
-              and _stats_cb is None and not _nan_check)
+              and _stats_cb is None and not _nan_check
+              and _static_recorder is None)
+
+
+def set_static_recorder(fn):
+    """``fn(op_fn, args, static_kwargs, name, amp_dtype)`` before every op
+    (``static.enable_static`` installs the Program recorder); it returns
+    the op's symbolic result, or NotImplemented to run the op eagerly."""
+    global _static_recorder
+    _static_recorder = fn
+    _recompute_quiet()
 
 
 def set_profile_cb(cb):
@@ -132,6 +147,11 @@ def apply(fn: Callable, *args, op_name: str | None = None, **static_kwargs):
                 raise
             _op_error(op_name or getattr(fn, "__name__", "op"), args, e)
     name = op_name or getattr(fn, "__name__", "op")
+    if _static_recorder is not None:
+        dt = _amp_dtype_for(name) if _amp_state.enabled else None
+        out = _static_recorder(fn, args, static_kwargs, name, dt)
+        if out is not NotImplemented:
+            return out
     if _coverage_cb is not None:
         _coverage_cb(name)
     if _amp_state.enabled:

@@ -17,7 +17,9 @@ read with element loads instead of TMA, so the caches are never padded.
 ``ragged_decode_attention`` takes the plain version for tensors on the CPU
 and launches the kernel for tensors on the card, or raises: there is no
 fallback from the card to the plain version. ``ragged_decode_attention.
-launches`` counts kernel launches.
+launches`` counts kernel launches. The wrapper calls the ``torch.library``
+operator ``paddle_tpu_torch::ragged_decode_attention`` (cpu, cuda and
+fake bodies), so a recorded Program or an exported graph names it.
 """
 from __future__ import annotations
 
@@ -92,20 +94,9 @@ def _check_cuda(q, k_cache, v_cache, lengths, B, H, Hkv, D):
         raise ValueError(f"kernel takes D <= {MAX_D}, got D={D}")
 
 
-def ragged_decode_attention(q, k_cache, v_cache, lengths,
-                            scale: Optional[float] = None):
-    """q ``[B, 1, H, D]``; caches ``[B, S_max, Hkv, D]``; lengths ``[B]``
-    int32 (positions ``j < lengths[b]`` are attended). Returns
-    ``[B, 1, H, D]`` in q's dtype.
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream, or raise on an input it cannot take or on a launch
-    error."""
+def _decode_cuda(q, k_cache, v_cache, lengths, scale):
+    """The kernel on CUDA tensors, or raise."""
     B, S, H, Hkv, D = _shapes(q, k_cache, v_cache, lengths)
-    if q.device.type == "cpu":
-        return ragged_decode_attention_ref(q, k_cache, v_cache, lengths, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no decode-attention kernel for device {q.device}")
     _check_cuda(q, k_cache, v_cache, lengths, B, H, Hkv, D)
     s = float(scale) if scale is not None else 1.0 / (D ** 0.5)
     from ._build import library
@@ -124,6 +115,43 @@ def ragged_decode_attention(q, k_cache, v_cache, lengths,
                            f"cudaError {err}")
     ragged_decode_attention.launches += 1
     return out
+
+
+@torch.library.custom_op("paddle_tpu_torch::ragged_decode_attention",
+                         mutates_args=(), device_types=("cpu", "cuda"))
+def _decode_op(q: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, lengths: torch.Tensor,
+               scale: Optional[float]) -> torch.Tensor:
+    """The kernel as an operator of its own (a recorded Program and an
+    exported graph name it): the plain version on the CPU, the launch on
+    the card."""
+    if q.device.type == "cpu":
+        return ragged_decode_attention_ref(q, k_cache, v_cache, lengths,
+                                           scale)
+    return _decode_cuda(q, k_cache, v_cache, lengths, scale)
+
+
+@_decode_op.register_fake
+def _(q, k_cache, v_cache, lengths, scale):
+    _shapes(q, k_cache, v_cache, lengths)
+    return q.new_empty(q.shape)
+
+
+def ragged_decode_attention(q, k_cache, v_cache, lengths,
+                            scale: Optional[float] = None):
+    """q ``[B, 1, H, D]``; caches ``[B, S_max, Hkv, D]``; lengths ``[B]``
+    int32 (positions ``j < lengths[b]`` are attended). Returns
+    ``[B, 1, H, D]`` in q's dtype, through the
+    ``paddle_tpu_torch::ragged_decode_attention`` operator.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream, or raise on an input it cannot take or on a launch
+    error. Meta and fake tensors get the shape."""
+    _shapes(q, k_cache, v_cache, lengths)
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"no decode-attention kernel for device {q.device}")
+    return torch.ops.paddle_tpu_torch.ragged_decode_attention(
+        q, k_cache, v_cache, lengths, None if scale is None else float(scale))
 
 
 ragged_decode_attention.launches = 0

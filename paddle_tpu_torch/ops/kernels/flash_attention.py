@@ -1,5 +1,5 @@
 """Flash attention, forward and backward: the CUDA kernels' wrappers, their
-plain PyTorch versions and the ``torch.autograd.Function`` that joins them.
+plain PyTorch versions and the operator that joins them.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``
 (``flash_attention``, :219-346). q is ``[B, Sq, H, D]``, k and v are
@@ -34,6 +34,15 @@ the plain version. ``<wrapper>.launches`` counts kernel launches.
 the LSE, for ring attention) are the differentiable entry points: their
 forward and backward both go through the wrappers, never through autograd
 of the plain forward.
+
+The forward is the ``torch.library`` operator
+``paddle_tpu_torch::flash_attention_fwd`` (a ``cuda`` body that launches
+K2 and counts it, a ``cpu`` body that is the plain version, a fake body
+that gives the shapes), with K3 and K4 as its registered backward; both
+differentiable entry points call it. So a
+static ``Program`` infers its shapes on meta tensors, ``torch.export``
+names the operator instead of tracing into a ``ctypes`` launch, and an
+exported graph saved on the CPU launches K2 once loaded on the card.
 """
 from __future__ import annotations
 
@@ -201,14 +210,9 @@ def _device_gate(q, what):
     return q.device.type == "cpu"
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False,
-                        scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O ``[B, Sq, H, D]`` in q's dtype, LSE ``[B, H, Sq]`` fp32). CPU
-    tensors take the plain version; CUDA tensors launch K2 or raise."""
+def _fwd_cuda(q, k, v, causal, scale):
+    """K2 on CUDA tensors, or raise."""
     B, Sq, Sk, H, Hkv, D = _shapes(q, k, v)
-    if _device_gate(q, "flash-attention"):
-        return flash_attention_fwd_ref(q, k, v, causal, scale)
     _check_cuda([("q", q), ("k", k), ("v", v)])
     lse = torch.empty(B, H, Sq, device=q.device, dtype=torch.float32)
     if q.numel() == 0 or Sk == 0:
@@ -221,6 +225,51 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
             _DTYPE_CODE[q.dtype])
     flash_attention_fwd.launches += 1
     return o[..., :D].contiguous(), lse
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types=("cpu", "cuda"))
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 as an operator of its own: a recorded Program, a CUDA graph and
+    an exported graph name it, and never inline its plain body. CPU
+    tensors take the plain version; CUDA tensors launch K2 or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, causal, scale)
+    return _fwd_cuda(q, k, v, causal, scale)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, scale):
+    B, Sq, Sk, H, Hkv, D = _shapes(q, k, v)
+    return (q.new_empty(q.shape),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _fwd_backward(ctx, do, g_lse):
+    return _flash_bwd(ctx, do, g_lse) + (None, None)
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O ``[B, Sq, H, D]`` in q's dtype, LSE ``[B, H, Sq]`` fp32) through
+    the ``paddle_tpu_torch::flash_attention_fwd`` operator. CPU tensors
+    take the plain version; CUDA tensors launch K2 or raise; meta and
+    fake tensors get the shapes. Differentiable in both outputs: K3 and K4
+    are the operator's registered backward."""
+    _shapes(q, k, v)
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    return torch.ops.paddle_tpu_torch.flash_attention_fwd(
+        q, k, v, bool(causal), None if scale is None else float(scale))
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False,
@@ -273,7 +322,7 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
 
-def _flash_bwd(ctx, do, g_lse=None):
+def _flash_bwd(ctx, do, g_lse):
     """K3 + K4 for the saved (q, k, v, O, LSE) with ``delta = rowsum(dO *
     O)`` in fp32; an LSE cotangent folds in as ``delta - g_lse``
     (``_flash_bwd_core``, :263-286: d lse / d s = p, so it joins
@@ -281,7 +330,7 @@ def _flash_bwd(ctx, do, g_lse=None):
     q, k, v, o, lse = ctx.saved_tensors
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
-    if g_lse is not None:
+    if g_lse is not None:       # (zeros where the LSE went unused)
         delta = delta - g_lse.float()
     delta = delta.contiguous()                          # [B, H, Sq]
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
@@ -291,44 +340,14 @@ def _flash_bwd(ctx, do, g_lse=None):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """``jax.custom_vjp`` of flash_attention.py:219-346: K2 forward, saving
-    (q, k, v, O, LSE); K3 + K4 backward with ``delta`` in fp32."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        return _flash_bwd(ctx, do) + (None, None)
-
-
-class _FlashAttentionLSE(torch.autograd.Function):
-    """``jax.custom_vjp`` of flash_attention.py:349-376: two outputs, O and
-    the fp32 LSE; the backward takes a cotangent for each (a missing one
-    arrives as zeros)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o, lse
-
-    @staticmethod
-    def backward(ctx, do, g_lse):
-        return _flash_bwd(ctx, do, g_lse) + (None, None)
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable flash attention on ``[B, S, H, D]``: forward through
     K2, backward through K3 and K4 (their plain versions on the CPU)."""
-    return _FlashAttention.apply(q, k, v, bool(causal), scale)
+    return flash_attention_fwd(q, k, v, causal, scale)[0]
 
 
 def flash_attention_lse(q, k, v, causal: bool = False,
@@ -339,4 +358,4 @@ def flash_attention_lse(q, k, v, causal: bool = False,
     key blocks (ring attention). Differentiable in both outputs: K2
     forward, K3 and K4 backward with the LSE's cotangent folded into
     ``delta`` (their plain versions on the CPU)."""
-    return _FlashAttentionLSE.apply(q, k, v, bool(causal), scale)
+    return flash_attention_fwd(q, k, v, causal, scale)

@@ -39,6 +39,9 @@ Each wrapper takes its plain version (``*_ref``: the same math over the
 full ``[N, V]`` logits in fp32) for tensors on the CPU, and launches its
 kernel for tensors on the card, or raises: there is no fallback from the
 card to the plain version. ``<wrapper>.launches`` counts kernel launches.
+The forward is the ``torch.library`` operator
+``paddle_tpu_torch::fused_ce_fwd`` (cpu, cuda and fake bodies), so a
+recorded Program or an exported graph names it.
 """
 from __future__ import annotations
 
@@ -157,15 +160,12 @@ def _fwd_splits(h, w) -> int:
     return splits
 
 
-def fused_ce_fwd(h, w, labels, vocab_offset: int = 0):
-    """fp32 ``(m, l, z)``, each ``[N]``. CPU tensors take the plain
-    version; CUDA tensors launch K5 (two launches: the splits, then their
-    merge) or raise."""
+def _fwd_cuda(h, w, labels, vocab_offset):
+    """K5 on CUDA tensors, or raise."""
     N, H, V = _shapes(h, w, labels)
-    if _device_gate(h, "fused cross-entropy"):
-        return fused_ce_fwd_ref(h, w, labels, vocab_offset)
     lab = _check_cuda(h, w, labels)
-    m, l, z = torch.empty(3, N, device=h.device, dtype=torch.float32)
+    m, l, z = (torch.empty(N, device=h.device, dtype=torch.float32)
+               for _ in range(3))
     if N == 0:
         return m, l, z
     splits = _fwd_splits(h, w)
@@ -175,6 +175,38 @@ def fused_ce_fwd(h, w, labels, vocab_offset: int = 0):
             z.data_ptr(), N, H, V, splits, _DTYPE_CODE[h.dtype])
     fused_ce_fwd.launches += 1
     return m, l, z
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_ce_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _fwd_op(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+            vocab_offset: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K5 as an operator of its own (a recorded Program and an exported
+    graph name it): the plain version on the CPU, the launch on the
+    card."""
+    if h.device.type == "cpu":
+        return fused_ce_fwd_ref(h, w, labels, vocab_offset)
+    return _fwd_cuda(h, w, labels, vocab_offset)
+
+
+@_fwd_op.register_fake
+def _(h, w, labels, vocab_offset):
+    N, _, _ = _shapes(h, w, labels)
+    return tuple(h.new_empty((N,), dtype=torch.float32) for _ in range(3))
+
+
+def fused_ce_fwd(h, w, labels, vocab_offset: int = 0):
+    """fp32 ``(m, l, z)``, each ``[N]``, through the
+    ``paddle_tpu_torch::fused_ce_fwd`` operator. CPU tensors take the
+    plain version; CUDA tensors launch K5 (two launches: the splits, then
+    their merge) or raise; meta and fake tensors get the shapes."""
+    _shapes(h, w, labels)
+    if h.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"no fused cross-entropy kernel for device "
+                         f"{h.device}")
+    return torch.ops.paddle_tpu_torch.fused_ce_fwd(h, w, labels,
+                                                   int(vocab_offset))
 
 
 def _bwd(fn_name, h, w, labels, lse, g, vocab_offset, shape):

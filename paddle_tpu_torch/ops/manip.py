@@ -16,6 +16,7 @@ import torch
 
 from ..core import dtype as dtypes
 from ..core.tensor import Tensor
+from ._static_shape import static_int, static_int_list
 from .dispatch import apply
 
 __all__ = []
@@ -33,10 +34,11 @@ def _export(fn, name=None):
 
 def _static_ints(x):
     if isinstance(x, _T):
-        return int(x) if x.dim() == 0 else [int(v) for v in x.tolist()]
+        return static_int(x, "shape") if x.dim() == 0 \
+            else static_int_list(x, "shape")
     if isinstance(x, (int, np.integer)):
         return int(x)
-    return [int(v) for v in x]
+    return static_int_list(x, "shape")
 
 
 def _host(x) -> np.ndarray:

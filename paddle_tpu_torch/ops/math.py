@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core import dtype as dtypes
+from ._static_shape import static_int, static_int_list
 from .dispatch import apply
 
 __all__ = []
@@ -400,7 +401,8 @@ def _axis_arg(axis):
     if axis is None:
         return None
     if isinstance(axis, _T):
-        return int(axis) if axis.dim() == 0 else tuple(axis.tolist())
+        return static_int(axis, "axis") if axis.dim() == 0 \
+            else tuple(static_int_list(axis, "axis"))
     if isinstance(axis, (list, tuple)):
         return tuple(int(a) for a in axis)
     return int(axis)

@@ -14,6 +14,7 @@ import torch
 from ..core import dtype as dtypes
 from ..core.device import resolve_device
 from ..core.generator import default_generator
+from ._static_shape import static_int, static_int_list
 from ..core.tensor import Tensor
 from .dispatch import apply
 
@@ -27,9 +28,9 @@ __all__ = [
 def _shape(shape):
     if isinstance(shape, (int, np.integer)):
         return (int(shape),)
-    if isinstance(shape, torch.Tensor):
-        return tuple(int(s) for s in shape.reshape(-1).tolist())
-    return tuple(int(s) for s in shape)
+    if isinstance(shape, torch.Tensor) and shape.dim() == 0:
+        return (static_int(shape, "shape"),)
+    return tuple(static_int_list(shape, "shape"))
 
 
 def _dt(dtype):

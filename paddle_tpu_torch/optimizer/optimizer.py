@@ -189,8 +189,14 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """``loss.backward()``, ``step()`` and ``clear_grad()`` (the eager
-        leg of optimizer.py:129-140; the port has no static mode)."""
+        """Under static mode, record backward and this optimizer's update
+        into the current Program (``static.Executor`` runs them); else
+        ``loss.backward()``, ``step()`` and ``clear_grad()``
+        (optimizer.py:129-140)."""
+        from ..static import framework as sfw
+        if sfw.in_static_mode() and isinstance(loss, sfw.Variable):
+            sfw.append_backward_and_update(loss, self)
+            return
         loss.backward()
         self.step()
         self.clear_grad()

@@ -63,6 +63,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False   # fp32 convolutions, as the CPU
     return torch.device("cuda")
 
 
@@ -1396,3 +1397,297 @@ def test_one_profiled_step_records_its_ops(cuda_device):
     ops = [e for e in prof.events() if e["cat"] == "op"]
     assert len(ops) == sum(st.stats.values())
     assert P.ops.dispatch._quiet
+
+
+# ---- the kernel operators (torch.library) and the static/export tier ----
+
+def _ops_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def r(*s, dtype=torch.bfloat16):
+        return (0.5 * torch.randn(*s, generator=g, device=dev)).to(dtype)
+    q, k, v = r(2, 256, 8, 64), r(2, 256, 4, 64), r(2, 256, 4, 64)
+    qd, kc, vc = r(3, 1, 8, 64), r(3, 128, 4, 64), r(3, 128, 4, 64)
+    lengths = torch.tensor([1, 77, 128], dtype=torch.int32, device=dev)
+    h, w = r(64, 256), r(256, 512)
+    labels = torch.randint(0, 512, (64,), generator=g, device=dev)
+    return [
+        ("flash_attention_fwd", fa.flash_attention_fwd,
+         (q, k, v, True, None), fa.flash_attention_fwd_ref),
+        ("ragged_decode_attention",
+         __import__("paddle_tpu_torch.ops.kernels.decode_attention",
+                    fromlist=["x"]).ragged_decode_attention,
+         (qd, kc, vc, lengths, None), ragged_decode_attention_ref),
+        ("fused_ce_fwd", fce.fused_ce_fwd, (h, w, labels, 0),
+         fce.fused_ce_fwd_ref),
+    ]
+
+
+@pytest.mark.cuda
+def test_kernel_operators_launch_their_kernels_and_count(cuda_device):
+    """``torch.ops.paddle_tpu_torch.<op>`` on card tensors runs the
+    kernel (its wrapper's counter rises by one a call) and agrees with the
+    plain version."""
+    for name, wrapper, args, ref in _ops_cases(cuda_device):
+        op = getattr(torch.ops.paddle_tpu_torch, name)
+        before = wrapper.launches
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        want = ref(*args)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        for a, b in zip(got, want):
+            assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+            scale = float(b.float().abs().max().clamp_min(1.0))
+            assert float((a.float() - b.float()).abs().max()) <= \
+                2 ** -6 * scale, name
+
+
+@pytest.mark.cuda
+def test_register_fake_gives_the_kernel_shapes(cuda_device):
+    """On meta tensors (a static Program's shape inference) and under a
+    FakeTensor trace each operator gives the kernel's output shapes and
+    dtypes, and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    for name, wrapper, args, _ in _ops_cases(cuda_device):
+        op = getattr(torch.ops.paddle_tpu_torch, name)
+        real = op(*args)
+        real = real if isinstance(real, (tuple, list)) else (real,)
+        before = wrapper.launches
+        meta = op(*[a.to("meta") if isinstance(a, torch.Tensor) else a
+                    for a in args])
+        meta = meta if isinstance(meta, (tuple, list)) else (meta,)
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake = op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                        else a for a in args])
+        fake = fake if isinstance(fake, (tuple, list)) else (fake,)
+        assert wrapper.launches == before, name
+        for r, m, f in zip(real, meta, fake):
+            assert (m.shape, m.dtype) == (r.shape, r.dtype), name
+            assert (f.shape, f.dtype, f.device.type) == (r.shape, r.dtype,
+                                                         "cuda"), name
+
+
+def _tiny_llama(dev, seed=0):
+    cfg = LlamaConfig.tiny(vocab=128, hidden=64, layers=2, heads=4,
+                           inter=128)
+    return LlamaForCausalLM(cfg, device=dev, seed=seed)
+
+
+@pytest.mark.cuda
+def test_kernel_failure_in_a_graph_raises_and_never_takes_the_plain_path(
+        cuda_device, monkeypatch):
+    """A K2 launch that fails inside a to_static or an Executor graph
+    raises (after its bailout to eager, which launches again and fails
+    again); the plain version never runs on card tensors."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import static
+    P.set_device("cuda")
+    plain = []
+    ref = fa.flash_attention_fwd_ref
+
+    def spy(q, *a, **k):
+        plain.append(q.device.type)
+        return ref(q, *a, **k)
+    monkeypatch.setattr(fa, "flash_attention_fwd_ref", spy)
+
+    def fail(fn_name, *a):
+        raise RuntimeError(f"{fn_name} kernel launch failed: cudaError 700")
+    monkeypatch.setattr(fa, "_launch", fail)
+    m = _tiny_llama(cuda_device)
+    ids = P.to_tensor(np.arange(32).reshape(2, 16) % 128)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        P.to_static(m.llama)(ids)
+    static.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            x = static.data("ids", [2, 16], "int64")
+            loss = m.compute_loss(x, x)
+        with pytest.raises(RuntimeError, match="cudaError 700"):
+            static.Executor().run(main, feed={"ids": ids.numpy()},
+                                  fetch_list=[loss])
+    finally:
+        static.disable_static()
+    assert "cuda" not in plain
+
+
+@pytest.mark.cuda
+def test_to_static_runs_as_graphs_and_counts_replayed_launches(cuda_device):
+    """The tiny decoder under to_static on the card: the first call is the
+    eager warm-up, then one forward and one backward graph; each replay
+    adds K2 = layers and its backward K3 = K4 = layers; outputs and grads
+    equal the eager model's (the same kernels replay)."""
+    import paddle_tpu_torch as P
+    P.set_device("cuda")
+    m = _tiny_llama(cuda_device)
+    ids = P.to_tensor(np.arange(32).reshape(2, 16) % 128)
+    h_e = m.llama(ids)
+    h_e.float().square().sum().backward()
+    g_e = {n: p.grad.clone() for n, p in m.llama.named_parameters()}
+    # drop the eager graph: a live AccumulateGrad node made on the default
+    # stream would break the backward graph's capture (a bailout)
+    h_e = h_e.detach().clone()
+    m.llama.clear_gradients()
+    sp = P.to_static(m.llama)
+    sf = m.llama._static_function
+    for i in range(3):
+        for p in m.llama.parameters():
+            p.grad = None
+        c0 = [fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq
+              .launches, fa.flash_attention_bwd_dkv.launches]
+        h = sp(ids)
+        h.float().square().sum().backward()
+        torch.cuda.synchronize()
+        c1 = [fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq
+              .launches, fa.flash_attention_bwd_dkv.launches]
+        assert [b - a for a, b in zip(c0, c1)] == [2, 2, 2], i
+        torch.testing.assert_close(h, h_e, rtol=1e-5, atol=1e-5)
+        for n, p in m.llama.named_parameters():
+            torch.testing.assert_close(p.grad, g_e[n], rtol=1e-4,
+                                       atol=1e-5)
+    info = sf.cache_info()
+    assert info["graphs"] == 2 and info["bailouts"] == 0, info
+    assert info["hits"] == 2 and info["lowerings"] == 1, info
+
+
+def _grads(layer):
+    return {n: p.grad.clone() for n, p in layer.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_to_static_calls_keep_their_outputs_and_grads(cuda_device):
+    """Two calls of one signature before their outputs are read or
+    backpropagated, held against eager: no-grad replays return copies;
+    with grads the second forward runs eagerly while the first replay's
+    backward is pending (counted in ``in_flight``); two backwards in a row
+    accumulate, the second replay overwriting neither the first's
+    ``.grad`` nor its output."""
+    import paddle_tpu_torch as P
+    P.set_device("cuda")
+    m = _tiny_llama(cuda_device)
+    net = m.llama
+    rs = np.random.RandomState(7)
+    ids1, ids2 = (P.to_tensor(rs.randint(0, 128, (2, 16))) for _ in "ab")
+
+    def sq(h):
+        return h.float().square().sum()
+
+    a_e, b_e = net(ids1), net(ids2)
+    (sq(a_e) + 0.5 * sq(b_e)).backward()
+    g_pair = _grads(net)
+    net.clear_gradients()
+    sq(net(ids1)).backward()
+    sq(net(ids2)).backward()
+    g_acc = _grads(net)
+    # drop the eager graphs before any capture (see the test above)
+    a_e, b_e = a_e.detach().clone(), b_e.detach().clone()
+    net.clear_gradients()
+
+    sp = P.to_static(net)
+    sf = net._static_function
+    sq(sp(ids1)).backward()                  # warm-up, then the graphs
+    net.clear_gradients()
+    a, b = sp(ids1), sp(ids2)                # a replay, then in flight
+    torch.testing.assert_close(a, a_e, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b, b_e, rtol=1e-5, atol=1e-5)
+    (sq(a) + 0.5 * sq(b)).backward()
+    for n, p in net.named_parameters():
+        torch.testing.assert_close(p.grad, g_pair[n], rtol=1e-4, atol=1e-5)
+    net.clear_gradients()
+    a = sp(ids1)                             # two replays and backwards
+    sq(a).backward()
+    b = sp(ids2)
+    sq(b).backward()
+    for n, p in net.named_parameters():
+        torch.testing.assert_close(p.grad, g_acc[n], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(a, a_e, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b, b_e, rtol=1e-5, atol=1e-5)
+    info = sf.cache_info()
+    assert info["in_flight"] == 1 and info["bailouts"] == 0, info
+    assert info["hits"] == 3, info
+
+    with torch.no_grad():
+        sp(ids1)                             # the no-grad warm-up
+        a, b = sp(ids1), sp(ids2)
+    torch.testing.assert_close(a, a_e, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b, b_e, rtol=1e-5, atol=1e-5)
+    assert sf.cache_info()["hits"] == 5
+
+
+@pytest.mark.cuda
+def test_to_static_tensor_if_bails_out_with_its_reason(cuda_device):
+    import paddle_tpu_torch as P
+    P.set_device("cuda")
+
+    @P.to_static
+    def f(x):
+        if x.sum() > 0:
+            y = x * 2.0
+        else:
+            y = -x
+        return y
+
+    for v, want in (([1.0, 2.0], [2.0, 4.0]), ([-1.0, -2.0], [1.0, 2.0]),
+                    ([3.0, 1.0], [6.0, 2.0])):
+        np.testing.assert_allclose(f(P.to_tensor(v)).numpy(), want)
+    info = f._static_function.cache_info()
+    assert info["bailouts"] == 1 and info["graphs"] == 0, info
+    assert "host sync" in info["bailout_reason"], info
+
+
+@pytest.mark.cuda
+def test_executor_run_is_one_graph_and_matches_the_cpu(cuda_device):
+    """The tiny LLaMA as a static Program trained 3 AdamW runs on the card
+    (one cache entry, one CUDA graph, no bailout) against the same
+    Program on the CPU, fp32; each run feeds its own batch, so a replay
+    that read a stale feed would fail."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import static
+    toks = np.random.RandomState(3).randint(0, 128, (3, 2, 17))
+    feeds = [{"ids": t[:, :-1], "labels": t[:, 1:].copy()} for t in toks]
+    losses = {}
+    state = _tiny_llama("cpu", seed=5).state_dict()
+    for dev in ("cpu", "cuda"):
+        P.set_device(dev)
+        static.enable_static()
+        try:
+            main = static.Program()
+            with static.program_guard(main):
+                m = _tiny_llama(dev)
+                m.load_state_dict(state)        # the same weights
+                ids = static.data("ids", [2, 16], "int64")
+                labels = static.data("labels", [2, 16], "int64")
+                loss = m.compute_loss(ids, labels)
+                P.optimizer.AdamW(1e-3, parameters=m.parameters()) \
+                    .minimize(loss)
+            exe = static.Executor()
+            with static.scope_guard(static.Scope()):
+                losses[dev] = [float(exe.run(main, feed=feed,
+                                             fetch_list=[loss])[0])
+                               for feed in feeds]
+        finally:
+            static.disable_static()
+    info = exe.cache_info()
+    assert info["entries"] == 1 and info["steps"][0]["graphs"] == 1, info
+    assert info["steps"][0]["bailouts"] == 0, info
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cpu_artifact_launches_k2_on_the_card(cuda_device, tmp_path):
+    import paddle_tpu_torch as P
+    m = _tiny_llama("cpu")
+    P.jit.save(m, str(tmp_path / "t"), input_spec=[
+        P.jit.InputSpec([2, 16], "int64")])
+    loaded = P.jit.load(str(tmp_path / "t"), device="cuda")
+    rs = np.random.RandomState(4)
+    for i in range(3):       # the warm-up, then graph replays
+        ids = rs.randint(0, 128, (2, 16))
+        before = fa.flash_attention_fwd.launches
+        got = loaded(P.to_tensor(ids, place="cuda"))
+        torch.cuda.synchronize()
+        assert fa.flash_attention_fwd.launches == before + 2, i
+        want = m.logits(P.to_tensor(ids, place="cpu")).detach()
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -92,8 +92,9 @@ def test_backward_grads_match_pallas(B, Sq, H, D, Hkv, causal, Sk):
 
 
 def test_backward_goes_through_the_plain_backward_not_autograd(monkeypatch):
-    """The autograd.Function calls the dq and dk/dv wrappers once each per
-    backward; nothing differentiates through the plain forward."""
+    """The operator's registered backward calls the dq and dk/dv wrappers
+    once each per backward; nothing differentiates through the plain
+    forward."""
     q, k, v, g = _inputs(1, 32, 4, 16, 2, 32, seed=2)
     calls = []
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
@@ -105,7 +106,7 @@ def test_backward_goes_through_the_plain_backward_not_autograd(monkeypatch):
         monkeypatch.setattr(fa_mod, name, spy)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     o = flash_attention(tq, tk, tv, True)
-    assert o.grad_fn.__class__.__name__ == "_FlashAttentionBackward"
+    assert "paddle_tpu_torch_flash_attention_fwd" in o.grad_fn.name()
     o.backward(torch.from_numpy(g))
     assert calls == ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
 

@@ -22,7 +22,9 @@ import paddle_tpu
 import paddle_tpu_torch
 
 # names the JAX top level resolves in its module ``__getattr__``
-LAZY = {"paddle_tpu": ("DataParallel", "distributed")}
+LAZY = {"paddle_tpu": ("DataParallel", "distributed", "static", "inference",
+                        "enable_static", "disable_static",
+                        "in_dynamic_mode", "CompiledProgram")}
 
 
 def _packages(root):
@@ -80,7 +82,8 @@ def test_the_walk_sees_the_ported_packages():
                  "paddle_tpu.core", "paddle_tpu.device",
                  "paddle_tpu.profiler", "paddle_tpu.ops",
                  "paddle_tpu.nn.utils", "paddle_tpu.nn.quant",
-                 "paddle_tpu.vision", "paddle_tpu.vision.models"):
+                 "paddle_tpu.vision", "paddle_tpu.vision.models",
+                 "paddle_tpu.static", "paddle_tpu.inference"):
         assert must in PAIRS, must
 
 

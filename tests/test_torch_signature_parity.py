@@ -51,6 +51,13 @@ ALLOWED = {
         "rule reads a closed jaxpr (`closed`)",
     "jit.passes.lint.record_lint":
         "as analyze: the step's record (`program`), not a closed jaxpr",
+    "static.framework.Variable.astype":
+        "inherits Tensor.astype: `(self, dtype)` against the lambda's "
+        "`(s, d)`",
+    "static.graft_program.GraftProgram":
+        "views the port's captured step (`captured`: a jit.program."
+        "CapturedProgram, one CUDA graph); there is no closed jaxpr, "
+        "avals or donation to pass in",
 }
 
 
