@@ -5,7 +5,7 @@
                           [--mesh-only | --deepfm-only | --elastic-only |
                            --eager-only | --nn-only | --gpt-only |
                            --measure-only | --vision-only | --bert-only |
-                           --static-only]
+                           --static-only | --incubate-only]
 
 Run from the repo root on a machine with a CUDA card, nvcc and PyTorch
 built for CUDA. It imports nothing of JAX or of ``paddle_tpu``; it drives
@@ -291,6 +291,34 @@ fails:
    host µs of K2 through its operator and through its launcher, save and
    load seconds and file sizes, images/s. ``--static-only`` runs the
    build and this phase.
+18. ``phase_incubate``, ``incubate`` and the serving C ABI: GPT-2 small
+   (``GPTConfig()``, weights at the seed) mapped into
+   ``FusedMultiTransformer(768, 12, 3072, activation="gelu",
+   epsilon=1e-5, num_layers=12)`` with GPT's embeddings, final norm and
+   tied head around it; B=8 prompts of 128 tokens prefilled into
+   ``init_caches(8, 1024)`` (``time_step=None``), then 64 greedy decode
+   steps with per-example ``seq_lens``. Gates: in fp32 every step's
+   logits (and the prefill's) against the last column of
+   ``GPTForCausalLM.forward`` over the same ids at relative L2 1e-4; in
+   bf16 the fused argmax on ``generate()``'s prefix gives its token at
+   >= 0.9 of positions and the free-running tokens equal generate's at
+   >= 0.5 (first divergence printed); one fp32 layer and one
+   ``masked_multihead_attention`` step card = CPU (rtol 1e-4, atol 1e-5;
+   the written caches bitwise); ``fused_rms_norm`` within one bf16 ulp of
+   LLaMA's RMSNorm and ``fused_rotary_position_embedding`` (interleaved)
+   bitwise LLaMA's RoPE at [2, 2048, 32, 128]; the incubate
+   ``fused_linear_cross_entropy`` at N=4096, H=4096, V=32000 bf16 launches
+   K5, K6, K7 once each, loss and dh against the plain versions. Then
+   ``build_capi()``, ``tests/torch_capi_smoke.c`` compiled with ``gcc
+   -ldl``, ResNet-50 fp32 eval (dynamic batch) and the LLaMA bf16 at 7b
+   width, EAGER_LAYERS layers, ``[1, 2048]`` saved, both served by the C
+   program in one process of its own (batch 1 and 64; the ids), its
+   outputs bitwise the in-process Predictor's (K2 = layers a run there;
+   the process's imports profiled). Printed:
+   prefill ms, decode step ms p50/p90, tokens/s, busy share and ops of a
+   decode step, peak GiB; the C process's run ms p50 beside the
+   in-process Predictor's and its start-up s. ``--incubate-only`` runs the
+   build and this phase.
 
 The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``gateway:`` lines as they finish. The last lines are
@@ -300,7 +328,7 @@ The serving features print ``spec:``, ``prefix:``, ``chunked:`` and
 ``{"nn_sweep": ...}``,
 ``{"gpt": ...}``, ``{"measure": ...}``, ``{"vision": ...}``,
 ``{"bert": ...}``, ``{"mesh": ...}``,
-``{"elastic": ...}``,
+``{"elastic": ...}``, ``{"incubate": ...}``,
 ``{"kernels": [...]}`` (K1-K7, U1 and U2, with the mesh paths'
 launches),
 ``{"serving": ...}``, the total run time, the card's
@@ -3664,6 +3692,581 @@ def phase_bert(torch, args, P, fa, mt):
     return out
 
 
+# ---- incubate (the fused transformer API) and the serving C ABI: GPT-2
+# small generating through FusedMultiTransformer, fused RMSNorm and RoPE
+# at LLaMA 7b shapes, masked_multihead_attention, the incubate entry of
+# the fused CE (K5-K7) and a C program serving two saved models
+
+INCUBATE_DIR = os.path.join("build", "chip_smoke_incubate")
+INC_BATCH, INC_PROMPT, INC_STEPS, INC_CACHE = 8, 128, 64, 1024
+INC_TIMED_TRACE = 3            # decode steps traced for the busy share
+# Gates, stated before the first card run (PERF.md section 6):
+# fp32, every decode step's logits (and the prefill's last ones) against
+# the last column of GPTForCausalLM.forward over the same ids, relative L2
+# over the batch (the same fp32 math in another order, TF32 off; expected
+# ~1e-5)
+INC_FP32_RTOL = 1e-4
+# bf16, the greedy tokens against GPTForCausalLM.generate: the share of
+# generate's tokens the fused decode's argmax gives on generate's own
+# prefix (teacher-forced), and the share of positions equal when each
+# runs free. bf16 rounds the two attention paths differently, so a
+# near-tie can flip; free-running, one flip changes the rest of that row.
+INC_BF16_TF_MIN = 0.9
+INC_BF16_EQUAL_MIN = 0.5
+# card against the CPU in fp32 (one layer's outputs and caches, one
+# masked_multihead_attention step): (rtol, atol) on max |diff|
+INC_CARD_CPU_TOL = (1e-4, 1e-5)
+# fused RMSNorm against LLaMA's RMSNorm in bf16: LLaMA rounds
+# x * rsqrt(ms + eps) to bf16 before the weight product, the fused norm
+# rounds once after it, so the two may differ by one bf16 ulp (|d| <=
+# 2**-7 of the larger magnitude); fused RoPE forms LLaMA's fp32 products
+# in LLaMA's order, so it must be bitwise equal
+INC_BF16_ULP = 2.0 ** -7
+INC_LLAMA_SHAPE = (2, 2048, 32, 128)
+INC_CAPI_REPS = 5
+
+
+def gpt_into_fused(torch, gpt, fmt):
+    """Copy GPTForCausalLM's decoder into FusedMultiTransformer's lists:
+    norm1 -> ln, q/k/v -> qkv ``[3, H, D, E]`` (Paddle's ``[in, out]``
+    weights, out = head x D + d), out_proj -> linear, norm2 -> ffn_ln,
+    linear1/2 -> ffn1/2. The lists are state-dict keys ``p{i}_{j}`` (list
+    i, layer j)."""
+    E, H, D = fmt.embed_dim, fmt.num_heads, fmt.head_dim
+    own = fmt.state_dict(keep_vars=True)
+
+    def heads(w):
+        return w.reshape(E, H, D).permute(1, 2, 0)
+    with torch.no_grad():
+        for j, lay in enumerate(gpt.gpt.decoder.layers):
+            at = lay.self_attn
+            src = [lay.norm1.weight, lay.norm1.bias,
+                   torch.stack([heads(at.q_proj.weight),
+                                heads(at.k_proj.weight),
+                                heads(at.v_proj.weight)]),
+                   torch.stack([at.q_proj.bias, at.k_proj.bias,
+                                at.v_proj.bias]).reshape(3, H, D),
+                   at.out_proj.weight, at.out_proj.bias, lay.norm2.weight,
+                   lay.norm2.bias, lay.linear1.weight, lay.linear1.bias,
+                   lay.linear2.weight, lay.linear2.bias]
+            for i, t in enumerate(src):
+                torch.Tensor.copy_(own[f"p{i}_{j}"], t)
+
+
+class FusedGPT:
+    """GPT-2's embeddings, final norm and tied head around a
+    FusedMultiTransformer: a prefill (``time_step=None``) into
+    ``init_caches``, then decode steps with per-example ``seq_lens``."""
+
+    def __init__(self, P, gpt, fmt):
+        self.P, self.gpt, self.fmt = P, gpt.gpt, fmt
+
+    def embed(self, ids, pos):
+        return self.gpt.word_embeddings(ids) + \
+            self.gpt.position_embeddings(pos)
+
+    def head(self, h):
+        return self.P.matmul(self.gpt.final_norm(h),
+                             self.gpt.word_embeddings.weight,
+                             transpose_y=True)
+
+    def prefill(self, ids, caches):
+        b, s = ids.shape
+        pos = self.P.to_tensor(np.tile(np.arange(s), (b, 1)), place=DEVICE)
+        h, caches = self.fmt(self.embed(ids, pos), caches=caches)
+        return self.head(h[:, -1:]), caches
+
+    def step(self, tok, lens, caches):
+        """tok ``[B, 1]`` at positions lens ``[B]``: the next logits."""
+        h, caches = self.fmt(self.embed(tok, lens[:, None]), caches=caches,
+                             seq_lens=lens)
+        return self.head(h), caches
+
+
+def fused_decode(torch, P, fg, prompts, steps, dtype, feed=None,
+                 timed=False):
+    """Prefill ``prompts`` ``[B, S]`` into fresh caches, then ``steps``
+    greedy decode steps (or steps fed ``feed``'s tokens, teacher-forced).
+    Returns the tokens picked ``[B, steps + 1]``, every logits ``[B, V]``
+    (prefill first) and, when timed, the prefill and per-step ms."""
+    b, s = prompts.shape
+    ids = P.to_tensor(prompts, place=DEVICE)
+    caches = fg.fmt.init_caches(b, INC_CACHE, dtype=dtype)
+    times = {"step_ms": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = fg.prefill(ids, caches)
+    torch.cuda.synchronize()
+    times["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    outs = [logits[:, -1]]
+    picks = [torch.argmax(logits[:, -1], -1)]
+    lens = P.to_tensor(np.full(b, s, np.int64), place=DEVICE)
+    for t in range(steps):
+        tok = picks[-1][:, None] if feed is None else \
+            P.to_tensor(feed[:, t:t + 1], place=DEVICE)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = fg.step(tok, lens, caches)
+        lens = lens + 1
+        picks.append(torch.argmax(logits[:, -1], -1))
+        if timed:
+            torch.cuda.synchronize()
+            times["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        outs.append(logits[:, -1])
+    tokens = torch.stack(picks, 1).cpu().numpy()
+    return tokens, outs, times, (lens, caches, picks[-1])
+
+
+def inc_gpt(torch, args, P):
+    """GPT-2 small generating through FusedMultiTransformer in fp32 (every
+    step's logits against GPTForCausalLM.forward) and bf16 (the greedy
+    tokens against GPTForCausalLM.generate, timed and traced)."""
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.models import gpt as G
+    P.seed(args.seed, DEVICE)
+    cfg = G.GPTConfig()
+    gpt = G.GPTForCausalLM(cfg, device=DEVICE)
+    gpt.eval()
+    fmt = FusedMultiTransformer(
+        cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
+        activation="gelu", epsilon=cfg.layer_norm_eps,
+        num_layers=cfg.num_hidden_layers, device=DEVICE)
+    fmt.eval()
+    gpt_into_fused(torch, gpt, fmt)
+    fg = FusedGPT(P, gpt, fmt)
+    prompts = np.random.RandomState(args.seed + 11).randint(
+        0, cfg.vocab_size, (INC_BATCH, INC_PROMPT)).astype(np.int64)
+    out = {"config": {"layers": cfg.num_hidden_layers,
+                      "hidden": cfg.hidden_size,
+                      "heads": cfg.num_attention_heads,
+                      "ffn": cfg.intermediate_size, "vocab": cfg.vocab_size,
+                      "batch": INC_BATCH, "prompt": INC_PROMPT,
+                      "decode_steps": INC_STEPS, "cache": INC_CACHE}}
+    # fp32: each step's logits against the full forward over the same ids
+    tokens, logits, _, _ = fused_decode(torch, P, fg, prompts, INC_STEPS,
+                                        torch.float32)
+    ids = np.concatenate([prompts, tokens], 1)
+    errs = []
+    with torch.no_grad():
+        for t, got in enumerate(logits):
+            want = gpt(P.to_tensor(ids[:, :INC_PROMPT + t],
+                                   place=DEVICE))[:, -1]
+            errs.append(rel_l2(got, want))
+    out["fp32_logits_rel_l2_max"] = max(errs)
+    out["fp32_logits_rel_l2_prefill"] = errs[0]
+    check(max(errs) <= INC_FP32_RTOL,
+          f"fused GPT-2 fp32: decode-step logits {max(errs):.3g} (relative "
+          f"L2) from GPTForCausalLM.forward at step {int(np.argmax(errs))}")
+    # bf16: generate() against the fused decode, free and teacher-forced
+    gpt.to(dtype=torch.bfloat16)
+    fmt.to(dtype=torch.bfloat16)
+    with torch.no_grad():
+        ref = gpt.generate(P.to_tensor(prompts, place=DEVICE),
+                           max_new_tokens=INC_STEPS + 1).cpu().numpy()
+    ref_new = ref[:, INC_PROMPT:]
+    fused_decode(torch, P, fg, prompts, 4, torch.bfloat16)      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    tokens, _, times, (lens, caches, last) = fused_decode(
+        torch, P, fg, prompts, INC_STEPS, torch.bfloat16, timed=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tf_tokens, _, _, _ = fused_decode(torch, P, fg, prompts, INC_STEPS,
+                                      torch.bfloat16, feed=ref_new)
+    first, equal = divergence([np.zeros(0)] * INC_BATCH, ref_new, tokens)
+    tf = float((tf_tokens == ref_new).mean())
+    log(f"fused GPT-2 bf16 against generate(): first divergence per row "
+        f"{first}, {equal:.3f} of positions equal; teacher-forced "
+        f"{tf:.3f}")
+    check(tf >= INC_BF16_TF_MIN,
+          f"fused GPT-2 bf16: the fused argmax on generate()'s prefix gives "
+          f"its token at only {tf:.3f} of positions")
+    check(equal >= INC_BF16_EQUAL_MIN,
+          f"fused GPT-2 bf16: greedy tokens equal generate()'s at only "
+          f"{equal:.3f} of positions")
+
+    # one more decode step: its dispatched ops, then traced
+    def one_step():
+        with torch.no_grad():
+            return fg.step(last[:, None], lens, caches)
+    with debugging.collect_operator_stats() as st:
+        one_step()
+    ops = sum(st.stats.values())
+    trace = trace_call(torch, lambda: [one_step()
+                                       for _ in range(INC_TIMED_TRACE)])
+    step_p50 = float(np.percentile(times["step_ms"], 50))
+    kernel_ms = trace["device_kernel_ms"] / INC_TIMED_TRACE \
+        if trace["device_kernel_ms"] is not None else None
+    out.update({
+        "bf16_equal_share": equal, "bf16_first_divergence": first,
+        "bf16_teacher_forced": tf, "prefill_ms": times["prefill_ms"],
+        "decode_step_ms": times["step_ms"],
+        "decode_step_ms_p50": step_p50,
+        "decode_step_ms_p90": float(np.percentile(times["step_ms"], 90)),
+        "decode_tokens_per_s": INC_BATCH * len(times["step_ms"]) * 1e3
+        / sum(times["step_ms"]),
+        "device_kernel_ms_per_step": kernel_ms,
+        "device_busy_share": kernel_ms / step_p50 if kernel_ms else None,
+        "kernel_launches_per_step": trace["kernel_launches"]
+        / INC_TIMED_TRACE,
+        "top_kernels": trace["top_kernels"], "ops_per_step": ops,
+        "peak_gib": peak})
+    log(f"fused GPT-2 small bf16: prefill {times['prefill_ms']:.2f} ms "
+        f"(B={INC_BATCH}, {INC_PROMPT} tokens), decode step p50 "
+        f"{step_p50:.3f} ms / p90 {out['decode_step_ms_p90']:.3f}, "
+        f"{out['decode_tokens_per_s']:.0f} tokens/s, busy share "
+        f"{out['device_busy_share']}, {ops} ops a step, peak {peak:.2f} GiB; "
+        f"fp32 logits {max(errs):.3g} from GPTForCausalLM.forward")
+    del gpt, fmt, fg, caches
+    release(torch)
+    return out
+
+
+def inc_card_vs_cpu(torch, args, P):
+    """One fp32 FusedMultiTransformer layer at GPT-2 small width, and one
+    masked_multihead_attention step at its geometry, on the card against
+    the same call on the CPU."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.incubate.nn.functional import \
+        masked_multihead_attention
+    rtol, atol = INC_CARD_CPU_TOL
+    E, H, F = 768, 12, 3072
+    D = E // H
+    layers = {}
+    for dev in (DEVICE, "cpu"):
+        P.seed(args.seed, "cpu")
+        m = FusedMultiTransformer(E, H, F, num_layers=1, device="cpu")
+        layers[dev] = m.to(dev) if dev != "cpu" else m
+        layers[dev].eval()
+    rs = np.random.RandomState(args.seed + 12)
+    x = rs.standard_normal((2, 16, E)).astype(np.float32)
+    x1 = rs.standard_normal((2, 1, E)).astype(np.float32)
+    lens = np.array([16, 9], np.int64)
+    res = {}
+    for dev, m in layers.items():
+        with torch.no_grad():
+            c = m.init_caches(2, 64)
+            o1, c = m(P.to_tensor(x, place=dev), caches=c)
+            o2, c = m(P.to_tensor(x1, place=dev), caches=c,
+                      seq_lens=P.to_tensor(lens, place=dev))
+        res[dev] = [t.cpu() for t in (o1, o2, *c)]
+    worst = 0.0
+    for got, want in zip(res[DEVICE], res["cpu"]):
+        d = float((got - want).abs().max())
+        worst = max(worst, d / (atol + rtol * float(want.abs().max())))
+    check(worst <= 1.0, f"FusedMultiTransformer, one layer, card vs CPU: "
+                        f"{worst:.3g}x the tolerance")
+    cache = rs.standard_normal((2, INC_BATCH, H, INC_CACHE, D)).astype(
+        np.float32)
+    q = rs.standard_normal((INC_BATCH, 3 * H * D)).astype(np.float32)
+    bias = rs.standard_normal(3 * H * D).astype(np.float32)
+    mask = rs.standard_normal((INC_BATCH, 1, 1, INC_CACHE)).astype(
+        np.float32)
+    slen = rs.randint(0, INC_CACHE, INC_BATCH).astype(np.int64)
+    mm = {}
+    for dev in (DEVICE, "cpu"):
+        o, nc = masked_multihead_attention(
+            *[P.to_tensor(a, place=dev) for a in (q, cache)],
+            bias=P.to_tensor(bias, place=dev),
+            src_mask=P.to_tensor(mask, place=dev),
+            sequence_lengths=P.to_tensor(slen, place=dev))
+        mm[dev] = (o.cpu(), nc.cpu())
+    d_out = float((mm[DEVICE][0] - mm["cpu"][0]).abs().max())
+    check(d_out <= atol + rtol * float(mm["cpu"][0].abs().max()),
+          f"masked_multihead_attention card vs CPU: max |d| {d_out:.3g}")
+    check(torch.equal(mm[DEVICE][1], mm["cpu"][1]),
+          "masked_multihead_attention card vs CPU: the written caches "
+          "differ")
+    log(f"incubate card vs CPU (fp32): one layer at {worst:.3g}x the "
+        f"tolerance; masked_multihead_attention max |d| {d_out:.3g}, caches "
+        f"bitwise")
+    return {"one_layer_tol_share": worst, "mmha_max_abs_err": d_out,
+            "mmha_caches_bitwise": True}
+
+
+def inc_norm_rope(torch, args, P):
+    """fused_rms_norm and fused_rotary_position_embedding (interleaved)
+    at LLaMA 7b shapes in bf16 against LLaMA's own RMSNorm and RoPE on the
+    same tensors."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.models import llama as Lm
+    from paddle_tpu_torch.nn.layers import RMSNorm
+    b, s, h, d = INC_LLAMA_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(args.seed + 13)
+    x = torch.randn(b, s, h * d, generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    norm = RMSNorm(h * d, 1e-6, device=DEVICE, dtype=torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(1.0 + 0.1 * torch.randn(h * d, generator=g,
+                                                  device=DEVICE))
+        want = norm(x)
+        got = IF.fused_rms_norm(x, norm.weight, 1e-6)
+    diff = (got.float() - want.float()).abs()
+    mag = torch.maximum(got.float().abs(), want.float().abs())
+    ulp_ok = bool((diff <= INC_BF16_ULP * mag).all())
+    norm_equal = float((diff == 0).float().mean())
+    check(ulp_ok and got.dtype == torch.bfloat16,
+          "fused_rms_norm against LLaMA's RMSNorm (bf16): beyond one bf16 "
+          f"ulp (max |d| {float(diff.max()):.3g})")
+    q, k = (torch.randn(b, s, h, d, generator=g, device=DEVICE).to(
+        torch.bfloat16) for _ in range(2))
+    with torch.no_grad():
+        wq, wk = Lm._rope(q, k, 10000.0)
+        gq, gk, _ = IF.fused_rotary_position_embedding(
+            q, k, use_neox_rotary_style=False)
+    rope_equal = torch.equal(gq, wq) and torch.equal(gk, wk)
+    check(rope_equal, "fused_rotary_position_embedding (interleaved) is not "
+                      "bitwise LLaMA's RoPE at 7b shapes")
+    log(f"fused RMSNorm vs LLaMA's (bf16 [{b}, {s}, {h * d}]): within one "
+        f"ulp, {norm_equal:.4f} of elements bitwise; fused RoPE vs LLaMA's "
+        f"(bf16 {list(INC_LLAMA_SHAPE)}): bitwise")
+    return {"rms_norm_within_one_ulp": ulp_ok,
+            "rms_norm_bitwise_share": norm_equal,
+            "rms_norm_max_abs_diff": float(diff.max()),
+            "rope_bitwise": rope_equal}
+
+
+def inc_fused_ce(torch, args, fce):
+    """incubate.nn.functional.fused_linear_cross_entropy on the card at the
+    training head's shape (bf16): forward and backward launch K5, K6 and
+    K7 once each; the loss and dh against the plain versions."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_linear_cross_entropy
+    N, Hd, V = TRAIN_BATCH * TRAIN_SEQ, 4096, 32000
+    h, w, labels, gr = fce_inputs(torch, N, Hd, V, 0, "any", torch.bfloat16,
+                                  args.seed + 14)
+    h.requires_grad_(True)
+    w.requires_grad_(True)
+    kernels = (fce.fused_ce_fwd, fce.fused_ce_bwd_dh, fce.fused_ce_bwd_dw)
+    before = [k.launches for k in kernels]
+    loss = fused_linear_cross_entropy(h, w, labels)
+    (loss * gr).sum().backward()
+    torch.cuda.synchronize()
+    launches = _deltas(kernels, before)
+    check(launches == [1, 1, 1],
+          f"incubate fused_linear_cross_entropy launched K5/K6/K7 "
+          f"{launches} times, want once each")
+    with torch.no_grad():
+        wm, wl, wz = fce.fused_ce_fwd_ref(h, w, labels, 0)
+        lse = (wm + torch.log(wl)).contiguous()
+        want_dh = fce.fused_ce_bwd_dh_ref(h, w, labels, lse, gr, 0)
+    loss_err = float((loss - (lse - wz)).abs().max())
+    check(torch.allclose(loss, lse - wz, atol=1e-4, rtol=1e-5),
+          f"incubate fused CE loss {loss_err:.3g} from its plain version")
+    ok, dh_err, dh_share = flash_close(h.grad, want_dh, "bfloat16", 2.0)
+    check(ok, f"incubate fused CE dh {dh_err:.3g} from its plain version")
+    log(f"incubate fused_linear_cross_entropy at N={N} H={Hd} V={V} bf16: "
+        f"K5/K6/K7 {launches}, loss {loss_err:.3g}, dh {dh_err:.3g} "
+        f"({dh_share:.3g} of tol)")
+    return {"launches": dict(zip(("fused_ce_fwd", "fused_ce_bwd_dh",
+                                  "fused_ce_bwd_dw"), launches)),
+            "loss_max_abs_err": loss_err, "dh_max_abs_err": dh_err,
+            "dh_tol_share": dh_share}
+
+
+def _import_profile(stderr):
+    """Seconds of the top-level imports in a ``PYTHONPROFILEIMPORTTIME``
+    log, and the five that took longest."""
+    top = []
+    for ln in stderr.splitlines():
+        parts = ln.split("|")
+        if len(parts) == 3 and ln.startswith("import time:") \
+                and parts[1].strip().isdigit() \
+                and not parts[2].startswith("  "):
+            top.append((parts[2].strip(), int(parts[1]) / 1e6))
+    top.sort(key=lambda t: -t[1])
+    return sum(t[1] for t in top), [{"module": m, "s": t}
+                                    for m, t in top[:5]]
+
+
+def _capi_run(exe, so, models, in_path, out_path):
+    """The C program serving ``models`` ([(prefix, kind, shapes)]) in one
+    process, its imports profiled: start-up s, each model's load s, run
+    ms by shape, the process's wall s and its import seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.update(PDT_PLATFORM="" if DEVICE != "cpu" else "cpu",
+               PDT_PYTHON=sys.executable, PYTHONPROFILEIMPORTTIME="1",
+               LD_LIBRARY_PATH=os.path.dirname(so) + ":"
+               + env.get("LD_LIBRARY_PATH", ""),
+               PYTHONPATH=root + ":" + env.get("PYTHONPATH", ""))
+    argv = [exe, str(INC_CAPI_REPS), in_path, out_path]
+    for i, (prefix, kind, shapes) in enumerate(models):
+        argv += (["--"] if i else []) + [prefix, kind] + [
+            "x".join(map(str, s)) for s in shapes]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, env=env,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"C program: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    lines = [ln.split() for ln in r.stdout.splitlines() if ln.strip()]
+    import_s, slowest = _import_profile(r.stderr)
+    return {"startup_s": float(next(ln[1] for ln in lines
+                                    if ln[0] == "STARTUP_S")),
+            "load_s": {os.path.basename(ln[1]): float(ln[2])
+                       for ln in lines if ln[0] == "MODEL"},
+            "run_ms": {ln[1]: [float(v) for v in ln[2:]] for ln in lines
+                       if ln[0] == "RUN_MS"},
+            "process_wall_s": wall, "import_s": import_s,
+            "slowest_imports": slowest}
+
+
+def inc_capi(torch, args, P, fa):
+    """The serving C ABI on the card: ``build_capi()``, the C program
+    ``tests/torch_capi_smoke.c`` compiled with ``gcc -ldl``, and two
+    models saved here served by it in one process of its own: ResNet-50
+    fp32 eval (dynamic batch) at batch 1 and 64, and the LLaMA bf16 at 7b
+    width,
+    EAGER_LAYERS layers, fixed spec ``[1, EAGER_SEQ]``. Each output must
+    be bitwise the in-process Predictor's on the same inputs (the twin
+    runs under torch's default matmul and cuDNN TF32 settings, as the C
+    program's interpreter does)."""
+    import shutil
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.utils.native import build_capi
+    from paddle_tpu_torch.vision.models import resnet as R
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(INCUBATE_DIR, ignore_errors=True)
+    os.makedirs(INCUBATE_DIR, exist_ok=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        so = build_capi()
+        exe = os.path.join(INCUBATE_DIR, "torch_capi_smoke")
+        subprocess.run(["gcc", "-O1", os.path.join(
+            root, "tests", "torch_capi_smoke.c"), "-o", exe, "-ldl"],
+            check=True)
+        out["build_s"] = time.perf_counter() - t0
+        P.seed(args.seed, DEVICE)
+        rn = R.resnet50(device=DEVICE)
+        rn.eval()
+        rprefix = os.path.join(INCUBATE_DIR, "resnet50")
+        P.jit.save(rn, rprefix, input_spec=[P.jit.InputSpec(
+            [None, 3, 224, 224], "float32", name="image")])
+        cfg = eager_config(LlamaConfig)
+        llama = LlamaForCausalLM(cfg, device=DEVICE, dtype=torch.bfloat16,
+                                 seed=args.seed)
+        lprefix = os.path.join(INCUBATE_DIR, "llama")
+        P.jit.save(llama, lprefix, input_spec=[P.jit.InputSpec(
+            [1, EAGER_SEQ], "int64", name="input_ids")])
+        del rn, llama
+        release(torch)
+        rs = np.random.RandomState(args.seed + 15)
+        models = [
+            ("resnet50", rprefix, "f32", [rs.standard_normal(
+                (bs, 3, 224, 224)).astype(np.float32) for bs in (1, 64)]),
+            ("llama", lprefix, "i64", [rs.randint(
+                0, cfg.vocab_size, (1, EAGER_SEQ)).astype(np.int64)])]
+        in_path = os.path.join(INCUBATE_DIR, "in.bin")
+        out_path = os.path.join(INCUBATE_DIR, "out.bin")
+        with open(in_path, "wb") as f:
+            for _, _, _, xs in models:
+                for x in xs:
+                    x.tofile(f)
+        # the in-process twin: the same handles, inputs and runs
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        twin = []
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            for name, prefix, _, xs in models:
+                t0 = time.perf_counter()
+                pred = inference.create_predictor(_predictor_config(
+                    inference, prefix))
+                res = {"in_process_load_s": time.perf_counter() - t0,
+                       "in_process_run_ms": {}}
+                h = pred.get_input_handle(pred.get_input_names()[0])
+                k2 = fa.flash_attention_fwd.launches
+                for x in xs:
+                    ms = []
+                    for _ in range(INC_CAPI_REPS):
+                        t0 = time.perf_counter()
+                        h.copy_from_cpu(x)
+                        pred.run()
+                        y = pred.get_output_handle(
+                            pred.get_output_names()[0]).copy_to_cpu()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    twin.append(np.asarray(y, np.float32).ravel())
+                    res["in_process_run_ms"]["x".join(map(str, x.shape))] \
+                        = ms
+                res["twin_k2_launches"] = fa.flash_attention_fwd.launches \
+                    - k2
+                out[name] = res
+                del pred, h
+                release(torch)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        check(out["llama"]["twin_k2_launches"] == EAGER_LAYERS
+              * INC_CAPI_REPS,
+              f"the LLaMA Predictor twin launched K2 "
+              f"{out['llama']['twin_k2_launches']} times, want "
+              f"{EAGER_LAYERS * INC_CAPI_REPS}")
+        proc = _capi_run(exe, so, [(p, k, [x.shape for x in xs])
+                                   for _, p, k, xs in models], in_path,
+                         out_path)
+        got = np.fromfile(out_path, np.float32)
+        off = 0
+        i = 0
+        for name, prefix, _, xs in models:
+            res = out[name]
+            res["c_run_ms"] = {}
+            bitwise = True
+            for x in xs:
+                want = twin[i]
+                part = got[off:off + want.size]
+                bitwise &= part.shape == want.shape and np.array_equal(
+                    part.view(np.uint32), want.view(np.uint32))
+                key = "x".join(map(str, x.shape))
+                res["c_run_ms"][key] = proc["run_ms"][key]
+                off += want.size
+                i += 1
+            check(bitwise, f"the C program's {name} outputs are not "
+                           f"bitwise the in-process Predictor's")
+            res.update({
+                "bitwise": bitwise,
+                "c_load_s": proc["load_s"][os.path.basename(prefix)],
+                "c_run_ms_p50": {k: float(np.percentile(v, 50))
+                                 for k, v in res["c_run_ms"].items()},
+                "in_process_run_ms_p50": {
+                    k: float(np.percentile(v, 50))
+                    for k, v in res["in_process_run_ms"].items()}})
+            log(f"C ABI {name}: run ms p50 C {res['c_run_ms_p50']} vs "
+                f"in-process {res['in_process_run_ms_p50']}, load "
+                f"{res['c_load_s']:.2f} s (in-process "
+                f"{res['in_process_load_s']:.2f}), outputs bitwise")
+        check(off == got.size, f"the C program wrote {got.size} values, "
+                               f"want {off}")
+        out["process"] = {k: proc[k] for k in ("startup_s",
+                                               "process_wall_s", "import_s",
+                                               "slowest_imports")}
+        log(f"C ABI process: start-up {proc['startup_s']:.2f} s (imports "
+            f"{proc['import_s']:.2f} s: {proc['slowest_imports'][:3]}), "
+            f"wall {proc['process_wall_s']:.2f} s for both models")
+    finally:
+        shutil.rmtree(INCUBATE_DIR, ignore_errors=True)
+    return out
+
+
+def phase_incubate(torch, args, P, fa, fce):
+    """incubate and the serving C ABI on the card: GPT-2 small generating
+    through FusedMultiTransformer, the card-vs-CPU cases, fused RMSNorm and
+    RoPE at LLaMA 7b shapes, the incubate fused CE (K5-K7) and the C
+    program serving ResNet-50 and the LLaMA (K2 in the in-process twin)."""
+    t0 = time.perf_counter()
+    out = {"gpt2_fused": inc_gpt(torch, args, P),
+           "card_vs_cpu": inc_card_vs_cpu(torch, args, P),
+           "norm_rope": inc_norm_rope(torch, args, P),
+           "fused_ce": inc_fused_ce(torch, args, fce)}
+    release(torch)
+    out["capi"] = inc_capi(torch, args, P, fa)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 MEASURE_STEPS = 5             # closed, ready, then 3 recorded
 MEASURE_AFTER = 3             # closed steps after the profiler stops
 EVENT_WALL_RTOL = 0.10        # Event-timed step against the wall p50
@@ -5797,6 +6400,11 @@ def main(argv=None) -> int:
                     help="build the kernels and run the static/compile "
                          "tier's phases alone (to_static, the static "
                          "Program, deployment)")
+    ap.add_argument("--incubate-only", action="store_true",
+                    help="build the kernels and run the incubate phase "
+                         "alone (GPT-2 small through FusedMultiTransformer, "
+                         "fused RMSNorm/RoPE, the incubate fused CE, the "
+                         "serving C ABI)")
     args = ap.parse_args(argv)
     # the mesh phase's ranks meet (FileStore) and leave their results here
     args.mesh_dir = os.path.join(os.path.dirname(args.out), "mesh") \
@@ -5860,6 +6468,21 @@ def main(argv=None) -> int:
         for key, val in alone.items():
             log(json.dumps({key: val}))
         log(f"chip_smoke {' '.join(argv)} total "
+            f"{time.perf_counter() - t_start:.1f}s")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.incubate_only:
+        import paddle_tpu_torch as P
+        incubate = phase_incubate(torch, args, P, fa, fce)
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump({"card": card, "kind": kind, "build_s": build_s,
+                           "incubate": incubate}, f, indent=1)
+        log(json.dumps({"incubate": incubate}))
+        log(f"chip_smoke --incubate-only total "
             f"{time.perf_counter() - t_start:.1f}s")
         log(card)
         print(json.dumps({"ok": True, "device": {
@@ -6029,6 +6652,7 @@ def main(argv=None) -> int:
                             fa, mt)
     vision = phase_vision(torch, args, P, fa, mt)
     bert = phase_bert(torch, args, P, fa, mt)
+    incubate = phase_incubate(torch, args, P, fa, fce)
     deepfm = phase_deepfm(torch, args)
     recompute = phase_recompute(torch, args, LlamaConfig, LlamaForCausalLM,
                                 fa)
@@ -6096,7 +6720,9 @@ def main(argv=None) -> int:
                 "launches_per_run"][name.replace("attention_", "")],
             **({"deployed_llama_launches_per_run": static_tier["deploy"][
                 "llama"]["k2_per_run"], "cpu_artifact_launches":
-                static_tier["deploy"]["cpu_artifact"]["k2"]}
+                static_tier["deploy"]["cpu_artifact"]["k2"],
+                "capi_llama_twin_launches": incubate["capi"]["llama"][
+                    "twin_k2_launches"]}
                if key == "fwd" else {}),
             "recompute_launches": {
                 "recompute": recompute["launches"][
@@ -6123,8 +6749,10 @@ def main(argv=None) -> int:
             "launches": fused_steps[name] * training_fused["steps"],
             "tp_launches_by_rank": [t[name] for t in
                                     mesh["tp_fused_ce"]["launches"]],
+            "incubate_launches": incubate["fused_ce"]["launches"][name],
             "mesh_launches_per_step": pp_launches(mesh, name),
-            "entry_points": "fused_linear_cross_entropy, "
+            "entry_points": "fused_linear_cross_entropy (also as "
+                            "incubate.nn.functional's), "
                             "fused_linear_cross_entropy_tp (vocab shard)",
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -6202,7 +6830,7 @@ def main(argv=None) -> int:
                        "eager": eager, "nn_sweep": nn_sweep, "gpt": gpt,
                        "measure": measure, "vision": vision, "bert": bert,
                        "recompute": recompute, "static": static_tier,
-                       **kernels}, f, indent=1)
+                       "incubate": incubate, **kernels}, f, indent=1)
     log(json.dumps({"decode_profile": profile}))
     log(json.dumps({"training": training}))
     log(json.dumps({"training_fused": training_fused}))
@@ -6218,6 +6846,7 @@ def main(argv=None) -> int:
     log(json.dumps({"bert": bert}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"elastic": elastic}))
+    log(json.dumps({"incubate": incubate}))
     log(json.dumps(kernels))
     log(json.dumps({"serving": serving}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")

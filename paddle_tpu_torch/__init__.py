@@ -27,7 +27,11 @@ initializers and the activation, common, norm, loss, container and
 transformer layers, ``regularizer``, and GPT (``models.gpt``); the
 static-graph world (``static``: ``Program``, ``Executor``,
 ``enable_static``) and the compile/export tier (``to_static``,
-``jit.save`` / ``jit.load``, ``inference.Predictor``).
+``jit.save`` / ``jit.load``, ``inference.Predictor``); the rest of the
+core API (``LazyGuard``, ``flops``, ``utils.run_check``, ...), the serving
+C ABI (``utils.native.build_capi``) and ``incubate`` (the fused
+transformer functionals and layers, masked decode attention, fused RoPE,
+segment and graph ops, ASP, ``LookAhead`` / ``ModelAverage``).
 """
 from .core.device import (  # noqa: F401
     device_count, get_device, is_compiled_with_tpu, resolve_device,
@@ -67,7 +71,7 @@ def __getattr__(name):
     if name == "DataParallel":
         from .distributed.parallel import DataParallel
         return DataParallel
-    if name in ("static", "inference"):
+    if name in ("static", "inference", "incubate"):
         import importlib
         return importlib.import_module(f".{name}", __name__)
     if name in ("enable_static", "disable_static", "in_dynamic_mode"):
@@ -80,7 +84,10 @@ def __getattr__(name):
 from .utils.flags import get_flags, set_flags  # noqa: F401
 from .framework_io import load, save  # noqa: F401
 from .framework_compat import (  # noqa: F401
-    CPUPlace, CUDAPinnedPlace, CUDAPlace, ParamAttr, TPUPlace, dtype,
-    finfo, get_cuda_rng_state, get_rng_state, iinfo, set_cuda_rng_state,
-    set_grad_enabled, set_rng_state,
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, LazyGuard, ParamAttr, TPUPlace,
+    batch, bool, check_shape, disable_signal_handler, dtype, finfo, flops,
+    get_cuda_rng_state, get_rng_state, iinfo, set_cuda_rng_state,
+    set_grad_enabled, set_printoptions, set_rng_state,
 )
+
+__version__ = "0.1.0"

@@ -36,7 +36,11 @@ DeviceLike = Union[str, torch.device, None]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The torch.device an entry point runs on: ``device`` if given, else
     the one ``set_device`` chose, else ``cuda``. Raises RuntimeError for a
-    CUDA device when CUDA is not available."""
+    CUDA device when CUDA is not available. Inside a ``LazyGuard`` block
+    every device is ``meta``: what the block builds holds no memory until
+    ``Layer.lazy_init`` builds it again outside."""
+    if getattr(_state, "lazy", 0):
+        return torch.device("meta")
     if device is None:
         device = getattr(_state, "device", None) or "cuda"
     dev = torch.device(device)

@@ -44,11 +44,27 @@ def _device_of(device):
     return resolve_device(s)
 
 
+def _lazy_pre_hook(layer, inputs):
+    """The first forward of a layer built under ``LazyGuard`` builds it."""
+    layer.lazy_init()
+
+
 class Layer(nn.Module):
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        from ...core import device as _dev
+        if getattr(_dev._state, "lazy", 0):
+            # built under LazyGuard (on meta): lazy_init builds it again
+            # from the same arguments
+            object.__setattr__(obj, "_lazy_ctor", (args, kwargs))
+        return obj
+
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
         self._dtype = dtypes.convert_dtype(dtype)
         self._name_scope = name_scope or self.__class__.__name__.lower()
+        if "_lazy_ctor" in self.__dict__:
+            nn.Module.register_forward_pre_hook(self, _lazy_pre_hook)
 
     # ---- registration ----
     def add_parameter(self, name, parameter):
@@ -90,8 +106,39 @@ class Layer(nn.Module):
         return p
 
     def lazy_init(self):
-        """Run the initializers a parameter was created with but has not
-        run yet (none: the port creates parameters initialised)."""
+        """Materialise a layer built under ``LazyGuard``: its parameters
+        and buffers (and its sublayers') are ``meta`` placeholders, so the
+        layer is built once more from the arguments it was built with,
+        outside the guard (its layer arguments materialised first), and
+        every placeholder is replaced by the new build's tensor of the same
+        name. The first forward calls it; otherwise it does nothing.
+        Materialised parameters are new objects: read ``parameters()``
+        again after it."""
+        ctor = self.__dict__.get("_lazy_ctor")
+        if ctor is not None:
+            from ...core import device as _dev
+            args, kwargs = ctor
+            for a in (*args, *kwargs.values()):
+                if isinstance(a, Layer) and a is not self:
+                    a.lazy_init()
+            depth = getattr(_dev._state, "lazy", 0)
+            _dev._state.lazy = 0
+            try:
+                twin = type(self)(*args, **kwargs)
+            finally:
+                _dev._state.lazy = depth
+            built = dict(twin.named_modules())
+            for name, sub in self.named_modules():
+                src = built[name]
+                for k in list(sub._parameters):
+                    sub._parameters[k] = src._parameters[k]
+                for k in list(sub._buffers):
+                    sub._buffers[k] = src._buffers[k]
+        for sub in self.modules():
+            sub.__dict__.pop("_lazy_ctor", None)
+            for hid, fn in list(sub._forward_pre_hooks.items()):
+                if fn is _lazy_pre_hook:
+                    del sub._forward_pre_hooks[hid]
         return self
 
     # ---- iteration ----

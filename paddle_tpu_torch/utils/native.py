@@ -21,6 +21,14 @@ A failed build (no ``g++``) is not fatal: ``get_lib()`` returns None,
 ``load_error()`` says why, and the store and the data loader use their
 pure-Python servers and queues instead. ``available()`` says which one
 runs.
+
+``build_capi()`` builds the serving C ABI
+(``paddle_tpu_torch/csrc/predictor_capi.cc``) the same way, with the
+running interpreter's headers and ``libpython`` (``sysconfig``), into
+``build/paddle_tpu_torch/libpt_capi.so``, and returns its path. A C
+program loads it with ``dlopen("libpt_capi.so")`` (``LD_LIBRARY_PATH`` on
+that directory) and needs ``paddle_tpu_torch`` importable (``PYTHONPATH``
+on the repo root); ``tests/torch_capi_smoke.c`` is such a program.
 """
 from __future__ import annotations
 
@@ -33,17 +41,20 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["get_lib", "available", "load_error", "build", "BlockingQueue",
-           "LIB_PATH", "SOURCE", "CXX_FLAGS"]
+__all__ = ["get_lib", "available", "load_error", "build", "build_capi",
+           "BlockingQueue", "LIB_PATH", "SOURCE", "CXX_FLAGS", "CAPI_PATH",
+           "CAPI_SOURCE"]
 
 _PKG = Path(__file__).resolve().parents[1]            # paddle_tpu_torch/
 SOURCE = _PKG / "csrc" / "host_runtime.cc"
 LIB_PATH = _PKG.parent / "build" / "paddle_tpu_torch" / "libpt_host_runtime.so"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread",
              "-fvisibility=hidden")
+CAPI_SOURCE = _PKG / "csrc" / "predictor_capi.cc"
+CAPI_PATH = LIB_PATH.with_name("libpt_capi.so")
 
 
-def _digest() -> str:
+def _digest(source: Path, flags) -> str:
     """The source, the flags, the compiler and the platform: a library
     built on another machine (a copied build directory) is rebuilt."""
     import platform
@@ -52,32 +63,34 @@ def _digest() -> str:
                              text=True, timeout=30).stdout
     except (OSError, subprocess.TimeoutExpired):
         cxx = ""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
     h.update(cxx.encode())
     h.update(platform.platform().encode())
     return h.hexdigest()
 
 
-def build(force: bool = False) -> float:
-    """Compile the source into LIB_PATH unless an up-to-date build is
-    there; returns the seconds g++ took (0.0 when nothing was built).
-    Raises RuntimeError when the compiler fails or is missing."""
+def _build_so(source: Path, lib: Path, flags, link, force: bool) -> float:
+    """Compile ``source`` into ``lib`` (``g++ flags source -o lib link``)
+    under an exclusive ``fcntl`` lock beside it, unless the stamp shows an
+    up-to-date build; the library is loaded once before it is published
+    by an atomic rename. Returns the seconds g++ took (0.0 when nothing
+    was built); RuntimeError when the compiler fails or is missing."""
     import time
-    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    stamp = LIB_PATH.with_suffix(".sha256")
-    with open(LIB_PATH.with_suffix(".lock"), "w") as lock:
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    stamp = lib.with_suffix(".sha256")
+    with open(lib.with_suffix(".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            digest = _digest()
-            if not force and LIB_PATH.is_file() and stamp.is_file() \
+            digest = _digest(source, (*flags, *link))
+            if not force and lib.is_file() and stamp.is_file() \
                     and stamp.read_text().strip() == digest:
                 return 0.0
-            tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
             t0 = time.perf_counter()
             try:
                 proc = subprocess.run(
-                    ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+                    ["g++", *flags, str(source), "-o", str(tmp), *link],
                     capture_output=True, text=True, timeout=300)
             except (OSError, subprocess.TimeoutExpired) as e:
                 raise RuntimeError(f"g++ could not run: {e}") from e
@@ -86,11 +99,40 @@ def build(force: bool = False) -> float:
                 raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
                                    f"{proc.stderr[-2000:]}")
             ctypes.CDLL(str(tmp))              # loads before it is published
-            os.replace(tmp, LIB_PATH)
+            os.replace(tmp, lib)
             stamp.write_text(digest)
             return time.perf_counter() - t0
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def build(force: bool = False) -> float:
+    """Compile the host runtime into LIB_PATH unless an up-to-date build
+    is there; returns the seconds g++ took (0.0 when nothing was built).
+    Raises RuntimeError when the compiler fails or is missing."""
+    return _build_so(SOURCE, LIB_PATH, CXX_FLAGS, (), force)
+
+
+def _capi_flags():
+    """g++ compile and link flags for the C ABI: the running interpreter's
+    headers, and its ``libpython`` linked with an rpath to where it
+    lives."""
+    import sysconfig
+    cv = sysconfig.get_config_var
+    libdir = cv("LIBDIR")
+    link = (f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+            f"-lpython{cv('LDVERSION')}", *(cv("LIBS") or "").split(),
+            *(cv("SYSLIBS") or "").split())
+    return ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread",
+            f"-I{cv('INCLUDEPY')}"), link
+
+
+def build_capi() -> str:
+    """Build the serving C ABI (``csrc/predictor_capi.cc``) into CAPI_PATH
+    unless an up-to-date build is there, and return its path (module
+    docstring). RuntimeError when the compiler fails."""
+    _build_so(CAPI_SOURCE, CAPI_PATH, *_capi_flags(), False)
+    return str(CAPI_PATH)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

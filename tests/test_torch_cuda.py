@@ -1691,3 +1691,102 @@ def test_cpu_artifact_launches_k2_on_the_card(cuda_device, tmp_path):
         assert fa.flash_attention_fwd.launches == before + 2, i
         want = m.logits(P.to_tensor(ids, place="cpu")).detach()
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---- incubate: the fused transformer path and the incubate fused CE
+
+def _fmt_pair(E=64, H=4, F=128, layers=2):
+    """FusedMultiTransformer on the card and on the CPU, same weights."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    P.seed(5, "cpu")
+    cpu = FusedMultiTransformer(E, H, F, num_layers=layers, device="cpu")
+    card = FusedMultiTransformer(E, H, F, num_layers=layers, device="cuda")
+    card.set_state_dict(cpu.state_dict())
+    return cpu.eval(), card.eval()
+
+
+@pytest.mark.cuda
+def test_fused_multi_transformer_decode_matches_the_cpu(cuda_device):
+    """Prefill and two per-example decode steps (rotary on), card vs CPU
+    in fp32 at 1e-4 / 1e-5: outputs and every cache."""
+    import paddle_tpu_torch as P
+    cpu, card = _fmt_pair()
+    rs = np.random.RandomState(6)
+    x = rs.standard_normal((3, 7, 64)).astype(np.float32)
+    steps = [rs.standard_normal((3, 1, 64)).astype(np.float32)
+             for _ in range(2)]
+    d = 16
+    inv = 1.0 / (10000.0 ** (np.arange(0, d, 2) / d))
+    ang = np.arange(32)[:, None] * inv[None, :]
+    sc = np.stack([np.sin(ang), np.cos(ang)]).astype(np.float32)
+    res = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        with torch.no_grad():
+            c = m.init_caches(3, 32)
+            rot = P.to_tensor(sc, place=dev)
+            o, c = m(P.to_tensor(x, place=dev), caches=c, rotary_embs=rot,
+                     rotary_emb_dims=1)
+            outs = [o]
+            lens = np.array([7, 3, 5], np.int64)
+            for s in steps:
+                o, c = m(P.to_tensor(s, place=dev), caches=c,
+                         seq_lens=P.to_tensor(lens, place=dev),
+                         rotary_embs=rot, rotary_emb_dims=1)
+                outs.append(o)
+                lens = lens + 1
+        res[dev] = [t.cpu() for t in (*outs, *c)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_masked_multihead_attention_matches_the_cpu(cuda_device):
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.incubate.nn.functional import \
+        masked_multihead_attention
+    rs = np.random.RandomState(7)
+    B, H, S, D = 4, 4, 64, 32
+    args = [rs.standard_normal((B, 3 * H * D)).astype(np.float32),
+            rs.standard_normal((2, B, H, S, D)).astype(np.float32)]
+    lens = np.array([0, 5, 63, 17], np.int64)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        o, c = masked_multihead_attention(
+            *[P.to_tensor(a, place=dev) for a in args],
+            sequence_lengths=P.to_tensor(lens, place=dev))
+        res[dev] = (o.cpu(), c.cpu())
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-4,
+                               atol=1e-5)
+    assert torch.equal(res["cuda"][1], res["cpu"][1])
+
+
+@pytest.mark.cuda
+def test_incubate_fused_ce_launches_k5_k6_k7(cuda_device):
+    """The incubate entry runs K5 forward and K6 / K7 backward once each,
+    and its loss equals the kernel wrapper's."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_linear_cross_entropy
+    g = torch.Generator(device="cuda").manual_seed(8)
+    h = torch.randn(256, 512, generator=g, device="cuda").to(torch.bfloat16)
+    w = (0.05 * torch.randn(512, 2048, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    labels = torch.randint(0, 2048, (256,), generator=g, device="cuda")
+    h.requires_grad_(True)
+    w.requires_grad_(True)
+    ks = (fce.fused_ce_fwd, fce.fused_ce_bwd_dh, fce.fused_ce_bwd_dw)
+    before = [k.launches for k in ks]
+    loss = fused_linear_cross_entropy(h, w, labels)
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(ks, before)] == [1, 1, 1]
+    m, l, z = fce.fused_ce_fwd_ref(h.detach(), w.detach(), labels)
+    torch.testing.assert_close(loss.detach(), m + torch.log(l) - z,
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_run_check_on_the_card(cuda_device, capsys):
+    import paddle_tpu_torch as P
+    assert P.utils.run_check() is True
+    assert "cuda" in capsys.readouterr().out

@@ -83,7 +83,12 @@ def test_the_walk_sees_the_ported_packages():
                  "paddle_tpu.profiler", "paddle_tpu.ops",
                  "paddle_tpu.nn.utils", "paddle_tpu.nn.quant",
                  "paddle_tpu.vision", "paddle_tpu.vision.models",
-                 "paddle_tpu.static", "paddle_tpu.inference"):
+                 "paddle_tpu.static", "paddle_tpu.inference",
+                 "paddle_tpu.incubate", "paddle_tpu.incubate.nn",
+                 "paddle_tpu.incubate.nn.functional",
+                 "paddle_tpu.incubate.nn.layer",
+                 "paddle_tpu.incubate.optimizer",
+                 "paddle_tpu.incubate.autograd"):
         assert must in PAIRS, must
 
 

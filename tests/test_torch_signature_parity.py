@@ -207,6 +207,26 @@ def test_enough_shared_names_are_checked():
                  "nn.layer.extras.dynamic_decode",
                  "nn.utils.spectral_norm", "nn.quant.weight_quantize",
                  "vision.models.resnet.ResNet", "vision.models.resnet.resnet50",
+                 "incubate.nn.functional.fused_transformer."
+                 "fused_multi_transformer",
+                 "incubate.nn.functional.fused_transformer."
+                 "fused_multi_head_attention",
+                 "incubate.nn.functional.masked_multihead_attention."
+                 "masked_multihead_attention",
+                 "incubate.nn.functional.fused_rotary_position_embedding."
+                 "fused_rotary_position_embedding",
+                 "incubate.nn.layer.fused_transformer.FusedMultiTransformer",
+                 "incubate.nn.layer.fused_transformer.FusedMultiTransformer."
+                 "init_caches",
+                 "incubate.nn.layer.fused_misc.FusedEcMoe",
+                 "incubate.ops.segment_sum", "incubate.ops.LookAhead",
+                 "incubate.ops.graph_sample_neighbors",
+                 "incubate.asp.prune_model", "incubate.autograd.forward_grad",
+                 "core.generator.next_key", "core.generator.key_override",
+                 "framework_compat.LazyGuard", "framework_compat.flops",
+                 "framework_compat.check_shape", "utils.run_check",
+                 "utils.native.build_capi", "utils.memo.LockedLRU",
+                 "utils.compat.require_version", "utils.dlpack.from_dlpack",
                  "models.bert.BertForPretraining",
                  "models.bert.bert_pretraining_loss", "models.ocr.DBNet",
                  "models.ocr.ctc_rec_loss"):
